@@ -9,9 +9,14 @@ reporting on lines of its own; any failure exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi) and torch's name;
 2. build    — compiles every kernel of the port from csrc/ with nvcc;
-3. edges    — each kernel against its plain PyTorch version on the card at
-              edge shapes (size-0 and partial tiles, nq not a multiple of
-              the query block, an f32 payload, d above one feature stage);
+3. edges    — K1 against its plain PyTorch version on the card at edge
+              shapes (size-0 and partial tiles, nq not a multiple of the
+              query block, an f32 payload, d above one feature stage);
+   ntt      — K2 (one stage of the four-step NTT) against its plain version
+              stage by stage, and the whole transform against the host
+              butterfly NTT: exact equality, forward and inverse, N=4096
+              (64x64) and N=8192 (m=64 and 128), B in {1, 33, 512},
+              canonical and lazy inputs;
 4. main     — the SIFT1M operating point (1M x 128 base, 100K train,
               IVF1024 + PQ32x8 with a bf16 reconstruction payload,
               nprobe=16, COARSE_PROBE=256, K=100): synthetic SIFT-style data
@@ -22,6 +27,16 @@ reporting on lines of its own; any failure exits non-zero:
               kernel's launch count read around those requests only; each
               kernel is compared with its plain version at the shapes of the
               first batch; recall@10/@100 scored against exact ground truth;
+   encrypted — the BFV encrypted re-rank on the same index and base, HE
+              defaults (N=4096, 2 limbs, t=2^24), 256 candidates per query:
+              binary POST /coarsesearch top-256, then POST /encryptedsearch
+              for the same 4 batches of 64 queries (3 with respMod "full",
+              1 with "q1" and a sparse key), client decrypt, top-100. K2 is
+              first held against its plain version at the first batch's own
+              stage inputs, and the device program against its numpy twin;
+              launch counts are read around the requests only; decrypted
+              distances must equal the plaintext precise_search scores
+              exactly; recall as above; then where one request's time goes;
 5. timings  — each kernel's time with CUDA events at the main-path shape,
               beside its plain version, a PyTorch library call and the
               card's bound for the same work; printed as one JSON line
@@ -45,13 +60,19 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 FLOP/s
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
+# FLOP/s, dense int8 OP/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
+# int8 multiply-adds that one multiply-add of two 30-bit residues costs on
+# the int8 tensor cores: 4 x 4 balanced base-256 digits
+INT8_MACS_PER_MODMAC = 16
 
 NBASE, NTRAIN, D = 1_000_000, 100_000, 128
 NQ_BATCH, N_BATCHES = 64, 4
 RECALL10_MIN, RECALL100_MIN = 0.95, 0.85
+Q1_SPARSE_H = 32                # sparse secret for the "q1" response wire
 
 
 def log(phase: str, msg: str) -> None:
@@ -139,29 +160,402 @@ def phase_edges() -> None:
          [64, 10, 0, 0], [1, 0, 2, 3])
 
 
-def profile_search(disp, queries, probes, k: int) -> None:
-    """Where a /search request's time goes: torch.profiler over N_BATCHES
-    warm requests; device time by kernel and the device's busy share of the
-    host wall clock (the rest is host work the device waits on), and the
-    host-only batch preparation (probe expansion, union, upload) alone."""
+def check_stage(name, x, step, canonical) -> int:
+    """K2 against its plain version on one stage input on the card. Returns
+    the max |residue difference| (must be 0)."""
+    import torch
+
+    from prefhetch_tpu_torch.ops import ntt4_step as k2
+
+    got = k2.ntt4_step(x, step, canonical)
+    torch.cuda.synchronize()              # a fault in the run shows here
+    want = k2.ntt4_step_plain(x, step)
+    lim = step.q if canonical else 2 * step.q
+    if int(got.min()) < 0 or int(got.max()) >= lim:
+        raise AssertionError(f"{name}: output outside [0, {lim})")
+    err = int(((got % step.q).long() - want.long()).abs().max())
+    if err != 0:
+        raise AssertionError(f"{name}: K2 differs from its plain version "
+                             f"(max |diff| {err})")
+    return err
+
+
+def phase_ntt() -> None:
+    """K2 stage by stage against its plain version, and the transform
+    against the host butterfly NTT, all exact."""
     import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.crypto import ntt as hostntt
+    from prefhetch_tpu_torch.crypto.params import find_ntt_primes
+    from prefhetch_tpu_torch.ops import ntt4 as n4
+
+    for n in (4096, 8192):
+        q = find_ntt_primes(n, 30, 2)[1]
+        tb = n4.build_ntt4_tables(q, n)
+        perm, _ = n4.fourstep_perm(tb)
+        host_tb = hostntt.build_tables(q, n)
+        for bsz in (1, 33, 512):
+            for kind, hi in (("canonical", q), ("lazy", 1 << 31)):
+                rng = np.random.default_rng(n + bsz + hi % 7)
+                x = rng.integers(0, hi, (bsz, n), dtype=np.int64)
+                x[0, :4] = [0, q - 1, min(q, hi - 1), hi - 1]
+                xc = torch.from_numpy(x).cuda()
+                # each stage on the input the transform gives it
+                a = xc.to(torch.int32).reshape(bsz, tb.n1, tb.n2)
+                at = a.transpose(1, 2).contiguous()
+                check_stage(f"ntt/f_a n={n} B={bsz} {kind}", at, tb.f_a, False)
+                fwd = n4.ntt4(xc, tb)
+                fwd_plain = n4.ntt4(xc, tb, plain=True)
+                if not torch.equal(fwd, fwd_plain):
+                    raise AssertionError(f"ntt4 n={n} B={bsz} {kind}: kernel "
+                                         f"and plain transforms differ")
+                host = hostntt.ntt(x % q, host_tb)
+                if not np.array_equal(fwd.cpu().numpy(), host[:, perm]):
+                    raise AssertionError(f"ntt4 n={n} B={bsz} {kind}: differs "
+                                         f"from the host butterfly NTT")
+                # inverse, fed the lazy input itself (four-step order in)
+                check_stage(f"ntt/g_a n={n} B={bsz} {kind}",
+                            a.contiguous(), tb.g_a, False)
+                inv = n4.intt4(xc, tb)
+                inv_plain = n4.intt4(xc, tb, plain=True)
+                _, inv_perm = n4.fourstep_perm(tb)
+                host_inv = hostntt.intt((x % q)[:, inv_perm], host_tb)
+                if not torch.equal(inv, inv_plain) or not np.array_equal(
+                        inv.cpu().numpy(), host_inv):
+                    raise AssertionError(f"intt4 n={n} B={bsz} {kind}: "
+                                         f"kernel, plain and host differ")
+                back = n4.intt4(fwd, tb)
+                if not np.array_equal(back.cpu().numpy(), x % q):
+                    raise AssertionError(f"n={n} B={bsz} {kind}: inverse of "
+                                         f"forward is not the input")
+        log("ntt", f"N={n} ({tb.n1}x{tb.n2}) q={q}: K2 = plain = host "
+            f"butterfly, forward and inverse, B in (1, 33, 512), canonical "
+            f"and lazy inputs: ok (max |err| 0)")
+
+
+def check_k2_at_request_shape(svc, ctq, idx) -> int:
+    """K2 against its plain version at the stage inputs of one real request
+    (the candidate polynomials of this batch, then the c0 products), every
+    stage of every limb. Returns the max |difference| (0)."""
+    import torch
+
+    from prefhetch_tpu_torch.ops.ntt4 import modmul
+    from prefhetch_tpu_torch.ops.ntt4_step import ntt4_step_plain
+
+    n = svc.params.n
+    nq = idx.shape[0]
+    polys = svc._base_dev[idx.long()].flip(-1).reshape(-1, n)
+    nb = polys.shape[0] // nq
+    c0q = ctq[:, 0][..., svc._perm]
+    err = 0
+    for i, tb in enumerate(svc._tables):
+        lifted = torch.where(polys < 0, polys + tb.q, polys)
+        a = lifted.reshape(-1, tb.n1, tb.n2).transpose(1, 2).contiguous()
+        err = max(err, check_stage(f"req/f_a limb {i}", a, tb.f_a, False))
+        y = ntt4_step_plain(a, tb.f_a).transpose(1, 2).contiguous()
+        err = max(err, check_stage(f"req/f_b limb {i}", y, tb.f_b, True))
+        pt = ntt4_step_plain(y, tb.f_b).reshape(nq, nb, n)
+        o0 = modmul(c0q[:, None, i], pt, tb.q).to(torch.int32)
+        b = o0.reshape(-1, tb.n1, tb.n2).contiguous()
+        err = max(err, check_stage(f"req/g_a limb {i}", b, tb.g_a, False))
+        z = ntt4_step_plain(b, tb.g_a).transpose(1, 2).contiguous()
+        err = max(err, check_stage(f"req/g_b limb {i}", z, tb.g_b, True))
+    log("kernel", f"ntt4_step at the request's stage inputs "
+        f"[{polys.shape[0]}, {svc._tables[0].n2}, {svc._tables[0].n1}] x "
+        f"{len(svc._tables)} limbs x 4 stages: ok (max |err| {err})")
+    return err
+
+
+def post_coarse_topk(disp, queries, probes, k):
+    import numpy as np
+
+    from prefhetch_tpu_torch.utils import wire_bin
+
+    req = wire_bin.encode(wire_bin.KIND_COARSE_TOPK_REQ, [
+        queries, probes, np.array([k], np.uint32)])
+    t0 = time.perf_counter()
+    status, _, body = disp.handle(
+        "POST", "/coarsesearch", {"content-type": wire_bin.CONTENT_TYPE}, req)
+    ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"POST /coarsesearch: {status} {body[:300]!r}")
+    kind, (ids, dists, counts) = wire_bin.decode(body)
+    if kind != wire_bin.KIND_COARSE_TOPK or ids.shape != (len(queries), k):
+        raise AssertionError(f"POST /coarsesearch answered kind {kind}, "
+                             f"ids {ids.shape}")
+    return ids, ms
+
+
+def post_encrypted(disp, client, queries, cand, mode):
+    """One /encryptedsearch request through the Dispatcher and the client's
+    decryption. Returns (distances [nq, P] f32, request ms, bytes up/down,
+    client encrypt ms, client decrypt ms)."""
+    import numpy as np
+
+    from prefhetch_tpu_torch.utils.wire import unpack_i32
+
+    t0 = time.perf_counter()
+    body = {"encryptedPreciseQuery": client.encrypt_query_batch(queries),
+            "nearestCoarseVectorIndexes": cand.tolist()}
+    if mode != "full":
+        body["respMod"] = mode
+    raw = json.dumps(body).encode()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    if b"preciseQuery" in raw:
+        raise AssertionError("the plaintext query is in the request")
+    t0 = time.perf_counter()
+    status, _, resp = disp.handle("POST", "/encryptedsearch", {}, raw)
+    req_ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"POST /encryptedsearch: {status} "
+                             f"{resp[:300]!r}")
+    t0 = time.perf_counter()
+    out = json.loads(resp)
+    norms = np.asarray(out["candidateNorms"])
+    c0 = unpack_i32(out["c0Ip"])
+    if mode == "full":
+        dists = client.decrypt_scores_trunc(unpack_i32(out["c1Ntt"]), c0,
+                                            norms, queries)
+    else:
+        dists = client.decrypt_scores_trunc_q1(unpack_i32(out["c1Q1"]), c0,
+                                               norms, queries)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    return dists, req_ms, len(raw), len(resp), enc_ms, dec_ms
+
+
+def encrypted_breakdown(disp, client, queries, cand, mode) -> None:
+    """Where one /encryptedsearch request's time goes: the stages of the
+    served path itself (utils/stages.py marks them in the Dispatcher, the
+    engine and the service), recorded around one Dispatcher.handle call on
+    the host clock with the device synchronised at each stage's end. The
+    recorded request must answer the same bytes as an unrecorded one, and
+    its stages must cover the request's wall time."""
+    from prefhetch_tpu_torch.utils.stages import record_stages
+
+    body = {"encryptedPreciseQuery": client.encrypt_query_batch(queries),
+            "nearestCoarseVectorIndexes": cand.tolist()}
+    if mode != "full":
+        body["respMod"] = mode
+    raw = json.dumps(body).encode()
+    status, _, want = disp.handle("POST", "/encryptedsearch", {}, raw)
+    if status != 200:
+        raise AssertionError(f"POST /encryptedsearch: {status} "
+                             f"{want[:300]!r}")
+    with record_stages() as times:
+        t0 = time.perf_counter()
+        status, _, resp = disp.handle("POST", "/encryptedsearch", {}, raw)
+        wall = (time.perf_counter() - t0) * 1e3
+    if status != 200 or resp != want:
+        raise AssertionError("the request answered otherwise while its "
+                             "stages were recorded")
+    expected = ["json parse", "shape and range checks",
+                "ct_from_wire (c1 expansion + host NTT)",
+                "prepare (stack, pad, norms)", "upload", "device program",
+                "download", "pack_i32", "json.dumps"]
+    if list(times) != expected:
+        raise AssertionError(f"stages recorded: {list(times)}, expected "
+                             f"{expected}")
+    total = sum(times.values())
+    log("encrypted", f"one {len(queries)}-query request, respMod={mode}, "
+        f"stage by stage on the served path: wall {wall:.1f} ms, stages "
+        f"{total:.1f} ms; request {len(raw) / 1e6:.2f} MB, response "
+        f"{len(resp) / 1e6:.2f} MB")
+    for name, ms in times.items():
+        log("encrypted", f"  {ms:9.3f} ms  {100 * ms / wall:5.1f}%  {name}")
+    # what no stage covers is routing and the stats record: a few percent
+    if not 0.95 * wall <= total <= wall:
+        raise AssertionError(f"the stages sum to {total:.1f} ms of a "
+                             f"{wall:.1f} ms request")
+
+
+def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
+    """The encrypted re-rank at the operating point of the main phase: K2
+    and the device program checked on the first batch, then N_BATCHES
+    /coarsesearch + /encryptedsearch rounds with the launch counts read
+    around them, exact agreement with precise_search, recall, and where one
+    request's time goes. Returns (launches, K2's launches counted around
+    each request by response wire, K2's max |err| vs plain)."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.client.he import HEClient
+    from prefhetch_tpu_torch.metrics import benchmark_results
+    from prefhetch_tpu_torch.ops import ntt4_step as k2
+    from prefhetch_tpu_torch.ops import union_scan_min as usm
+
+    cfg = engine.config
+    k = cfg.protocol.k
+    he_full = cfg.he
+    he_q1 = dataclasses.replace(he_full, resp_mod="q1", sparse_h=Q1_SPARSE_H)
+    t0 = time.perf_counter()
+    clients = {"full": HEClient(he_full), "q1": HEClient(he_q1)}
+    log("encrypted", f"HE N={he_full.n}, {he_full.n_limbs} limbs, "
+        f"t=2^{he_full.t_bits}; two client key sets (dense; sparse h="
+        f"{Q1_SPARSE_H}) in {time.perf_counter() - t0:.2f} s")
+    cp = cfg.protocol.coarse_probe
+    mem0 = torch.cuda.memory_allocated()
+    svc = engine.he_service               # parks the int32 base on the card
+    torch.cuda.synchronize()
+    log("encrypted", f"he_service: int32 base + zero row on the card, "
+        f"{(torch.cuda.memory_allocated() - mem0) / 1e9:.3f} GB; device "
+        f"memory allocated in all {torch.cuda.memory_allocated() / 1e9:.3f} "
+        f"GB")
+    # K2 vs plain at the first batch's own stage inputs; the device program
+    # against its numpy twin on the first 4 queries
+    cand0, _ = post_coarse_topk(disp, queries[:NQ_BATCH], probes[:NQ_BATCH],
+                                cp)
+    cts0 = [svc.ctx.ct_from_wire(w) for w in
+            clients["full"].encrypt_query_batch(queries[:NQ_BATCH])]
+    ctq0, idx0, _ = svc.prepare(cts0, cand0)
+    ctq0_d, idx0_d = svc.upload(ctq0, idx0)
+    k2_err = check_k2_at_request_shape(svc, ctq0_d, idx0_d)
+    got4 = svc._trunc_mac(ctq0_d[:4], idx0_d[:4]).cpu().numpy()
+    c1_4, c0_4 = svc._trunc_mac_numpy(ctq0[:4, 0], ctq0[:4, 1], idx0[:4])
+    if not np.array_equal(got4, np.concatenate([c1_4, c0_4], axis=-1)):
+        raise AssertionError("the device program differs from its numpy twin")
+    log("encrypted", "device program = numpy twin (butterfly NTT) on 4 "
+        "queries x 8 blocks: ok (bit-equal)")
+    del ctq0_d, idx0_d
+
+    reset_counts()
+    modes = ["full"] * (N_BATCHES - 1) + ["q1"]
+    enc_ids, enc_rows, coarse_ms = [], [], []
+    per_request = {"full": [], "q1": []}   # K2 launches of each request
+    enc_err = 0.0
+    for b, mode in enumerate(modes):
+        sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
+        cand, ms = post_coarse_topk(disp, queries[sl], probes[sl], cp)
+        coarse_ms.append(ms)
+        before = k2.ntt4_step.launches
+        dists, req, up, down, enc_t, dec_t = post_encrypted(
+            disp, clients[mode], queries[sl], cand, mode)
+        per_request[mode].append(k2.ntt4_step.launches - before)
+        plain = engine.precise_search(queries[sl], cand)
+        enc_err = max(enc_err, float(np.abs(dists - plain).max()))
+        if not np.array_equal(dists, plain):
+            raise AssertionError(
+                f"batch {b} ({mode}): decrypted distances differ from "
+                f"precise_search (max |err| {enc_err})")
+        order = np.argsort(dists, axis=1, kind="stable")[:, :k]
+        enc_ids.append(np.take_along_axis(cand, order, axis=1))
+        enc_rows.append(f"{mode}: {req:.1f} ms (request {up / 1e6:.2f} MB, "
+                        f"response {down / 1e6:.2f} MB; client encrypt "
+                        f"{enc_t:.0f} ms, decrypt {dec_t:.0f} ms)")
+    enc_launches = {"union_scan_min": usm.union_scan_min.launches,
+                    "ntt4_step": k2.ntt4_step.launches}
+    enc_plain_calls = (usm.union_scan_min_reference.calls
+                       + k2.ntt4_step_plain.calls)
+    L = he_full.n_limbs
+    want = {"full": 4 * L, "q1": 6 * L}
+    log("encrypted", f"POST /coarsesearch top-{cp} x{N_BATCHES}: "
+        f"{', '.join(f'{t:.1f}' for t in coarse_ms)} ms; POST "
+        f"/encryptedsearch x{N_BATCHES} of {NQ_BATCH} queries (host clock): "
+        + "; ".join(enc_rows))
+    log("encrypted", f"launches {enc_launches}; ntt4_step launches counted "
+        f"around each /encryptedsearch request {per_request} (expected "
+        f"{want['full']} per full request, {want['q1']} per q1 request), "
+        f"plain-version calls {enc_plain_calls}; decrypted distances = "
+        f"precise_search, max |err| {enc_err}")
+    for mode, counts in per_request.items():
+        if not counts or any(c != want[mode] for c in counts):
+            raise AssertionError(f"K2 launches per {mode} request {counts}, "
+                                 f"expected {want[mode]} each")
+    if enc_launches["ntt4_step"] != sum(map(sum, per_request.values())):
+        raise AssertionError("K2 ran outside the /encryptedsearch requests")
+    if enc_plain_calls != 0:
+        raise AssertionError("a plain version ran on the encrypted path")
+    rep_e = benchmark_results(np.concatenate(enc_ids), data["groundtruth"],
+                              k=k)
+    log("encrypted", f"recall@1 {rep_e.recall_1} recall@10 {rep_e.recall_10} "
+        f"recall@100 {rep_e.recall_100} mrr@10 {rep_e.mrr_10}")
+    if rep_e.recall_10 < RECALL10_MIN or rep_e.recall_100 < RECALL100_MIN:
+        raise AssertionError(
+            f"encrypted path: recall@10 {rep_e.recall_10} / recall@100 "
+            f"{rep_e.recall_100} below {RECALL10_MIN} / {RECALL100_MIN}")
+    for mode in ("full", "q1"):
+        encrypted_breakdown(disp, clients[mode], queries[:NQ_BATCH], cand0,
+                            mode)
+    raw = json.dumps({
+        "encryptedPreciseQuery":
+            clients["full"].encrypt_query_batch(queries[:NQ_BATCH]),
+        "nearestCoarseVectorIndexes": cand0.tolist()}).encode()
+    profile_device(
+        f"one warm /encryptedsearch request (full, {NQ_BATCH} queries)",
+        lambda: disp.handle("POST", "/encryptedsearch", {}, raw))
+    return enc_launches, per_request, k2_err
+
+
+def time_ntt4_step(tb, nbatch: int, sm_mhz: float) -> dict:
+    """K2 per launch at the request's shape ([nbatch, r, m] int32), each of
+    the four stages of one limb (two carry twiddles) on random residues,
+    beside the plain version and the card's bound. Returns the timing keys
+    of K2's entry in the kernels line (means over the four stages)."""
+    import torch
+
+    from prefhetch_tpu_torch.ops import ntt4_step as k2
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    stages = [("f_a", tb.f_a, False), ("f_b", tb.f_b, True),
+              ("g_a", tb.g_a, False), ("g_b", tb.g_b, True)]
+    rows = []
+    for name, step, canonical in stages:
+        xs = [torch.randint(0, tb.q, (nbatch, step.r, step.m), device=dev,
+                            dtype=torch.int32, generator=gen)
+              for _ in range(8)]            # 8 x 8.4 MB in + out: past L2
+        x0 = xs[0]
+        t_k = cuda_time_ms(lambda: k2.ntt4_step(x0, step, canonical))
+        t_p = cuda_time_ms(lambda: k2.ntt4_step_plain(x0, step))
+        t_k2 = cuda_time_ms(lambda: k2.ntt4_step(x0, step, canonical))
+        ring = iter(range(10 ** 9))
+        t_cold = cuda_time_ms(
+            lambda: k2.ntt4_step(xs[next(ring) % 8], step, canonical),
+            iters=24)
+        macs = nbatch * step.r * step.m * step.m
+        nbytes = (2 * nbatch * step.r * step.m * 4 + step.m * step.m * 4
+                  + (2 * step.r * step.m * 4 if step.tw is not None else 0))
+        rows.append((name, min(t_k, t_k2), t_p, t_cold, macs, nbytes))
+    ms, plain_ms, cold_ms, macs, nbytes = (
+        sum(r[i] for r in rows) / len(rows) for i in range(1, 6))
+    # the card's bound: bytes once over the memory rate; the multiply-adds
+    # as int8 tensor-core operations (16 digit products each, 2 ops a
+    # product) over the int8 peak, the fastest integer unit the card has
+    ops_s = macs * INT8_MACS_PER_MODMAC * 2 / INT8_OPS
+    bound_ms = max(nbytes / HBM_BYTES_S, ops_s) * 1e3
+    bound_by = "bytes" if nbytes / HBM_BYTES_S >= ops_s else "operations"
+    # what the route this kernel takes could reach: one 32-bit multiply-add
+    # per integer lane per clock (64 lanes an SM), two for a 32x32->64 product
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    pipe_ms = macs * 2 / (n_sm * 64 * sm_mhz * 1e6) * 1e3
+    log("timing", f"ntt4_step at [{nbatch}, {tb.n2}, {tb.n1}] int32, per "
+        f"launch: " + "; ".join(
+            f"{n_} {a:.4f} ms (plain {b_:.4f}, inputs past L2 {c:.4f})"
+            for n_, a, b_, c, _, _ in rows))
+    log("timing", f"ntt4_step mean of the four stages: kernel {ms:.4f} "
+        f"ms (inputs past L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"library call none, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.2f} MB; {macs / 1e6:.1f} M multiply-adds = "
+        f"{ops_s * 1e3:.4f} ms of int8 tensor-core time); the 32-bit "
+        f"integer pipe alone would need {pipe_ms:.4f} ms at "
+        f"{n_sm} SMs x 64 lanes x {sm_mhz:.0f} MHz")
+    return {"ms": ms, "ms_inputs_past_l2": cold_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def profile_device(what: str, run) -> None:
+    """torch.profiler over run() (warm requests): device time by kernel and
+    the device's busy share of the host wall clock; the rest is host work
+    the device waits on."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from prefhetch_tpu_torch.utils import wire_bin
-
-    reqs = [wire_bin.encode(wire_bin.KIND_SEARCH_REQ, [
-        queries[b * NQ_BATCH:(b + 1) * NQ_BATCH],
-        probes[b * NQ_BATCH:(b + 1) * NQ_BATCH], np.array([k], np.uint32),
-    ]) for b in range(N_BATCHES)]
-    hdr = {"content-type": wire_bin.CONTENT_TYPE}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for r in reqs:
-            disp.handle("POST", "/search", hdr, r)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): the aten ops that launch
@@ -177,10 +571,31 @@ def profile_search(disp, queries, probes, k: int) -> None:
     busy = (f"device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}% "
             f"of wall)" if rows else "device busy not measured (the "
             "profiler recorded no device events)")
-    log("profile", f"{N_BATCHES} warm /search requests: wall {wall_ms:.3f} "
-        f"ms, {busy}")
+    log("profile", f"{what}: wall {wall_ms:.3f} ms, {busy}")
     for dev_us, key, count in rows[:10]:
         log("profile", f"  {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+
+
+def profile_search(disp, queries, probes, k: int) -> None:
+    """Where a /search request's time goes: the profile of N_BATCHES warm
+    requests, and the host-only batch preparation (probe expansion, union,
+    upload) alone."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.utils import wire_bin
+
+    reqs = [wire_bin.encode(wire_bin.KIND_SEARCH_REQ, [
+        queries[b * NQ_BATCH:(b + 1) * NQ_BATCH],
+        probes[b * NQ_BATCH:(b + 1) * NQ_BATCH], np.array([k], np.uint32),
+    ]) for b in range(N_BATCHES)]
+    hdr = {"content-type": wire_bin.CONTENT_TYPE}
+
+    def run():
+        for r in reqs:
+            disp.handle("POST", "/search", hdr, r)
+
+    profile_device(f"{N_BATCHES} warm /search requests", run)
     t0 = time.perf_counter()
     for b in range(N_BATCHES):
         sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
@@ -218,6 +633,7 @@ def main() -> int:
     from prefhetch_tpu_torch.data.synthetic import make_clustered_dataset
     from prefhetch_tpu_torch.engine.server import QueryEngine
     from prefhetch_tpu_torch.metrics import benchmark_results
+    from prefhetch_tpu_torch.ops import ntt4_step as k2
     from prefhetch_tpu_torch.ops import union_scan_min as usm
     from prefhetch_tpu_torch.ops.distances import rank_centroids
     from prefhetch_tpu_torch.ops.topk import topk_smallest
@@ -228,11 +644,13 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # -- 1. card ----------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    def nvidia_smi(fields: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+
+    smi = nvidia_smi("name,power.limit")
     kind = torch.cuda.get_device_name(0)
     log("card", f"nvidia-smi: {smi}")
     log("card", f"torch: {kind}, devices: {torch.cuda.device_count()}, "
@@ -240,7 +658,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     # -- 2. build -----------------------------------------------------------
-    kernels = ["union_scan_min"]
+    kernels = ["union_scan_min", "ntt4_step"]
     for name in kernels:                  # always compile from the sources
         cuda_build.library_path(name).unlink(missing_ok=True)
     built = cuda_build.build(kernels)
@@ -252,6 +670,7 @@ def main() -> int:
 
     # -- 3. kernels at edge shapes -----------------------------------------
     phase_edges()
+    phase_ntt()
 
     # -- 4. main path at the SIFT1M preset ----------------------------------
     t0 = time.perf_counter()
@@ -336,8 +755,13 @@ def main() -> int:
     del d2k, d2r, mink, minr
 
     # the main path itself, with launch counts read around it only
-    usm.union_scan_min.launches = 0
-    usm.union_scan_min_reference.calls = 0
+    def reset_counts() -> None:
+        usm.union_scan_min.launches = 0
+        usm.union_scan_min_reference.calls = 0
+        k2.ntt4_step.launches = 0
+        k2.ntt4_step_plain.calls = 0
+
+    reset_counts()
     ids_all, dists_all, req_ms = [], [], []
     k = cfg.protocol.k
     for b in range(N_BATCHES):
@@ -357,8 +781,10 @@ def main() -> int:
             raise AssertionError(f"POST /search answered kind {kind_r}")
         ids_all.append(ids)
         dists_all.append(dists)
-    launches = {"union_scan_min": usm.union_scan_min.launches}
-    plain_calls = usm.union_scan_min_reference.calls
+    launches = {"union_scan_min": usm.union_scan_min.launches,
+                "ntt4_step": k2.ntt4_step.launches}
+    plain_calls = (usm.union_scan_min_reference.calls
+                   + k2.ntt4_step_plain.calls)
     log("main", f"POST /search x{N_BATCHES} of {NQ_BATCH} queries: "
         f"{', '.join(f'{t:.1f}' for t in req_ms)} ms (host clock, first "
         f"request includes warm-up); launches {launches}, plain-version "
@@ -395,6 +821,10 @@ def main() -> int:
         )
     del base64, q64
 
+    # -- 4b. the encrypted re-rank at the same operating point ---------------
+    enc_launches, k2_per_request, k2_err = phase_encrypted(
+        engine, disp, data, queries, probes, reset_counts)
+
     # -- 5. timings at the main-path shape (first batch) ---------------------
     args = (view.payload, view.norms, view.sizes, q1, union1)
     ms = cuda_time_ms(lambda: usm.union_scan_min(*args))
@@ -426,6 +856,10 @@ def main() -> int:
         f"{ms2:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul cross term "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    svc = engine.he_service
+    nbatch = NQ_BATCH * -(-cfg.protocol.coarse_probe // (svc.params.n // D))
+    k2_times = time_ntt4_step(svc._tables[0], nbatch,
+                              float(nvidia_smi("clocks.max.sm").split()[0]))
     profile_search(disp, queries, probes, k)
     log("done", f"wall {time.perf_counter() - t_start:.1f} s")
 
@@ -436,6 +870,7 @@ def main() -> int:
         "replaces": "prefhetch_tpu/ops/pallas_scan.py:256",
         "launches": launches["union_scan_min"],
         "launches_per_batch": launches["union_scan_min"] / N_BATCHES,
+        "path": f"POST /search x{N_BATCHES}",
         "max_abs_err": max_err,
         "ms": min(ms, ms2),
         "plain_ms": plain_ms,
@@ -444,6 +879,20 @@ def main() -> int:
         "library_ms": library_ms,
         "library_call": "torch.matmul bf16 [nq,d]x[d,U_real*T], the cross "
                         "term only (a partial function)",
+    }, {
+        "name": "ntt4_step",
+        "route": "cuda",
+        "source": "prefhetch_tpu_torch/csrc/ntt4_step.cu",
+        "replaces": "prefhetch_tpu/ops/ntt_pallas.py:246",
+        "launches": enc_launches["ntt4_step"],
+        "launches_per_request": k2_per_request,
+        "path": f"POST /encryptedsearch x{N_BATCHES} "
+                f"({N_BATCHES - 1} full, 1 q1)",
+        "max_abs_err": k2_err,
+        **k2_times,
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes an exact "
+                        "modular matrix product",
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

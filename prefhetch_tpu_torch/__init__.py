@@ -6,17 +6,24 @@ reader finds each pair, and the tests hold each against the other on the same
 inputs. Plain tensor code is PyTorch; every Pallas kernel of the JAX package
 becomes a kernel written by hand for Hopper under ``csrc/``.
 
-Ported so far (the fused triage search, end to end):
+Ported so far (the fused triage search and the BFV encrypted re-rank, each
+end to end):
 
 - ``data``     — fvecs/ivecs IO and the synthetic SIFT-style generator (copies)
 - ``index``    — ``IVFIndex`` dataclass, k-means/PQ build, npz save/load,
                  the tiled serving view
 - ``ops``      — distances, top-k, the union scan with its CUDA kernel
-                 (``ops/union_scan_min.py``), exact re-rank, k-means
-- ``engine``   — ``QueryEngine``, plaintext fused search
+                 (``ops/union_scan_min.py``), exact re-rank, k-means; the
+                 four-step NTT (``ops/ntt4.py``) with its CUDA stage kernel
+                 (``ops/ntt4_step.py``)
+- ``crypto``   — host-side RNS-BFV, the butterfly NTT, packing, RNG (numpy)
+- ``client``   — ``HEClient``: keygen, query encryption, score decryption
+- ``engine``   — ``QueryEngine`` (fused search, coarse top-k, encrypted
+                 re-rank) and ``HEComputeService``
 - ``serve``    — ``Dispatcher`` subset (``/query``, ``/healthz``, ``/stats``,
-                 binary ``/search``)
-- ``utils``    — config presets, binary wire codec, the nvcc build helper
+                 binary ``/search`` and ``/coarsesearch``,
+                 ``/encryptedsearch``)
+- ``utils``    — config presets, wire codecs, the nvcc build helper
 
 Importing this package has no side effects: it imports no JAX, touches no
 device and builds nothing. Entry points take ``device=`` (default

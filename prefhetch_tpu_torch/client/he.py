@@ -1,0 +1,149 @@
+"""Client-side homomorphic encryption: keygen, query encryption, score
+decryption — the port of prefhetch_tpu/client/he.py, BFV subset (host,
+numpy only).
+
+All key material lives here; the server never sees any secret. BFV gives
+exact integer inner products via negacyclic coefficient packing
+(crypto/packing.py) and needs no evaluation keys for the "full" and "q1"
+response wires. The same integer seed gives the same keys and the same
+wires as the JAX package's ``HEClient`` (tests/test_torch_bfv.py).
+
+Not ported yet: the CKKS scheme, and the packed BFV response with its Galois
+keys and threefry-seeded query wire.
+"""
+
+from __future__ import annotations
+
+import uuid
+from typing import List, Optional
+
+import numpy as np
+
+from prefhetch_tpu_torch.crypto.bfv import BFVContext
+from prefhetch_tpu_torch.crypto.ntt import intt, ntt
+from prefhetch_tpu_torch.crypto.packing import (
+    distances_from_inner_products,
+    encode_query_poly,
+)
+from prefhetch_tpu_torch.crypto.params import bfv_params_for
+from prefhetch_tpu_torch.crypto.rng import secure_rng
+from prefhetch_tpu_torch.utils.config import HEParams
+
+
+class HEClient:
+    """Holds the client's HE keys and drives encrypt/decrypt."""
+
+    def __init__(self, he: HEParams, seed: Optional[int] = None):
+        self.he = he
+        self.scheme = he.scheme
+        if he.scheme != "bfv":
+            raise NotImplementedError(
+                f"scheme {he.scheme!r} is not ported yet (BFV only)"
+            )
+        if he.resp_mod == "packed":
+            raise NotImplementedError(
+                "resp_mod='packed' is not ported yet (it needs Galois keys "
+                "and the threefry-seeded query wire)"
+            )
+        # seed=None (production): OS-entropy CSPRNG. Integer seeds are for
+        # tests only — deterministic secret keys are publicly derivable.
+        self._rng = secure_rng(seed)
+        self.key_id = uuid.uuid4().hex
+        self.params = bfv_params_for(he.n, he.t_bits, he.n_limbs)
+        self.ctx = BFVContext(self.params)
+        self.sk, self.pk = self.ctx.keygen(self._rng, sparse_h=he.sparse_h)
+
+    # -- encrypt ----------------------------------------------------------
+    def encrypt_query_batch(self, queries: np.ndarray) -> List[dict]:
+        """Encrypt a [nq, d] query batch as seeded SYMMETRIC ciphertexts
+        (the client holds the secret key, so c1 travels as a 32-byte seed —
+        half the upload; crypto/bfv.py encrypt_symmetric_batch_ntt)."""
+        ms = np.stack([encode_query_poly(q, self.params) for q in queries])
+        wires = self.ctx.encrypt_symmetric_batch_ntt(self.sk, ms, self._rng)
+        for w in wires:
+            w["scheme"] = self.scheme
+        return wires
+
+    def encrypt_query(self, q: np.ndarray) -> dict:
+        """Query vector [d] → public-key ciphertext wire dict."""
+        poly = encode_query_poly(q, self.params)
+        ct = self.ctx.to_ntt(self.ctx.encrypt(self.pk, poly, self._rng))
+        w = ct.to_wire()
+        w["scheme"] = self.scheme
+        return w
+
+    # -- decrypt ----------------------------------------------------------
+    def _distances(self, ips, norms, queries) -> np.ndarray:
+        """Centred inner products [nq, nb·B] → exact distances [nq, P]."""
+        nq, P = norms.shape
+        t = self.params.t
+        ips = np.where(ips > t // 2, ips - t, ips)[:, :P]
+        out = np.empty((nq, P), np.float32)
+        for i in range(nq):
+            out[i] = distances_from_inner_products(
+                queries[i], ips[i], np.asarray(norms[i])
+            )
+        return out
+
+    def decrypt_scores_trunc(
+        self,
+        c1_ntt: np.ndarray,    # [nq, nb, L, N] int32 — response c1, NTT dom.
+        c0_ip: np.ndarray,     # [nq, nb, L, B] int32 — c0 at ip coefficients
+        norms: np.ndarray,     # [nq, P]
+        queries: np.ndarray,   # [nq, d]
+    ) -> np.ndarray:
+        """Decrypt the truncated-response wire (engine/hecompute.py
+        encrypted_scores_trunc) → exact distances [nq, P].
+
+        Per limb: ONE batched pointwise c1⊙NTT(s) + ONE batched inverse NTT
+        over all (query, block) pairs, then the CRT float64 fraction
+        rounding of crypto/bfv.py restricted to the B ip coefficients."""
+        p = self.params
+        nq = norms.shape[0]
+        d = queries.shape[1]
+        B = p.n // d
+        nb = c1_ntt.shape[1]
+        q, t = p.q, p.t
+        pos = np.arange(B) * d + (d - 1)
+        frac = np.zeros((nq, nb, B), np.float64)
+        for i, tb in enumerate(self.ctx.tables):
+            qi = tb.q
+            s_ntt = ntt(self.sk.s_rns[i], tb)                  # [N]
+            w = c1_ntt[:, :, i].astype(np.int64).reshape(-1, p.n)
+            cs = intt(w * s_ntt % qi, tb)[:, pos]              # [nq·nb, B]
+            v = (cs.reshape(nq, nb, B) + c0_ip[:, :, i]) % qi
+            inv = pow((q // qi) % qi, -1, qi)
+            frac += ((v * inv) % qi).astype(np.float64) / qi
+        frac -= np.floor(frac)
+        ips = np.round(t * frac).astype(np.int64) % t
+        return self._distances(ips.reshape(nq, nb * B), norms, queries)
+
+    def decrypt_scores_trunc_q1(
+        self,
+        c1_q1: np.ndarray,     # [nq, nb, N] int32 — response c1 mod q1,
+                               # COEFFICIENT domain (see hecompute *_q1)
+        c0_ip: np.ndarray,     # [nq, nb, B] int32 — c0 ip coeffs mod q1
+        norms: np.ndarray,     # [nq, P]
+        queries: np.ndarray,   # [nq, d]
+    ) -> np.ndarray:
+        """Decrypt the modulus-switched single-limb wire → exact distances.
+
+        Needs a sparse secret (HEParams.sparse_h ≤ 48): the server's
+        mod-down left rounding error ≤ (1+h)/2 which must stay under
+        q1/(2t) — see engine/hecompute._trunc_mac_q1's budget."""
+        p = self.params
+        nq = norms.shape[0]
+        d = queries.shape[1]
+        B = p.n // d
+        nb = c1_q1.shape[1]
+        tb = self.ctx.tables[0]
+        q1, t = tb.q, p.t
+        pos = np.arange(B) * d + (d - 1)
+        s_ntt = ntt(self.sk.s_rns[0], tb)
+        w = ntt(
+            np.mod(c1_q1.astype(np.int64).reshape(-1, p.n), q1), tb
+        )
+        cs = intt(w * s_ntt % q1, tb)[:, pos].reshape(nq, nb, B)
+        v = (cs + c0_ip) % q1
+        ips = np.round(t * (v.astype(np.float64) / q1)).astype(np.int64) % t
+        return self._distances(ips.reshape(nq, nb * B), norms, queries)

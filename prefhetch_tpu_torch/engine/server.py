@@ -2,7 +2,7 @@
 
 (reference: include/server/server_lib.h:12-50, src/server/server_lib.cpp)
 
-Plaintext subset of the JAX ``QueryEngine``:
+Subset of the JAX ``QueryEngine`` ported so far:
 
 - index lifecycle: cold build (train + add + save) vs warm load of the
   parameter-encoding npz (init_index, server_lib.cpp:55-99); either package
@@ -11,7 +11,14 @@ Plaintext subset of the JAX ``QueryEngine``:
 - services: retrieve_centroids (GET /query), precise_search, and the fused
   triage round search_fused (POST /search): tiles → union scan with tile
   pruning (kernel K1) → two-level top-COARSE_PROBE → id resolve → exact
-  re-rank → final top-k, one chain of device work with one host sync.
+  re-rank → final top-k, one chain of device work with one host sync;
+- coarse_search_topk (binary /coarsesearch top-k kind): the unpruned f32
+  union scan → top-k → id resolve, for clients that go on to the encrypted
+  re-rank;
+- encrypted_precise_search (POST /encryptedsearch), BFV with the "full" and
+  "q1" response wires: Enc(⟨q, x⟩) for the candidates the client names,
+  through engine/hecompute.py and kernel K2. The packed wire and CKKS raise
+  NotImplementedError.
 
 What the port drops: the row pinning (``rows_pin``/``_rows_pad``) and the
 power-of-two union padding of the JAX engine existed only to pin XLA
@@ -68,6 +75,7 @@ class QueryEngine:
         self._lock = threading.Lock()
         self._tiled: Optional[TiledView] = None
         self._serve_mt: dict = {}
+        self._he_service = None
 
     # ------------------------------------------------------------------
     def init_index(self) -> None:
@@ -120,6 +128,7 @@ class QueryEngine:
         )
         self._tiled = None
         self._serve_mt = {}
+        self._he_service = None
 
     @property
     def _tiled_view(self) -> Optional[TiledView]:
@@ -251,3 +260,133 @@ class QueryEngine:
             return ids_k.cpu().numpy(), dists_k.cpu().numpy()
 
         return resolve
+
+    # -- POST /coarsesearch, binary top-k kind ------------------------------
+    def coarse_search_topk(
+        self,
+        precise_query: np.ndarray,        # [nq, d]
+        nearest_centroid_idx: np.ndarray,  # [nq, nprobe]
+        k: int,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        return self.coarse_search_topk_async(
+            precise_query, nearest_centroid_idx, k
+        )()
+
+    def coarse_search_topk_async(
+        self,
+        precise_query: np.ndarray,        # [nq, d]
+        nearest_centroid_idx: np.ndarray,  # [nq, nprobe]
+        k: int,
+    ):
+        """Server-side top-k coarse selection (binary wire opt-in); enqueues
+        the device work and returns a zero-arg resolver.
+
+        Returns (ids i32 [nq, k] ascending by coarse distance,
+        dists f32 [nq, k], counts i64 [nq]).
+
+        Privacy: EQUIVALENT to the reference protocol in effect — the
+        reference client names its kept top-COARSE_PROBE candidates in
+        cleartext in the very next request (/precisesearch,
+        src/client/client_lib.cpp:158-187), so the server learns the
+        selection one round-trip later regardless; selecting server-side
+        reveals nothing extra while shrinking the response ~200×."""
+        view = self._tiled_view
+        if view is None:
+            raise ValueError("tiled wire requires a dense-payload index")
+        probes_np = np.asarray(nearest_centroid_idx, np.int64)
+        tile_idx, q, union, pos, counts = self._tiled_batch_prep(
+            probes_np, np.asarray(precise_query, np.float32)
+        )
+        if int(counts.min()) < k:
+            raise ValueError(
+                f"probed lists hold {int(counts.min())} candidates < k={k}"
+            )
+        dist = union_scan_distances(
+            view.payload, view.norms, view.sizes, q, union, pos
+        )
+        vals, posk = topk_select(dist, k)
+        tiles = torch.from_numpy(tile_idx).to(self.device)
+        ids = resolve_topk_ids(posk, tiles, view.ids)
+
+        def resolve():
+            return ids.cpu().numpy(), vals.cpu().numpy(), counts
+
+        return resolve
+
+    # -- POST /encryptedsearch ----------------------------------------------
+    @property
+    def he_service(self):
+        """Lazily-built BFV homomorphic compute service (no keys held), on
+        the engine's device, with the integer base matrix parked there."""
+        if self._he_service is None:
+            from prefhetch_tpu_torch.crypto.params import bfv_params_for
+            from prefhetch_tpu_torch.engine.hecompute import HEComputeService
+
+            he = self.config.he
+            with self._lock:
+                if self._he_service is None:
+                    svc = HEComputeService(
+                        bfv_params_for(he.n, he.t_bits, he.n_limbs),
+                        device=self.device,
+                    )
+                    svc.set_base(self.base)
+                    self._he_service = svc
+        return self._he_service
+
+    def encrypted_precise_search(
+        self,
+        encrypted_queries: list,                 # [nq] ct wire dicts
+        nearest_coarse_vector_idx: np.ndarray,   # [nq, P]
+        scheme: str = "bfv",
+        key_id: str | None = None,
+        galois_keys: dict | None = None,
+        resp_mod: str = "full",
+    ) -> dict:
+        """Encrypted re-rank: Enc(⟨q,x⟩) MACs for the named candidates.
+
+        The plaintext-query precise_search counterpart
+        (reference: src/server/server_lib.cpp:140-167), upgraded to the
+        encrypted path the reference reserved
+        (include/client/client_lib.h:28-36).
+
+        Returns the truncated-response wire dict {"c1Ntt", "c0Ip",
+        "candidateNorms"} ("full") or {"c1Q1", "c0Ip", "candidateNorms"}
+        ("q1": single-limb modulus-switched wire, ~2× smaller; the client
+        must hold a sparse secret). ``key_id`` and ``galois_keys`` belong to
+        the response forms that are not ported yet."""
+        from prefhetch_tpu_torch.utils.stages import stage
+        from prefhetch_tpu_torch.utils.wire import pack_i32
+
+        if scheme == "ckks":
+            raise NotImplementedError(
+                "scheme='ckks' is not ported yet (it comes with the CKKS "
+                "slice: crypto/ckks.py, engine/ckks_device.py)"
+            )
+        if scheme != "bfv":
+            raise ValueError(f"unknown scheme {scheme!r}")
+        if resp_mod == "packed":
+            raise NotImplementedError(
+                "respMod='packed' is not ported yet (it comes with the "
+                "packed BFV wire slice: Galois keys and key switching)"
+            )
+        if resp_mod not in ("full", "q1"):
+            raise ValueError(f"unknown respMod {resp_mod!r}")
+        svc = self.he_service
+        cand = np.asarray(nearest_coarse_vector_idx, np.int64)
+        with stage("ct_from_wire (c1 expansion + host NTT)"):
+            cts_in = [svc.ctx.ct_from_wire(w) for w in encrypted_queries]
+        if resp_mod == "q1":
+            c1_q1, c0_ip, norms = svc.encrypted_scores_trunc_q1(cts_in, cand)
+            with stage("pack_i32"):
+                return {
+                    "c1Q1": pack_i32(c1_q1),
+                    "c0Ip": pack_i32(c0_ip),
+                    "candidateNorms": norms.tolist(),
+                }
+        c1_ntt, c0_ip, norms = svc.encrypted_scores_trunc(cts_in, cand)
+        with stage("pack_i32"):
+            return {
+                "c1Ntt": pack_i32(c1_ntt),
+                "c0Ip": pack_i32(c0_ip),
+                "candidateNorms": norms.tolist(),
+            }

@@ -1,5 +1,5 @@
 """Transport-agnostic route dispatch — the port of
-prefhetch_tpu/serve/handlers.py (plaintext fused-search subset).
+prefhetch_tpu/serve/handlers.py (the routes ported so far).
 
 A plain (method, path, headers, body) → (status, content-type, bytes)
 function, as in the JAX package (reference: src/server/controllers/
@@ -11,6 +11,11 @@ Query.cc:10-127). Routes ported so far:
 - ``GET /stats``   — per-route counters and latencies
 - ``POST /search`` — the fused triage round, binary wire only
   (kind 11 request → kind 12 response, utils/wire_bin.py)
+- ``POST /coarsesearch`` — binary wire, server-side top-k kind only
+  (kind 9 request → kind 10 response)
+- ``POST /encryptedsearch`` — the BFV encrypted re-rank, JSON; ``respMod``
+  "full" (default) or "q1". A request for a part that is not ported yet
+  (``scheme="ckks"``, ``respMod="packed"``) answers 501 with the reason.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from prefhetch_tpu_torch.utils import wire_bin
+from prefhetch_tpu_torch.utils.stages import stage
 
 JSON_CT = "application/json"
 BIN_CT = wire_bin.CONTENT_TYPE
@@ -66,7 +72,8 @@ Response = Tuple[int, str, bytes]
 
 
 def _json_resp(obj, status: int = 200) -> Response:
-    return status, JSON_CT, json.dumps(obj).encode()
+    with stage("json.dumps"):
+        return status, JSON_CT, json.dumps(obj).encode()
 
 
 def _bin_resp(kind: int, sections, status: int = 200) -> Response:
@@ -97,6 +104,8 @@ class Dispatcher:
                 resp = _json_resp({"error": "method not allowed"}, 405)
         except (KeyError, TypeError, ValueError, IndexError) as e:
             resp = _json_resp({"error": str(e)}, 400)
+        except NotImplementedError as e:
+            resp = _json_resp({"error": str(e)}, 501)
         self.stats.record(
             f"{method} {path}", time.perf_counter() - t0, resp[0] < 400
         )
@@ -119,11 +128,29 @@ class Dispatcher:
     def _post(
         self, path: str, headers: Dict[str, str], body: bytes
     ) -> Response:
+        is_bin = headers.get("content-type", "").startswith(BIN_CT)
         if path == "/search":
-            if headers.get("content-type", "").startswith(BIN_CT):
+            if is_bin:
                 return self._search_bin(body)
             return _json_resp({"error": "binary wire only"}, 400)
+        if path == "/coarsesearch":
+            if is_bin:
+                return self._coarse_search_bin(body)
+            raise NotImplementedError(
+                "the JSON /coarsesearch wire is not ported yet; use the "
+                "binary top-k kind"
+            )
+        if path == "/encryptedsearch":
+            return self._encrypted_search(self._parse_json(body))
         return _json_resp({"error": "not found"}, 404)
+
+    @staticmethod
+    def _parse_json(body: bytes):
+        try:
+            with stage("json parse"):
+                return json.loads(body)
+        except ValueError as e:
+            raise ValueError(f"bad json: {e}") from None
 
     def _check_coarse_args(self, q: np.ndarray, probes: np.ndarray) -> None:
         if q.ndim != 2 or probes.ndim != 2 or q.shape[0] != probes.shape[0]:
@@ -152,3 +179,55 @@ class Dispatcher:
             [ids.astype(np.int64, copy=False),
              dists.astype(np.float32, copy=False)],
         )
+
+    def _coarse_search_bin(self, body: bytes) -> Response:
+        """Binary coarse wire, server-side top-k kind: KIND_COARSE_TOPK_REQ
+        (q f32 [nq, d], probes i64 [nq, nprobe], k u32 [1]) →
+        KIND_COARSE_TOPK (ids i32 [nq, k], dists f32 [nq, k], counts i64
+        [nq]); privacy-equivalent for the reference flow, whose next request
+        names the kept set anyway (engine.coarse_search_topk)."""
+        kind, secs = wire_bin.decode(body)
+        if kind == wire_bin.KIND_COARSE_REQ:
+            raise NotImplementedError(
+                "the tiled all-candidates /coarsesearch kind is not ported "
+                "yet; use the top-k kind"
+            )
+        if kind != wire_bin.KIND_COARSE_TOPK_REQ or len(secs) != 3:
+            raise ValueError("bad coarse binary request")
+        q = np.asarray(secs[0], np.float32)
+        probes = np.asarray(secs[1], np.int64)
+        k = int(np.asarray(secs[2]).reshape(-1)[0])
+        if not 0 < k <= 1 << 20:
+            raise ValueError("bad k")
+        self._check_coarse_args(q, probes)
+        ids, dists, counts = self.engine.coarse_search_topk(q, probes, k)
+        return _bin_resp(
+            wire_bin.KIND_COARSE_TOPK,
+            [ids.astype(np.int32, copy=False),
+             dists.astype(np.float32, copy=False),
+             counts.astype(np.int64, copy=False)],
+        )
+
+    # the encrypted re-rank the reference reserved for SEAL
+    # (include/client/client_lib.h:28-36). The query never leaves the
+    # client in plaintext on this path.
+    def _encrypted_search(self, body) -> Response:
+        with stage("shape and range checks"):
+            enc_queries = body["encryptedPreciseQuery"]   # [nq] ct wires
+            cand = np.asarray(body["nearestCoarseVectorIndexes"], np.int64)
+            if cand.ndim != 2 or len(enc_queries) != cand.shape[0]:
+                raise ValueError(
+                    "encryptedPreciseQuery/nearestCoarseVectorIndexes shape "
+                    "mismatch"
+                )
+            ntotal = self.engine.base.shape[0]
+            if cand.min() < 0 or cand.max() >= ntotal:
+                raise ValueError("vector index out of range")
+        return _json_resp(self.engine.encrypted_precise_search(
+            enc_queries,
+            cand,
+            scheme=body.get("scheme", "bfv"),
+            key_id=body.get("keyId"),
+            galois_keys=body.get("galoisKeys"),
+            resp_mod=body.get("respMod", "full"),
+        ))

@@ -90,7 +90,8 @@ class IndexParams:
 @dataclasses.dataclass(frozen=True)
 class HEParams:
     """Homomorphic-encryption layer parameters (the reference's SEAL slot,
-    CMakeLists.txt:33-38, realized in prefhetch_tpu.crypto; not yet ported).
+        CMakeLists.txt:33-38, realized in crypto/ and engine/hecompute.py; the
+    port has BFV with the "full" and "q1" responses so far).
 
     scheme: "bfv" (exact integer) or "ckks" (approximate, slot-packed).
     n / t_bits / n_limbs follow BASELINE.json config 2 defaults

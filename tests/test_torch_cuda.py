@@ -1,5 +1,6 @@
-"""Tests that need the card: kernel K1 against its plain version, and the
-engine on CUDA against the engine on the CPU. Without CUDA they skip. On a
+"""Tests that need the card: kernels K1 and K2 against their plain versions,
+the engine on CUDA against the engine on the CPU, and the encrypted re-rank
+service on CUDA against the service on the CPU. Without CUDA they skip. On a
 machine with an H100 and nvcc (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -13,9 +14,17 @@ import torch
 from prefhetch_tpu_torch.data.synthetic import make_clustered_dataset
 from prefhetch_tpu_torch.engine.server import QueryEngine
 from prefhetch_tpu_torch.index.build import build_ivf_index, index_from_numpy
+from prefhetch_tpu_torch.client.he import HEClient
+from prefhetch_tpu_torch.crypto import ntt as hostntt
+from prefhetch_tpu_torch.crypto.params import find_ntt_primes
+from prefhetch_tpu_torch.engine.hecompute import HEComputeService
+from prefhetch_tpu_torch.ops import ntt4_step as k2
 from prefhetch_tpu_torch.ops import union_scan_min as usm
+from prefhetch_tpu_torch.ops.ntt4 import (
+    build_ntt4_tables, fourstep_perm, intt4, ntt4,
+)
 from prefhetch_tpu_torch.utils.config import (
-    IndexParams, PipelineConfig, ProtocolParams,
+    HEParams, IndexParams, PipelineConfig, ProtocolParams,
 )
 
 pytestmark = pytest.mark.cuda
@@ -120,3 +129,96 @@ def test_engine_on_cuda_matches_cpu(cuda, monkeypatch):
     np.testing.assert_array_equal(d_g, d_c)   # exact re-rank, integer data
     for r in range(q.shape[0]):
         assert set(ids_g[r]) == set(ids_c[r])
+
+
+@pytest.mark.parametrize("n,bsz", [(4096, 33), (8192, 7)])
+@pytest.mark.parametrize("name", ["f_a", "f_b", "g_a", "g_b"])
+def test_ntt4_step_kernel_matches_plain(cuda, n, bsz, name):
+    """K2 at every stage shape of N=4096 (64x64) and N=8192 (m=64 and 128),
+    odd batches, lazy inputs anywhere in [0, 2^31), canonical and lazy
+    output: residues equal the plain version's exactly."""
+    q = find_ntt_primes(n, 30, 2)[1]
+    step = getattr(build_ntt4_tables(q, n), name)
+    rng = np.random.default_rng(n + bsz + step.m)
+    x = rng.integers(0, 1 << 31, (bsz, step.r, step.m), dtype=np.int64)
+    x[0, 0, :4] = [0, q - 1, q, (1 << 31) - 1]
+    xc = torch.from_numpy(x.astype(np.int32)).to(cuda)
+    want = k2.ntt4_step_plain(xc, step)
+    for canonical in (True, False):
+        before = k2.ntt4_step.launches
+        got = k2.ntt4_step(xc, step, canonical)
+        torch.cuda.synchronize()
+        assert k2.ntt4_step.launches == before + 1
+        assert got.dtype == torch.int32 and int(got.min()) >= 0
+        assert int(got.max()) < (q if canonical else 2 * q)
+        assert torch.equal(got % q, want)
+    # negative int32 inputs are taken as their residue, as the plain version
+    assert torch.equal(k2.ntt4_step(xc - q, step), want)
+
+
+@pytest.mark.parametrize("n,bsz", [(4096, 33), (8192, 5)])
+def test_ntt4_on_cuda_matches_cpu_and_host_butterfly(cuda, n, bsz):
+    q = find_ntt_primes(n, 30, 1)[0]
+    tb = build_ntt4_tables(q, n)
+    x = np.random.default_rng(n).integers(0, 2 * q - 1, (bsz, n))
+    before = k2.ntt4_step.launches
+    fwd = ntt4(torch.from_numpy(x).to(cuda), tb)
+    back = intt4(fwd, tb)
+    torch.cuda.synchronize()
+    assert k2.ntt4_step.launches == before + 4
+    assert torch.equal(fwd.cpu(), ntt4(torch.from_numpy(x), tb))
+    perm, _ = fourstep_perm(tb)
+    host = hostntt.ntt(x % q, hostntt.build_tables(q, n))
+    np.testing.assert_array_equal(fwd.cpu().numpy(), host[:, perm])
+    np.testing.assert_array_equal(back.cpu().numpy(), x % q)
+
+
+def test_ntt4_step_kernel_rejects_what_it_cannot_take(cuda):
+    q = find_ntt_primes(4096, 30, 1)[0]
+    tb = build_ntt4_tables(q, 4096)
+    x = torch.zeros((2, 64, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        k2.ntt4_step(x.long(), tb.f_a)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.ntt4_step(x.transpose(1, 2), tb.f_a)
+    with pytest.raises(ValueError, match="tables are for"):
+        k2.ntt4_step(x.reshape(2, 32, 128), tb.f_a)
+    q256 = find_ntt_primes(256, 30, 1)[0]
+    small = build_ntt4_tables(q256, 256)          # 16 x 16: no served ring
+    with pytest.raises(ValueError, match="m in"):
+        k2.ntt4_step(torch.zeros((1, 16, 16), dtype=torch.int32, device=cuda),
+                     small.f_a)
+
+
+@pytest.mark.parametrize("mode", ["full", "q1"])
+def test_he_service_on_cuda_matches_cpu(cuda, mode):
+    """The encrypted re-rank program on the card (through K2) against the
+    same program on the CPU (through K2's plain version) and the numpy
+    twin, at the default ring (N=4096, 2 limbs), d=128."""
+    he = HEParams(sparse_h=32 if mode == "q1" else None)
+    client = HEClient(he, seed=4)
+    rng = np.random.default_rng(8)
+    base = rng.integers(0, 256, (500, 128)).astype(np.float32)
+    q = rng.integers(0, 256, (3, 128)).astype(np.float32)
+    cand = rng.integers(0, 500, (3, 40))
+    gpu = HEComputeService(client.params, device=cuda)
+    cpu = HEComputeService(client.params, device="cpu")
+    for s in (gpu, cpu):
+        s.set_base(base)
+    cts = [cpu.ctx.ct_from_wire(w) for w in client.encrypt_query_batch(q)]
+    before = k2.ntt4_step.launches
+    if mode == "full":
+        rg = gpu.encrypted_scores_trunc(cts, cand)
+        rc = cpu.encrypted_scores_trunc(cts, cand)
+        got = client.decrypt_scores_trunc(*rg, q)
+        per_limb = 4
+    else:
+        rg = gpu.encrypted_scores_trunc_q1(cts, cand)
+        rc = cpu.encrypted_scores_trunc_q1(cts, cand)
+        got = client.decrypt_scores_trunc_q1(*rg, q)
+        per_limb = 6
+    assert k2.ntt4_step.launches == before + 2 * per_limb
+    for a, b in zip(rg, rc):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        got, ((base[cand] - q[:, None]) ** 2).sum(-1))

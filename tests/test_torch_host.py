@@ -165,3 +165,59 @@ def test_kernel_wrapper_cpu_takes_plain_version():
     # size-0 tile: PAD rows (+inf in bf16) and a PAD minimum
     assert torch.isinf(d2[2]).all() and (dmin[2] == 3.4e38).all()
     assert torch.isinf(d2[0, :, 5:]).all() and torch.isfinite(d2[0, :, :5]).all()
+
+
+def test_ntt4_step_wrapper_cpu_takes_plain_version():
+    """K2's wrapper: a CPU tensor goes to the plain version and launches
+    nothing; what the kernel would refuse is refused by shape and type
+    before any build."""
+    from prefhetch_tpu_torch.crypto.params import find_ntt_primes
+    from prefhetch_tpu_torch.ops import ntt4_step as k2
+    from prefhetch_tpu_torch.ops.ntt4 import build_ntt4_tables
+
+    q = find_ntt_primes(4096, 30, 1)[0]
+    tb = build_ntt4_tables(q, 4096)
+    x = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 1 << 31, (2, 64, 64)).astype(np.int32))
+    launches, calls = k2.ntt4_step.launches, k2.ntt4_step_plain.calls
+    y = k2.ntt4_step(x, tb.f_a, canonical=False)
+    assert k2.ntt4_step.launches == launches
+    assert k2.ntt4_step_plain.calls == calls + 1
+    assert y.dtype == torch.int32 and y.shape == x.shape
+    assert int(y.min()) >= 0 and int(y.max()) < q
+    # negative int32 values are taken as their residue
+    np.testing.assert_array_equal(
+        k2.ntt4_step(x - q, tb.f_a).numpy(), y.numpy())
+    assert k2._check(x, tb.f_a) == (2, 64, 64)
+    assert k2.smem_bytes(64, 64) == 32768
+    with pytest.raises(ValueError, match="int32"):
+        k2._check(x.long(), tb.f_a)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2._check(x.transpose(1, 2), tb.f_a)
+    with pytest.raises(ValueError, match="tables are for"):
+        k2._check(x.reshape(2, 32, 128), tb.f_a)
+    with pytest.raises(ValueError, match="non-empty"):
+        k2._check(x[:0], tb.f_a)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        k2.ntt4_step(x.to("meta"), tb.f_a)
+    # the Shoup companions: floor(tw * 2^32 / q), exact in Python integers
+    tws = tb.f_a.tw_shoup
+    assert tws.dtype == np.uint32 and tb.f_b.tw_shoup is None
+    for i, j in ((0, 0), (5, 9), (63, 63)):
+        assert int(tws[i, j]) == (int(tb.f_a.tw[i, j]) << 32) // q
+
+
+def test_he_service_follows_the_engine_device(monkeypatch):
+    """No backend switch: the service sits on the engine's device, and the
+    default device refuses to start without CUDA."""
+    from prefhetch_tpu_torch.crypto.params import bfv_params_for
+    from prefhetch_tpu_torch.engine.hecompute import HEComputeService
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv("PFH_HE_BACKEND", "numpy")
+    p = bfv_params_for(256, 24, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HEComputeService(p)
+    svc = HEComputeService(p, device="cpu")
+    assert svc.device == torch.device("cpu")
+    assert svc._perm.device == torch.device("cpu")

@@ -12,6 +12,11 @@ reporting on lines of its own; any failure exits non-zero:
 3. edges    — K1 against its plain PyTorch version on the card at edge
               shapes (size-0 and partial tiles, nq not a multiple of the
               query block, an f32 payload, d above one feature stage);
+   variant edges — K5, K4 (slab distances over a dense and an SQ8 payload)
+              and K3 (PQ table lookups) against their plain versions at
+              edge shapes (tiles of size T, 1, T-1, 0, a probe row of
+              nothing but the empty tile, byte-wise code loads, a zero list
+              table);
    ntt      — K2 (one stage of the four-step NTT) against its plain version
               stage by stage, and the whole transform against the host
               butterfly NTT: exact equality, forward and inverse, N=4096
@@ -37,6 +42,15 @@ reporting on lines of its own; any failure exits non-zero:
               launch counts are read around the requests only; decrypted
               distances must equal the plaintext precise_search scores
               exactly; recall as above; then where one request's time goes;
+   variants — the quantised and slab scan variants of the triage pipeline
+              (pipeline.query_pipeline) on the same index and base:
+              quant="pq" (PQ codes, 256-slot tiles, K3), quant="sq8"
+              (8-bit payload, K4) and scan="slab" (dense payload, K5). For
+              each: the tiled view, the kernel against its plain version at
+              the first batch's own shapes, its time beside the plain
+              version, a library call and the card's bound, then the same
+              4 batches of 64 queries with every kernel's launch count read
+              around them, exact returned distances and recall;
 5. timings  — each kernel's time with CUDA events at the main-path shape,
               beside its plain version, a PyTorch library call and the
               card's bound for the same work; printed as one JSON line
@@ -61,9 +75,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
-# FLOP/s, dense int8 OP/s
+# FLOP/s, f32 FLOP/s, dense int8 OP/s
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12                # outside the tensor cores
 INT8_OPS = 1979e12
 # int8 multiply-adds that one multiply-add of two 30-bit residues costs on
 # the int8 tensor cores: 4 x 4 balanced base-256 digits
@@ -605,6 +620,425 @@ def profile_search(disp, queries, probes, k: int) -> None:
         f"{(time.perf_counter() - t0) * 1e3 / N_BATCHES:.3f} ms per batch")
 
 
+def check_answers(tag, ids, dists, base64, q64, groundtruth, k):
+    """What every plaintext path must return for all the queries: [nq, k]
+    finite ascending distances that are the exact distances of the returned
+    ids (float64 on the card as the independent yardstick; SIFT-style
+    integer data makes the f32 re-rank exact), ids in range, and recall
+    above the limits. Returns (the recall report, max |distance error|)."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.metrics import benchmark_results
+
+    nq_all = NQ_BATCH * N_BATCHES
+    if ids.shape != (nq_all, k) or dists.shape != (nq_all, k):
+        raise AssertionError(f"{tag}: bad result shapes {ids.shape} "
+                             f"{dists.shape}")
+    if not np.isfinite(dists).all() or (np.diff(dists, axis=1) < 0).any():
+        raise AssertionError(f"{tag}: distances not finite and ascending")
+    if ids.min() < 0 or ids.max() >= NBASE:
+        raise AssertionError(f"{tag}: ids out of range")
+    exact = ((base64[torch.from_numpy(ids).to(base64.device)]
+              - q64[:, None]) ** 2).sum(-1).cpu().numpy()
+    np.testing.assert_allclose(dists, exact, rtol=1e-6, atol=1e-3)
+    rep = benchmark_results(ids, groundtruth, k=k)
+    if rep.recall_10 < RECALL10_MIN or rep.recall_100 < RECALL100_MIN:
+        raise AssertionError(
+            f"{tag}: recall@10 {rep.recall_10} / recall@100 "
+            f"{rep.recall_100} below {RECALL10_MIN} / {RECALL100_MIN}")
+    return rep, float(np.abs(dists - exact).max())
+
+
+def kernel_counters():
+    """({name: wrapper with .launches}, [plain versions with .calls]) of
+    every kernel of the port."""
+    from prefhetch_tpu_torch.ops import ntt4_step as k2
+    from prefhetch_tpu_torch.ops import pq_onehot as k3
+    from prefhetch_tpu_torch.ops import slab_scan as k45
+    from prefhetch_tpu_torch.ops import union_scan_min as usm
+
+    wrappers = {
+        "union_scan_min": usm.union_scan_min,
+        "ntt4_step": k2.ntt4_step,
+        "pq_onehot_distances": k3.pq_onehot_distances,
+        "slab_distances_sq8": k45.slab_distances_sq8,
+        "slab_distances": k45.slab_distances,
+    }
+    plains = [usm.union_scan_min_reference, k2.ntt4_step_plain,
+              k3.pq_onehot_distances_plain, k45.slab_distances_sq8_plain,
+              k45.slab_distances_plain]
+    return wrappers, plains
+
+
+def check_slab(name, kernel, plain, args) -> float:
+    """K5 or K4 against its plain version on the same card tensors; args as
+    the wrapper takes them (payload, norms, sizes, [vmin, scale,] queries,
+    probe_ids). Same PAD lanes; valid lanes within the f32 summation error
+    of the distance's three terms, 1e-5 (|q|^2 + max |x|^2). Returns the max
+    |difference| over valid lanes."""
+    import torch
+
+    from prefhetch_tpu_torch.ops.topk import PAD_DISTANCE
+
+    got = kernel(*args)
+    torch.cuda.synchronize()              # a fault in the run shows here
+    want = plain(*args)
+    payload, norms, q, probe_ids = args[0], args[1], args[-2], args[-1]
+    nq, max_t = probe_ids.shape
+    if got.shape != (nq, max_t * payload.shape[1]) \
+            or got.dtype != torch.float32:
+        raise AssertionError(f"{name}: output {got.shape} {got.dtype}")
+    pad = want >= PAD_DISTANCE / 2
+    if not torch.equal(got >= PAD_DISTANCE / 2, pad):
+        raise AssertionError(f"{name}: PAD pattern differs")
+    tol = 1e-5 * ((q * q).sum(-1)[:, None] + norms.max())
+    err = torch.where(pad, torch.zeros_like(got), (got - want).abs())
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"{name}: differs from the plain version, max "
+                             f"err/tol {float((err / tol).max())}")
+    err = float(err.max())
+    log("kernel", f"{name}: nq={nq} max_t={max_t} T={payload.shape[1]} "
+        f"d={payload.shape[2]} {payload.dtype}: ok (max |d2 err| {err}, "
+        f"tolerance {float(tol.min())}..{float(tol.max())})")
+    return err
+
+
+def check_pq_onehot(name, codes, lutq, lutp, tile_list, union) -> float:
+    """K3 against its plain version on the same card tensors. Both round the
+    table sum to bf16 the same way and add the M terms in f32 in another
+    order: 1e-5 M (max |lutq| + max |lutp|). Returns the max |difference|."""
+    import torch
+
+    from prefhetch_tpu_torch.ops import pq_onehot as k3
+
+    got = k3.pq_onehot_distances(codes, lutq, lutp, tile_list, union)
+    torch.cuda.synchronize()              # a fault in the run shows here
+    want = k3.pq_onehot_distances_plain(codes, lutq, lutp, tile_list, union)
+    _, T, M = codes.shape
+    nq, U = lutq.shape[0], union.shape[0]
+    if got.shape != (nq, U * T) or got.dtype != torch.float32:
+        raise AssertionError(f"{name}: output {got.shape} {got.dtype}")
+    tol = 1e-5 * M * float(lutq.abs().max() + lutp.abs().max())
+    err = float((got - want).abs().max())
+    if not err <= tol:
+        raise AssertionError(f"{name}: differs from the plain version, max "
+                             f"|err| {err} > {tol}")
+    log("kernel", f"{name}: nq={nq} U={U} T={T} M={M} "
+        f"ksub={lutq.shape[1] // M}: ok (max |err| {err}, "
+        f"tolerance {tol})")
+    return err
+
+
+def phase_variant_edges() -> None:
+    """K5, K4 and K3 at edge shapes: tiles of size T, 1, T-1, 0, T/2 and the
+    empty tile, a probe row of nothing but the empty tile, nq not a multiple
+    of any block, d past one pass of a warp's lanes, code bytes loaded one
+    at a time (M not a multiple of 16), tables so large that a block holds
+    4, 2 or 1 queries' instead of 8, a zero list part."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.ops import slab_scan as k45
+
+    dev = torch.device("cuda:0")
+
+    def slab_case(T, d, nq, max_t, dtype, seed):
+        rng = np.random.default_rng(seed)
+        sizes = np.array([T, 1, T - 1, 0, T // 2, 0], np.int32)
+        if dtype == torch.uint8:
+            x = rng.integers(0, 256, (6, T, d)).astype(np.uint8)
+        else:
+            x = rng.normal(scale=40.0, size=(6, T, d)).astype(np.float32)
+        for i, s in enumerate(sizes):
+            x[i, s:] = 0
+        q = np.abs(rng.normal(scale=40.0, size=(nq, d))).astype(np.float32)
+        probes = rng.integers(0, 6, (nq, max_t)).astype(np.int32)
+        probes[0, :4] = [0, 1, 2, 3]
+        probes[-1] = 5
+        return (torch.from_numpy(x).to(dev, dtype),
+                torch.from_numpy(sizes).to(dev), torch.from_numpy(q).to(dev),
+                torch.from_numpy(probes).to(dev))
+
+    for T, d, nq, max_t, dtype in (
+            (1024, 128, 7, 8, torch.bfloat16), (100, 200, 5, 4, torch.float32),
+            (64, 32, 70, 5, torch.bfloat16)):
+        payload, sizes, q, probes = slab_case(T, d, nq, max_t, dtype, T + d)
+        norms = (payload.float() ** 2).sum(-1).contiguous()
+        got_last = k45.slab_distances(payload, norms, sizes, q, probes)[-1]
+        if not bool((got_last >= 3e38).all()):
+            raise AssertionError("an all-empty probe row is not all PAD")
+        check_slab(f"edge/slab_distances T={T}", k45.slab_distances,
+                   k45.slab_distances_plain,
+                   (payload, norms, sizes, q, probes))
+    for T, d, nq, max_t in ((1024, 128, 7, 8), (100, 48, 5, 4),
+                            (64, 32, 70, 5)):
+        codes, sizes, q, probes = slab_case(T, d, nq, max_t, torch.uint8,
+                                            T + d + 1)
+        g = torch.Generator().manual_seed(T)
+        vmin = (torch.rand(d, generator=g) * 10 - 5).to(dev)
+        scale = (torch.rand(d, generator=g) * 0.8 + 0.2).to(dev)
+        norms = ((vmin + (codes.float() + 0.5) * scale) ** 2).sum(-1)
+        check_slab(f"edge/slab_distances_sq8 T={T}", k45.slab_distances_sq8,
+                   k45.slab_distances_sq8_plain,
+                   (codes, norms.contiguous(), sizes, vmin, scale, q, probes))
+    # M·ksub = 16384, 32768 and 51200 leave a block room for the tables of
+    # 4, 2 and 1 queries; the smaller ones for 8
+    for T, M, ksub, nq, zero_p in (
+            (256, 32, 256, 13, False), (100, 8, 256, 5, False),
+            (100, 64, 256, 13, False), (64, 128, 256, 5, False),
+            (64, 200, 256, 3, False), (64, 16, 64, 3, True)):
+        rng = np.random.default_rng(T + M + nq)
+        ntiles, nlist = 9, 4
+        codes = rng.integers(0, ksub, (ntiles + 1, T, M)).astype(np.uint8)
+        codes[-1] = 0
+        lutq = (rng.normal(size=(nq, M * ksub)) * 3000).astype(np.float32)
+        lutp = (rng.normal(size=(nlist, M * ksub)) * 700).astype(np.float32)
+        if zero_p:
+            lutp[:] = 0
+        tile_list = np.sort(rng.integers(0, nlist, ntiles + 1))
+        union = np.array([0, 1, 2, 4, 5, 7, 8, 9, 9, 9, 3], np.int32)
+        check_pq_onehot(
+            f"edge/pq_onehot T={T}",
+            *(torch.from_numpy(a).to(dev) for a in (
+                codes, lutq, lutp, tile_list.astype(np.int32), union)))
+
+
+def slab_bound(view, probe_ids, q, sq8: bool):
+    """The card's bound for one slab scan: every probed tile's valid rows
+    (payload and norms) read once though several queries probe it, the
+    queries, indices and the affine once, the f32 output written once; the
+    matvecs' multiply-adds over the valid rows of every (query, tile) pair
+    at the f32 rate outside the tensor cores. Returns (ms, bound_by, MB,
+    GFLOP)."""
+    import torch
+
+    T, d = view.payload.shape[1:]
+    flat = probe_ids.reshape(-1).long()
+    rows = int(view.sizes[torch.unique(flat)].sum())
+    pair_rows = int(view.sizes[flat].sum())
+    distinct = torch.unique(flat)
+    nbytes = (rows * d * view.payload.element_size() + rows * 4
+              + distinct.numel() * 4 + flat.numel() * 4 + q.numel() * 4
+              + (2 * d * 4 if sq8 else 0) + flat.numel() * T * 4)
+    flops = 2.0 * d * pair_rows
+    t_b, t_o = nbytes / HBM_BYTES_S, flops / F32_FLOPS
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes / 1e6, flops / 1e9)
+
+
+def time_slab(name, kernel, plain, args, view, sq8: bool) -> dict:
+    """K5 or K4 at the first batch's shape: kernel, plain, kernel again, one
+    torch.bmm over slabs gathered and widened beforehand (the matvec alone,
+    a part of the function), and the card's bound."""
+    import torch
+
+    q, probe_ids = args[-2], args[-1]
+    ms = cuda_time_ms(lambda: kernel(*args))
+    plain_ms = cuda_time_ms(lambda: plain(*args), iters=5, warmup=1)
+    ms2 = cuda_time_ms(lambda: kernel(*args))
+    slabs = view.payload[probe_ids.reshape(-1).long()].to(torch.float32)
+    qrep = torch.repeat_interleave(q, probe_ids.shape[1], dim=0)[:, :, None]
+    library_ms = cuda_time_ms(lambda: torch.bmm(slabs, qrep), iters=10)
+    slab_mb = slabs.numel() * 4 / 1e6
+    del slabs, qrep
+    bound_ms, bound_by, mb, gflop = slab_bound(view, probe_ids, q, sq8)
+    log("timing", f"{name} at nq={q.shape[0]} max_t={probe_ids.shape[1]} "
+        f"T={view.tile} d={q.shape[1]} {view.payload.dtype}: kernel "
+        f"{ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm on "
+        f"pre-gathered f32 slabs ({slab_mb:.0f} MB, the matvec only) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{mb:.1f} MB, {gflop:.3f} GFLOP)")
+    return {"ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_call": "torch.bmm f32 [B,T,d]x[B,d,1] on slabs "
+                            "gathered and widened beforehand, the cross "
+                            "term only (a partial function)"}
+
+
+def time_pq_onehot(args, sm_mhz: float) -> dict:
+    """K3 at the first batch's shape: kernel, plain, kernel again and the
+    card's bound: the larger of the bytes (the union tiles' codes, the
+    query tables, the list tables of the lists in the union, the indices,
+    the f32 output) over the memory rate and the table lookups (nq U T M
+    bf16 entries of 2 bytes out of shared memory, which delivers 128 bytes
+    an SM a clock: 64 lookups) over the card's shared-memory rate. The list
+    table's reads, one for 8 queries' lookups, are left out of the bound. No
+    one PyTorch call computes the function."""
+    import torch
+
+    from prefhetch_tpu_torch.ops import pq_onehot as k3
+
+    codes, lutq, lutp, tile_list, union = args
+    _, T, M = codes.shape
+    nq, MK = lutq.shape
+    U = union.shape[0]
+    ms = cuda_time_ms(lambda: k3.pq_onehot_distances(*args))
+    plain_ms = cuda_time_ms(lambda: k3.pq_onehot_distances_plain(*args),
+                            iters=3, warmup=1)
+    ms2 = cuda_time_ms(lambda: k3.pq_onehot_distances(*args))
+    tiles = torch.unique(union.long())
+    lists = torch.unique(tile_list.long()[tiles])
+    nbytes = (tiles.numel() * T * M + nq * MK * lutq.element_size()
+              + lists.numel() * MK * lutp.element_size()
+              + tiles.numel() * 4 + U * 4 + nq * U * T * 4)
+    lookups = float(nq) * U * T * M
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    t_b = nbytes / HBM_BYTES_S
+    t_o = lookups * 2 / (n_sm * 128 * sm_mhz * 1e6)
+    bound_ms = max(t_b, t_o) * 1e3
+    bound_by = "bytes" if t_b >= t_o else "operations"
+    log("timing", f"pq_onehot_distances at nq={nq} U={U} (distinct tiles "
+        f"{tiles.numel()}, lists {lists.numel()}) T={T} M={M} "
+        f"ksub={MK // M}: kernel {ms:.4f} / {ms2:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, library call none, bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 1e6:.1f} MB = {t_b * 1e3:.4f} ms; "
+        f"{lookups / 1e9:.3f} G lookups x 2 B over {n_sm} SMs x 128 B x "
+        f"{sm_mhz:.0f} MHz = {t_o * 1e3:.4f} ms)")
+    return {"ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "library_call": "none: no single PyTorch call sums table "
+                            "entries picked by code (torch.gather needs "
+                            "the index spelled out per query, which is "
+                            "what the plain version does in chunks)"}
+
+
+VARIANTS = (
+    # quant, scan, the kernel the variant's scan must launch
+    ("pq", "union", "pq_onehot_distances"),
+    ("sq8", "union", "slab_distances_sq8"),
+    ("none", "slab", "slab_distances"),
+)
+
+
+def phase_variants(engine, data, queries, reset_counts, sm_mhz,
+                   search_recall, base64, q64) -> dict:
+    """The quantised and slab scan variants of the triage pipeline on the
+    index and base of the main phase: for each, the tiled view, the kernel
+    against its plain version at the first batch's own shapes, N_BATCHES
+    query_pipeline steps with every launch count read around them, exact
+    returned distances, recall, stage times and the kernel's timings.
+    Returns {kernel name: its entry's keys for the kernels line}."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.index.tiling import build_tiled_view
+    from prefhetch_tpu_torch.ops import slab_scan as k45
+    from prefhetch_tpu_torch.ops.union_scan import pq_luts
+    from prefhetch_tpu_torch.pipeline import default_tile, query_pipeline
+
+    cfg = engine.config
+    proto = cfg.protocol
+    k = proto.k
+    index = engine.index
+    dev = index.device
+    wrappers, plains = kernel_counters()
+    out = {}
+    for quant, scan, kernel_name in VARIANTS:
+        tag = f"quant={quant} scan={scan}"
+        t0 = time.perf_counter()
+        view = build_tiled_view(index, tile=default_tile(quant), quant=quant)
+        torch.cuda.synchronize()
+        log("variants", f"{tag}: tiled view in "
+            f"{time.perf_counter() - t0:.1f} s; tiles={view.empty_tile} of "
+            f"T={view.tile}, payload "
+            f"{view.payload.numel() * view.payload.element_size() / 1e9:.3f}"
+            f" GB {view.payload.dtype} "
+            f"({view.payload.shape[2] * view.payload.element_size()} B a "
+            f"vector)")
+
+        def prepare(b):
+            sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
+            return query_pipeline(
+                index, engine.base, queries[sl], nprobe=proto.nprobe,
+                coarse_probe=proto.coarse_probe, k=k, quant=quant, scan=scan,
+                device="cuda", view=view)
+
+        # the kernel against its plain version at the first batch's shapes
+        step, args, stats = prepare(0)
+        payload, norms, sizes, _, _, q_t, tiles_t = args
+        if quant == "pq":
+            lut_q, lut_p, _ = pq_luts(index.centroids, index.codebooks, q_t,
+                                      bool(index.params.by_residual))
+            kargs = (payload, lut_q, lut_p,
+                     torch.from_numpy(view.tile_list_np).to(dev),
+                     stats["union"])
+            err = check_pq_onehot(f"variants/{tag} batch0", *kargs)
+            times = time_pq_onehot(kargs, sm_mhz)
+            del lut_q, lut_p
+        elif quant == "sq8":
+            kargs = (payload, norms, sizes, view.sq_vmin, view.sq_scale, q_t,
+                     tiles_t)
+            err = check_slab(f"variants/{tag} batch0", k45.slab_distances_sq8,
+                             k45.slab_distances_sq8_plain, kargs)
+            times = time_slab("slab_distances_sq8", k45.slab_distances_sq8,
+                              k45.slab_distances_sq8_plain, kargs, view, True)
+        else:
+            kargs = (payload, norms, sizes, q_t, tiles_t)
+            err = check_slab(f"variants/{tag} batch0", k45.slab_distances,
+                             k45.slab_distances_plain, kargs)
+            times = time_slab("slab_distances", k45.slab_distances,
+                              k45.slab_distances_plain, kargs, view, False)
+        step(*args)                       # warm-up, outside the counts
+        torch.cuda.synchronize()
+
+        # the variant's path, with launch counts read around it only
+        reset_counts()
+        ids_all, dists_all, prep_ms, step_ms = [], [], [], []
+        for b in range(N_BATCHES):
+            t0 = time.perf_counter()
+            step, args, stats = prepare(b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            d_b, ids_b = step(*args)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            prep_ms.append((t1 - t0) * 1e3)
+            step_ms.append((t2 - t1) * 1e3)
+            ids_all.append(ids_b.cpu().numpy())
+            dists_all.append(d_b.cpu().numpy())
+        launches = {n: w.launches for n, w in wrappers.items()}
+        plain_calls = sum(p.calls for p in plains)
+        log("variants", f"{tag}: query_pipeline x{N_BATCHES} of {NQ_BATCH} "
+            f"queries: prepare (host: ranking, probe expansion, union, "
+            f"upload) {', '.join(f'{t:.1f}' for t in prep_ms)} ms, step "
+            f"(device work, host clock) "
+            f"{', '.join(f'{t:.2f}' for t in step_ms)} ms; tiles per query "
+            f"{stats['tiles_per_query']:.0f}; launches {launches}, "
+            f"plain-version calls {plain_calls}")
+        want = {n: (N_BATCHES if n == kernel_name else 0) for n in wrappers}
+        if launches != want:
+            raise AssertionError(f"{tag}: launches {launches}, expected "
+                                 f"{want}")
+        if plain_calls != 0:
+            raise AssertionError(f"{tag}: a plain version ran on the path")
+
+        rep, dist_err = check_answers(
+            tag, np.concatenate(ids_all), np.concatenate(dists_all), base64,
+            q64, data["groundtruth"], k)
+        log("variants", f"{tag}: recall@1 {rep.recall_1} recall@10 "
+            f"{rep.recall_10} recall@100 {rep.recall_100} mrr@10 "
+            f"{rep.mrr_10} (/search: recall@10 {search_recall.recall_10} "
+            f"recall@100 {search_recall.recall_100}); returned distances = "
+            f"exact float64 distances of the returned ids, max |err| "
+            f"{dist_err}")
+
+        # where a step's device time goes (the last batch's tensors)
+        fns = stats["stage_fns"](args)
+        stage_ms = {n: cuda_time_ms(f, iters=10) for n, f in fns.items()}
+        log("variants", f"{tag}: stages of one step, CUDA events: "
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in stage_ms.items()))
+        out[kernel_name] = {
+            "launches": launches[kernel_name],
+            "launches_per_batch": launches[kernel_name] / N_BATCHES,
+            "path": f"query_pipeline({tag}) x{N_BATCHES}",
+            "max_abs_err": err, **times,
+        }
+        del view, step, args, stats, fns, kargs, payload, norms, sizes
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -632,7 +1066,6 @@ def main() -> int:
     from prefhetch_tpu_torch.data.io import write_fvecs
     from prefhetch_tpu_torch.data.synthetic import make_clustered_dataset
     from prefhetch_tpu_torch.engine.server import QueryEngine
-    from prefhetch_tpu_torch.metrics import benchmark_results
     from prefhetch_tpu_torch.ops import ntt4_step as k2
     from prefhetch_tpu_torch.ops import union_scan_min as usm
     from prefhetch_tpu_torch.ops.distances import rank_centroids
@@ -658,7 +1091,7 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     # -- 2. build -----------------------------------------------------------
-    kernels = ["union_scan_min", "ntt4_step"]
+    kernels = ["union_scan_min", "ntt4_step", "pq_onehot", "slab_scan"]
     for name in kernels:                  # always compile from the sources
         cuda_build.library_path(name).unlink(missing_ok=True)
     built = cuda_build.build(kernels)
@@ -670,6 +1103,7 @@ def main() -> int:
 
     # -- 3. kernels at edge shapes -----------------------------------------
     phase_edges()
+    phase_variant_edges()
     phase_ntt()
 
     # -- 4. main path at the SIFT1M preset ----------------------------------
@@ -756,10 +1190,11 @@ def main() -> int:
 
     # the main path itself, with launch counts read around it only
     def reset_counts() -> None:
-        usm.union_scan_min.launches = 0
-        usm.union_scan_min_reference.calls = 0
-        k2.ntt4_step.launches = 0
-        k2.ntt4_step_plain.calls = 0
+        wrappers, plains = kernel_counters()
+        for w in wrappers.values():
+            w.launches = 0
+        for p in plains:
+            p.calls = 0
 
     reset_counts()
     ids_all, dists_all, req_ms = [], [], []
@@ -794,36 +1229,23 @@ def main() -> int:
     if plain_calls != 0:
         raise AssertionError("the plain version ran on the main path")
 
-    ids = np.concatenate(ids_all)
-    dists = np.concatenate(dists_all)
-    nq_all = NQ_BATCH * N_BATCHES
-    if ids.shape != (nq_all, k) or dists.shape != (nq_all, k):
-        raise AssertionError(f"bad result shapes {ids.shape} {dists.shape}")
-    if not np.isfinite(dists).all() or (np.diff(dists, axis=1) < 0).any():
-        raise AssertionError("distances not finite and ascending")
-    if ids.min() < 0 or ids.max() >= NBASE:
-        raise AssertionError("ids out of range")
-    # the returned distances are the exact distances of the returned ids
-    # (float64 on the card as the independent yardstick; SIFT-style
-    # integer data makes the f32 re-rank exact)
     base64 = torch.from_numpy(data["base"]).to(dev, torch.float64)
     q64 = torch.from_numpy(queries).to(dev, torch.float64)
-    exact = ((base64[torch.from_numpy(ids).to(dev)] - q64[:, None]) ** 2
-             ).sum(-1).cpu().numpy()
-    np.testing.assert_allclose(dists, exact, rtol=1e-6, atol=1e-3)
-    rep = benchmark_results(ids, data["groundtruth"], k=k)
+    rep, _ = check_answers("/search", np.concatenate(ids_all),
+                           np.concatenate(dists_all), base64, q64,
+                           data["groundtruth"], k)
     log("main", f"recall@1 {rep.recall_1} recall@10 {rep.recall_10} "
         f"recall@100 {rep.recall_100} mrr@10 {rep.mrr_10}")
-    if rep.recall_10 < RECALL10_MIN or rep.recall_100 < RECALL100_MIN:
-        raise AssertionError(
-            f"recall@10 {rep.recall_10} / recall@100 {rep.recall_100} "
-            f"below {RECALL10_MIN} / {RECALL100_MIN}"
-        )
-    del base64, q64
 
     # -- 4b. the encrypted re-rank at the same operating point ---------------
     enc_launches, k2_per_request, k2_err = phase_encrypted(
         engine, disp, data, queries, probes, reset_counts)
+
+    # -- 4c. the quantised and slab scan variants of the triage pipeline -----
+    sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    variant_rows = phase_variants(engine, data, queries, reset_counts, sm_mhz,
+                                  rep, base64, q64)
+    del base64, q64
 
     # -- 5. timings at the main-path shape (first batch) ---------------------
     args = (view.payload, view.norms, view.sizes, q1, union1)
@@ -858,8 +1280,7 @@ def main() -> int:
         f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     svc = engine.he_service
     nbatch = NQ_BATCH * -(-cfg.protocol.coarse_probe // (svc.params.n // D))
-    k2_times = time_ntt4_step(svc._tables[0], nbatch,
-                              float(nvidia_smi("clocks.max.sm").split()[0]))
+    k2_times = time_ntt4_step(svc._tables[0], nbatch, sm_mhz)
     profile_search(disp, queries, probes, k)
     log("done", f"wall {time.perf_counter() - t_start:.1f} s")
 
@@ -893,6 +1314,24 @@ def main() -> int:
         "library_ms": None,
         "library_call": "none: no single PyTorch call computes an exact "
                         "modular matrix product",
+    }, {
+        "name": "pq_onehot_distances",
+        "route": "cuda",
+        "source": "prefhetch_tpu_torch/csrc/pq_onehot.cu",
+        "replaces": "prefhetch_tpu/ops/pallas_scan.py:358",
+        **variant_rows["pq_onehot_distances"],
+    }, {
+        "name": "slab_distances_sq8",
+        "route": "cuda",
+        "source": "prefhetch_tpu_torch/csrc/slab_scan.cu",
+        "replaces": "prefhetch_tpu/ops/pallas_scan.py:100",
+        **variant_rows["slab_distances_sq8"],
+    }, {
+        "name": "slab_distances",
+        "route": "cuda",
+        "source": "prefhetch_tpu_torch/csrc/slab_scan.cu",
+        "replaces": "prefhetch_tpu/ops/pallas_scan.py:161",
+        **variant_rows["slab_distances"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,9 @@ prefhetch_tpu/index/build.py.
   turns the JAX package's index fields, as numpy arrays, into the port's
   ``IVFIndex``; ``load_index`` reads the npz through it.
 
-The SQ8 quantizer is not ported yet (it ships with its scan kernel).
+The SQ8 quantizer (``quantizer="sq8"``) trains its per-dimension min and
+scale on the train set in numpy, exactly as the JAX package does, so the
+codes are bit-equal given the same lists.
 """
 
 from __future__ import annotations
@@ -166,8 +168,6 @@ def build_ivf_index(
         raise ValueError(
             "dataset does not have same dimension as configured d"
         )
-    if params.uses_sq8:
-        raise NotImplementedError("the SQ8 quantizer is not ported yet")
     if params.metric == "cosine":
         from prefhetch_tpu_torch.data.synthetic import normalize_rows
 
@@ -210,7 +210,22 @@ def build_ivf_index(
     arrays: Dict[str, np.ndarray] = {
         "centroids": centroids, "list_ids": list_ids, "list_sizes": sizes,
     }
-    if params.uses_pq:
+    if params.uses_sq8:
+        # per-dimension 8-bit scalar quantizer (faiss IndexIVFScalarQuantizer
+        # QT_8bit analog): min/scale trained on the training set
+        train_f = np.asarray(train, np.float32)
+        vmin = train_f.min(axis=0)
+        vmax = train_f.max(axis=0)
+        scale = np.maximum((vmax - vmin) / 255.0, 1e-12).astype(np.float32)
+        codes8 = np.clip(
+            np.round((base - vmin) / scale), 0, 255
+        ).astype(np.uint8)
+        list_sq = np.zeros((nlist, lmax, params.d), np.uint8)
+        list_sq[sorted_assign, rank_in_list] = codes8[order]
+        arrays["list_sq"] = list_sq
+        arrays["sq_vmin"] = vmin
+        arrays["sq_scale"] = scale
+    elif params.uses_pq:
         list_codes = np.zeros((nlist, lmax, params.pq_m), np.uint8)
         list_codes[sorted_assign, rank_in_list] = codes[order]
         arrays["list_codes"] = list_codes
@@ -250,7 +265,8 @@ def index_from_numpy(
 
     Keys are the npz field names of ``save_index`` (``centroids``,
     ``list_ids``, ``list_sizes``, ``list_norms``, ``list_codes``,
-    ``codebooks``, ``list_recon_bf16``, ``list_vectors``). The bf16 payload
+    ``codebooks``, ``list_recon_bf16``, ``list_vectors``, ``list_sq``,
+    ``sq_vmin``, ``sq_scale``). The bf16 payload
     may come as its raw 16-bit pattern (npz) or as an ml_dtypes bfloat16
     array (``np.asarray`` of a JAX field, key ``list_recon``); PQ codes as
     uint8 (npz) or int32 (the JAX device layout)."""
@@ -260,8 +276,6 @@ def index_from_numpy(
         a = np.ascontiguousarray(a)
         return torch.from_numpy(a if a.flags.writeable else a.copy()).to(dev)
 
-    if "list_sq" in arrays:
-        raise NotImplementedError("the SQ8 quantizer is not ported yet")
     ids = np.asarray(arrays["list_ids"], np.int32)
     sizes = np.asarray(arrays["list_sizes"], np.int32)
     host = {"ids": ids, "sizes": sizes}
@@ -269,7 +283,11 @@ def index_from_numpy(
     if arrays.get("list_norms") is not None:
         host["norms"] = np.asarray(arrays["list_norms"], np.float32)
         kw["list_norms"] = t(host["norms"])
-    if arrays.get("list_codes") is not None:
+    if arrays.get("list_sq") is not None:
+        kw["list_sq"] = t(np.asarray(arrays["list_sq"], np.uint8))
+        kw["sq_vmin"] = t(np.asarray(arrays["sq_vmin"], np.float32))
+        kw["sq_scale"] = t(np.asarray(arrays["sq_scale"], np.float32))
+    elif arrays.get("list_codes") is not None:
         host["codes"] = np.asarray(arrays["list_codes"]).astype(
             np.uint8, copy=False
         )
@@ -311,7 +329,11 @@ def save_index(index: IVFIndex, directory: str) -> str:
     }
     if index.list_norms is not None:
         arrays["list_norms"] = index.list_norms.cpu().numpy()
-    if index.uses_pq:
+    if index.list_sq is not None:
+        arrays["list_sq"] = index.list_sq.cpu().numpy()
+        arrays["sq_vmin"] = index.sq_vmin.cpu().numpy()
+        arrays["sq_scale"] = index.sq_scale.cpu().numpy()
+    elif index.uses_pq:
         arrays["list_codes"] = index.list_codes.cpu().numpy().astype(np.uint8)
         arrays["codebooks"] = index.codebooks.cpu().numpy()
         if index.list_recon is not None:

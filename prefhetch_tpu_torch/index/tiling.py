@@ -8,8 +8,10 @@ request; tiles of a list are consecutive, so candidate order (probe-major,
 storage order within a list) is preserved. The re-pack is host numpy, as in
 the JAX package, and the tables are element-equal to its own.
 
-Only the dense payload (``quant="none"``: bf16 recon or f32 vectors) is
-ported; the SQ8 and PQ-code payloads ship with their scan kernels.
+Three payloads: the dense one (``quant="none"``: bf16 recon or f32
+vectors, scanned by K1 or K5), its per-dimension 8-bit quantisation
+(``quant="sq8"``, scanned by K4) and the raw PQ codes (``quant="pq"``, M
+bytes per vector, scanned by K3).
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ TILE = 512
 class TiledView:
     """Device tensors for the tiled scan + host tables for probe expansion."""
 
-    payload: torch.Tensor       # [ntiles+1, T, d] bf16/f32 — +1 = empty tile
+    # [ntiles+1, T, d] bf16/f32, or uint8 SQ8 codes, or [ntiles+1, T, M]
+    # uint8 PQ codes; +1 = the reserved empty tile
+    payload: torch.Tensor
     norms: torch.Tensor         # [ntiles+1, T] f32
     sizes: torch.Tensor         # [ntiles+1] i32 — valid slots per tile
     ids: torch.Tensor           # [ntiles+1, T] i32 — for tail gathers
@@ -38,6 +42,9 @@ class TiledView:
     tile_start_np: np.ndarray   # [nlist] host — first tile of each list
     tile_count_np: np.ndarray   # [nlist] host — tiles per list
     tile: int = TILE
+    # SQ8 payload: x̂ = vmin + (code + ½)·scale per dimension (else None)
+    sq_vmin: Optional[torch.Tensor] = None       # [d] f32
+    sq_scale: Optional[torch.Tensor] = None      # [d] f32
     # owning inverted list of each tile (empty tile → 0)
     tile_list_np: Optional[np.ndarray] = None    # [ntiles+1] i32
 
@@ -97,25 +104,64 @@ def build_tiled_view(
 ) -> Optional[TiledView]:
     """Derive the tiled view from a built index (host-side re-pack), on the
     index's device. Uses the dense scan payload (bf16 recon for PQ, f32
-    vectors for flat); returns None if the index has no dense payload."""
-    if quant != "none":
-        raise NotImplementedError(f"quant={quant!r} is not ported yet")
-    if index.list_recon is not None:
+    vectors for flat); returns None if the index has no dense payload.
+
+    quant="sq8": per-dimension affine uint8 payload (x̂ = vmin+(code+½)·s)
+    quantised from the dense payload, pad rows included, with
+    scale = max(vmax − vmin, 1e-12)/256 and floor (not the index's own SQ8
+    quantizer, which rounds against a /255 scale trained on the train set).
+    Norms come from the DECODED values, so the scan's distances are exact
+    for the quantised payload.
+
+    quant="pq": the payload is the raw PQ codes [·, T, M] uint8 with zero
+    norms, for the ADC scan (ops/union_scan.union_pq_scan_distances)."""
+    if quant not in ("none", "sq8", "pq"):
+        raise ValueError(f"unknown quant {quant!r}")
+    bf16 = False
+    if quant == "pq":
+        if index.list_codes is None:
+            return None
+        payload_np = _host(index, "codes", index.list_codes)
+        payload_np = payload_np.astype(np.uint8, copy=False)
+    elif index.list_recon is not None:
         payload_np = _host(index, "payload", index.list_recon)
         bf16 = True
     elif index.list_vectors is not None:
         payload_np = _host(index, "payload", index.list_vectors)
-        bf16 = False
     else:
         return None
     ids_np = _host(index, "ids", index.list_ids)
     sizes_np = _host(index, "sizes", index.list_sizes)
-    norms_np = _host(index, "norms", index.list_norms)
-    if norms_np is None:
-        vals = (torch.from_numpy(payload_np).view(torch.bfloat16)
-                .to(torch.float32).numpy() if bf16 else payload_np)
-        norms_np = (vals.astype(np.float32) ** 2).sum(-1)
     nlist, lmax, d = payload_np.shape
+
+    def values(a: np.ndarray) -> np.ndarray:
+        """f32 values of the dense payload (a bf16 one is held as bits)."""
+        if not bf16:
+            return a.astype(np.float32, copy=False)
+        return (torch.from_numpy(a).view(torch.bfloat16)
+                .to(torch.float32).numpy())
+
+    sq_vmin = sq_scale = None
+    if quant == "sq8":
+        flat = values(payload_np).reshape(-1, d)
+        vmin = flat.min(axis=0)
+        vmax = flat.max(axis=0)
+        scale = np.maximum(vmax - vmin, 1e-12) / 256.0
+        codes = np.clip(
+            np.floor((flat - vmin[None]) / scale[None]), 0, 255
+        ).astype(np.uint8)
+        decoded = vmin[None] + (codes.astype(np.float32) + 0.5) * scale[None]
+        payload_np = codes.reshape(nlist, lmax, d)
+        norms_np = (decoded ** 2).sum(-1).reshape(nlist, lmax)
+        sq_vmin, sq_scale = vmin, scale
+        bf16 = False
+        del flat, codes, decoded
+    elif quant == "pq":
+        norms_np = np.zeros(payload_np.shape[:2], np.float32)  # ADC needs none
+    else:
+        norms_np = _host(index, "norms", index.list_norms)
+        if norms_np is None:
+            norms_np = (values(payload_np) ** 2).sum(-1)
 
     tile_count = np.maximum(-(-sizes_np // tile), 0)  # ⌈size/T⌉, 0 if empty
     tile_start = np.zeros(nlist, np.int64)
@@ -154,5 +200,8 @@ def build_tiled_view(
         tile_start_np=tile_start.astype(np.int64),
         tile_count_np=tile_count.astype(np.int64),
         tile=tile,
+        sq_vmin=None if sq_vmin is None else torch.from_numpy(sq_vmin).to(dev),
+        sq_scale=(None if sq_scale is None
+                  else torch.from_numpy(sq_scale).to(dev)),
         tile_list_np=tile_list,
     )

@@ -10,6 +10,8 @@ npz fields as the JAX package, so either package reads the other's index:
   - ``list_codes   [nlist, lmax, M] uint8`` + ``codebooks`` (IVF-PQ), with
     ``list_recon [nlist, lmax, d] bfloat16``, the dense reconstruction the
     scan reads
+  - ``list_sq [nlist, lmax, d] uint8`` + ``sq_vmin``/``sq_scale [d]``
+    (IVF-SQ8: x ≈ vmin + (code + ½)·scale per dimension)
 
 A plain dataclass of tensors replaces the flax pytree. PQ codes stay uint8
 on the device (the JAX package widens them to int32 for the TPU's lanes).
@@ -45,6 +47,9 @@ class IVFIndex:
     list_vectors: Optional[torch.Tensor] = None   # [nlist, lmax, d] f32
     list_codes: Optional[torch.Tensor] = None     # [nlist, lmax, M] u8
     codebooks: Optional[torch.Tensor] = None      # [M, ksub, dsub] f32
+    list_sq: Optional[torch.Tensor] = None        # [nlist, lmax, d] u8
+    sq_vmin: Optional[torch.Tensor] = None        # [d] f32
+    sq_scale: Optional[torch.Tensor] = None       # [d] f32
     list_recon: Optional[torch.Tensor] = None     # [nlist, lmax, d] bf16
     list_norms: Optional[torch.Tensor] = None     # [nlist, lmax] f32
     params: IndexParams = dataclasses.field(default_factory=IndexParams)

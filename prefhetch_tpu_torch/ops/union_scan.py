@@ -14,6 +14,11 @@ the wide top-k. ``union_scan_distances`` and ``union_scan_pruned`` are the
 f32 formulations the JAX package runs through XLA; they stay plain PyTorch
 (the unpruned route and the test oracle).
 
+The memory-tight configuration scans the raw PQ codes (M bytes per vector)
+instead of a dense payload: ``union_pq_scan_distances`` is the exact f32 ADC
+(plain PyTorch, the oracle) and ``union_pq_scan_distances_kernel`` runs the
+code lookups on kernel K3 (ops/pq_onehot.py) with bf16 tables.
+
 The union is padded with the empty tile to a multiple of 128 and the empty
 tile is always its last entry. The JAX engine also pads the union to a power
 of two and the batch rows to a pinned count, only to pin XLA program shapes;
@@ -27,7 +32,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from prefhetch_tpu_torch.ops.topk import topk_smallest
+from prefhetch_tpu_torch.ops.pq_onehot import (
+    adc_lookup_sum, pq_onehot_distances,
+)
+from prefhetch_tpu_torch.ops.topk import PAD_DISTANCE, topk_smallest
 from prefhetch_tpu_torch.ops.union_scan_min import (
     union_distances, union_scan_min,
 )
@@ -77,6 +85,100 @@ def union_scan_distances(
     d2m = union_distances(payload, norms, sizes, queries, union)
     d2m = d2m.permute(2, 0, 1)                              # [nq, U, T]
     return _extract(d2m, pos).reshape(nq, -1)
+
+
+def pq_luts(centroids, codebooks, queries, by_residual: bool):
+    """The residual LUT of (query q, list p), separated by completing the
+    square:
+
+        LUT(q, p)[m, k] = ‖(q − c_p)_m − cb[m, k]‖²
+                        = T1(q)[m, k] + T2(p)[m, k] + (terms free of k)
+        T1(q)[m, k] = ‖cb[m, k]‖² − 2⟨q_m, cb[m, k]⟩      (per query)
+        T2(p)[m, k] = 2⟨c_{p,m}, cb[m, k]⟩                (per list)
+        C(q, p)     = ‖q − c_p‖²           (scalar, the k-free terms summed)
+
+    Returns (lut_q [nq, M·ksub], lut_p [nlist, M·ksub] or None without
+    residuals, cadd [nq, nlist]), all f32."""
+    nq = queries.shape[0]
+    M, ksub, dsub = codebooks.shape
+    q = queries.to(torch.float32)
+    cbsq = torch.sum(codebooks * codebooks, dim=-1)           # [M, ksub]
+    lut_q = (cbsq[None] - 2.0 * torch.einsum(
+        "qmd,mkd->qmk", q.reshape(nq, M, dsub), codebooks
+    )).reshape(nq, M * ksub)
+    qsq = torch.sum(q * q, dim=-1)
+    if not by_residual:
+        return lut_q, None, qsq[:, None].expand(nq, centroids.shape[0])
+    cents = centroids.to(torch.float32)
+    lut_p = (2.0 * torch.einsum(
+        "lmd,mkd->lmk", cents.reshape(-1, M, dsub), codebooks
+    )).reshape(-1, M * ksub)
+    csq = torch.sum(cents * cents, dim=-1)
+    cadd = qsq[:, None] + csq[None, :] - (2.0 * q) @ cents.T
+    return lut_q, lut_p, cadd
+
+
+def _pq_finish(part, cadd, sizes, tile_list, union, pos):
+    """Partial ADC sums [nq, U, T] → distances [nq, max_t·T]: add the
+    per-(query, list) scalar, clamp at 0, PAD past each tile's size, extract
+    each query's tiles by position."""
+    nq, _, T = part.shape
+    u = union.long()
+    lists_u = tile_list.long()[u]                             # [U]
+    d2 = torch.clamp(part + cadd[:, lists_u][:, :, None], min=0.0)
+    lane = torch.arange(T, device=part.device)
+    valid = lane[None, :] < sizes[u][:, None]                 # [U, T]
+    d2 = torch.where(valid[None], d2, PAD_DISTANCE)
+    return _extract(d2, pos).reshape(nq, -1)
+
+
+def union_pq_scan_distances(
+    codes: torch.Tensor,      # [ntiles+1, T, M] uint8 — PQ codes payload
+    sizes: torch.Tensor,      # [ntiles+1] int32
+    tile_list: torch.Tensor,  # [ntiles+1] int32 — owning inverted list
+    centroids: torch.Tensor,  # [nlist, d]
+    codebooks: torch.Tensor,  # [M, ksub, dsub]
+    queries: torch.Tensor,    # [nq, d] f32
+    union: torch.Tensor,      # [U] int32 tile ids
+    pos: torch.Tensor,        # [nq, max_t] int32 positions into union
+    by_residual: bool = True,
+) -> torch.Tensor:
+    """Exact f32 ADC scan over union code tiles: [nq, max_t·T] distances
+    with PAD at invalid lanes — the memory-tight configuration (M bytes per
+    vector, FAISS IVFPQ serving-memory parity; no reconstruction payload).
+    Plain PyTorch; the oracle of the kernel route below."""
+    lut_q, lut_p, cadd = pq_luts(centroids, codebooks, queries, by_residual)
+    part = adc_lookup_sum(codes, lut_q, lut_p, tile_list, union)
+    return _pq_finish(part, cadd, sizes, tile_list, union, pos)
+
+
+def union_pq_scan_distances_kernel(
+    codes: torch.Tensor,      # [ntiles+1, T, M] uint8
+    sizes: torch.Tensor,      # [ntiles+1] int32
+    tile_list: torch.Tensor,  # [ntiles+1] int32
+    centroids: torch.Tensor,  # [nlist, d]
+    codebooks: torch.Tensor,  # [M, ksub, dsub]
+    queries: torch.Tensor,    # [nq, d]
+    union: torch.Tensor,      # [U] int32
+    pos: torch.Tensor,        # [nq, max_t] int32
+    by_residual: bool = True,
+) -> torch.Tensor:
+    """The ADC scan on kernel K3 — the counterpart of the JAX package's
+    union_pq_scan_distances_pallas: the tables are built in f32 here, K3
+    looks the codes up in their bf16 roundings, then the scalar, the clamp,
+    the mask and the extraction follow as in the exact scan. The bf16 tables
+    cost a few percent of coarse-distance error (cancellation between the
+    ±⟨r, cb⟩ terms), which the exact re-rank downstream absorbs."""
+    nq = queries.shape[0]
+    U = union.shape[0]
+    T = codes.shape[1]
+    lut_q, lut_p, cadd = pq_luts(centroids, codebooks, queries, by_residual)
+    if lut_p is None:
+        lut_p = torch.zeros((centroids.shape[0], lut_q.shape[1]),
+                            dtype=torch.float32, device=lut_q.device)
+    part = pq_onehot_distances(codes, lut_q, lut_p, tile_list, union)
+    return _pq_finish(part.reshape(nq, U, T), cadd, sizes, tile_list, union,
+                      pos)
 
 
 def union_scan_pruned(

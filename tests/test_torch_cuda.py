@@ -1,6 +1,7 @@
-"""Tests that need the card: kernels K1 and K2 against their plain versions,
-the engine on CUDA against the engine on the CPU, and the encrypted re-rank
-service on CUDA against the service on the CPU. Without CUDA they skip. On a
+"""Tests that need the card: kernels K1 to K5 against their plain versions,
+the engine on CUDA against the engine on the CPU, the encrypted re-rank
+service on CUDA against the service on the CPU, and the scan variants of
+query_pipeline on CUDA against the CPU. Without CUDA they skip. On a
 machine with an H100 and nvcc (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -19,10 +20,13 @@ from prefhetch_tpu_torch.crypto import ntt as hostntt
 from prefhetch_tpu_torch.crypto.params import find_ntt_primes
 from prefhetch_tpu_torch.engine.hecompute import HEComputeService
 from prefhetch_tpu_torch.ops import ntt4_step as k2
+from prefhetch_tpu_torch.ops import pq_onehot as k3
+from prefhetch_tpu_torch.ops import slab_scan as k45
 from prefhetch_tpu_torch.ops import union_scan_min as usm
 from prefhetch_tpu_torch.ops.ntt4 import (
     build_ntt4_tables, fourstep_perm, intt4, ntt4,
 )
+from prefhetch_tpu_torch.pipeline import query_pipeline
 from prefhetch_tpu_torch.utils.config import (
     HEParams, IndexParams, PipelineConfig, ProtocolParams,
 )
@@ -222,3 +226,190 @@ def test_he_service_on_cuda_matches_cpu(cuda, mode):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(
         got, ((base[cand] - q[:, None]) ** 2).sum(-1))
+
+
+PAD = 3.4e38
+
+
+def _slab_inputs(dev, T, d, nq, max_t, dtype, seed):
+    """Tiles of size T, 1, T−1, 0, T//2 and the empty tile; probe rows mixing
+    them, the last row nothing but the empty tile."""
+    rng = np.random.default_rng(seed)
+    sizes = np.array([T, 1, T - 1, 0, T // 2, 0], np.int32)
+    if dtype == torch.uint8:
+        x = rng.integers(0, 256, (6, T, d)).astype(np.uint8)
+    else:
+        x = rng.normal(scale=40.0, size=(6, T, d)).astype(np.float32)
+    for i, s in enumerate(sizes):
+        x[i, s:] = 0
+    payload = torch.from_numpy(x).to(dev, dtype)
+    q = torch.from_numpy(
+        rng.normal(scale=40.0, size=(nq, d)).astype(np.float32)).to(dev)
+    probes = rng.integers(0, 6, (nq, max_t)).astype(np.int32)
+    probes[0, :4] = [0, 1, 2, 3]
+    probes[-1] = 5
+    return (payload, torch.from_numpy(sizes).to(dev), q,
+            torch.from_numpy(probes).to(dev))
+
+
+def _assert_slab_equal(got, want, q, norms):
+    """Same PAD lanes; valid lanes within the f32 summation error of the
+    three terms, 1e-5·(‖q‖² + max‖x‖²)."""
+    pad = want >= PAD / 2
+    assert torch.equal(got >= PAD / 2, pad)
+    tol = 1e-5 * ((q * q).sum(-1)[:, None] + norms.max())
+    err = torch.where(pad, torch.zeros_like(got), (got - want).abs())
+    assert bool((err <= tol).all()), float((err / tol).max())
+
+
+@pytest.mark.parametrize("T,d,nq,max_t,dtype", [
+    (1024, 128, 64, 24, torch.bfloat16),      # the operating point's widths
+    (100, 200, 5, 4, torch.float32),          # d past one pass of a warp
+    (64, 32, 7, 5, torch.bfloat16),
+])
+def test_slab_distances_kernel_matches_plain(cuda, T, d, nq, max_t, dtype):
+    payload, sizes, q, probes = _slab_inputs(cuda, T, d, nq, max_t, dtype,
+                                             seed=T + d)
+    norms = (payload.float() ** 2).sum(-1).contiguous()
+    before = k45.slab_distances.launches
+    got = k45.slab_distances(payload, norms, sizes, q, probes)
+    torch.cuda.synchronize()
+    assert k45.slab_distances.launches == before + 1
+    want = k45.slab_distances_plain(payload, norms, sizes, q, probes)
+    assert got.shape == (nq, max_t * T) and got.dtype == torch.float32
+    _assert_slab_equal(got, want, q, norms)
+    assert bool((got[-1] == PAD).all())
+
+
+@pytest.mark.parametrize("T,d,nq,max_t", [
+    (1024, 128, 64, 24), (100, 48, 5, 4), (64, 32, 7, 5),
+])
+def test_slab_distances_sq8_kernel_matches_plain(cuda, T, d, nq, max_t):
+    codes, sizes, q, probes = _slab_inputs(cuda, T, d, nq, max_t,
+                                           torch.uint8, seed=T + d + 1)
+    q = q.abs() * 3
+    g = torch.Generator().manual_seed(T)
+    vmin = (torch.rand(d, generator=g) * 10 - 5).to(cuda)
+    scale = (torch.rand(d, generator=g) * 0.8 + 0.2).to(cuda)
+    norms = ((vmin + (codes.float() + 0.5) * scale) ** 2).sum(-1).contiguous()
+    before = k45.slab_distances_sq8.launches
+    got = k45.slab_distances_sq8(codes, norms, sizes, vmin, scale, q, probes)
+    torch.cuda.synchronize()
+    assert k45.slab_distances_sq8.launches == before + 1
+    want = k45.slab_distances_sq8_plain(codes, norms, sizes, vmin, scale, q,
+                                        probes)
+    _assert_slab_equal(got, want, q, norms)
+
+
+def test_slab_kernels_reject_what_they_cannot_take(cuda):
+    payload, sizes, q, probes = _slab_inputs(cuda, 64, 32, 4, 4,
+                                             torch.bfloat16, seed=2)
+    norms = (payload.float() ** 2).sum(-1).contiguous()
+    with pytest.raises(ValueError, match="int32"):
+        k45.slab_distances(payload, norms, sizes, q, probes.long())
+    with pytest.raises(ValueError, match="one of"):
+        k45.slab_distances(payload.half(), norms, sizes, q, probes)
+    with pytest.raises(ValueError, match="divisible by 8"):
+        k45.slab_distances(payload[..., :12].contiguous(), norms, sizes,
+                           q[:, :12].contiguous(), probes)
+    with pytest.raises(ValueError, match="is on"):
+        k45.slab_distances(payload, norms.cpu(), sizes, q, probes)
+    codes = torch.zeros((6, 64, 24), dtype=torch.uint8, device=cuda)
+    aff = torch.ones(24, device=cuda)
+    with pytest.raises(ValueError, match="divisible by 16"):
+        k45.slab_distances_sq8(codes, norms, sizes, aff, aff,
+                               q[:, :24].contiguous(), probes)
+
+
+@pytest.mark.parametrize("T,M,ksub,nq", [
+    (256, 32, 256, 64),         # the operating point's widths: 8 queries a block
+    (256, 32, 256, 13),         # nq not a multiple of the query block
+    (100, 8, 256, 5),           # M not a multiple of 16: byte loads
+    (100, 64, 256, 13),         # tables that leave room for 4 queries a block
+    (64, 128, 256, 5),          # for 2
+    (64, 200, 256, 3),          # for 1, byte loads
+    (64, 16, 64, 3),
+])
+def test_pq_onehot_kernel_matches_plain(cuda, T, M, ksub, nq):
+    rng = np.random.default_rng(T + M + nq)
+    ntiles, nlist = 9, 4
+    codes = rng.integers(0, ksub, (ntiles + 1, T, M)).astype(np.uint8)
+    codes[-1] = 0
+    lutq = (rng.normal(size=(nq, M * ksub)) * 3000).astype(np.float32)
+    lutp = (rng.normal(size=(nlist, M * ksub)) * 700).astype(np.float32)
+    tile_list = np.sort(rng.integers(0, nlist, ntiles + 1)).astype(np.int32)
+    union = np.array([0, 1, 2, 4, 5, 7, 8, 9, 9, 9, 3], np.int32)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (codes, lutq, lutp, tile_list, union)]
+    before = k3.pq_onehot_distances.launches
+    got = k3.pq_onehot_distances(*args)
+    torch.cuda.synchronize()
+    assert k3.pq_onehot_distances.launches == before + 1
+    want = k3.pq_onehot_distances_plain(*args)
+    assert got.shape == (nq, len(union) * T) and got.dtype == torch.float32
+    # the bf16 table sums round the same way on both sides; the M terms are
+    # added in f32 in another order: 1e-5·Σ|terms|
+    tol = 1e-5 * M * (np.abs(lutq).max() + np.abs(lutp).max())
+    assert float((got - want).abs().max()) <= tol
+
+
+def test_pq_onehot_kernel_rejects_what_it_cannot_take(cuda):
+    codes = torch.zeros((3, 8, 4), dtype=torch.uint8, device=cuda)
+    lutq = torch.zeros((2, 64), device=cuda)
+    lutp = torch.zeros((5, 64), device=cuda)
+    tl = torch.zeros(3, dtype=torch.int32, device=cuda)
+    un = torch.zeros(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="uint8"):
+        k3.pq_onehot_distances(codes.int(), lutq, lutp, tl, un)
+    with pytest.raises(ValueError, match="int32"):
+        k3.pq_onehot_distances(codes, lutq, lutp, tl, un.long())
+    wide = torch.zeros((3, 8, 256), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="exceed the shared"):
+        k3.pq_onehot_distances(wide, torch.zeros((2, 65536), device=cuda),
+                               torch.zeros((5, 65536), device=cuda), tl, un)
+    with pytest.raises(ValueError, match="is on"):
+        k3.pq_onehot_distances(codes, lutq.cpu(), lutp, tl, un)
+
+
+@pytest.mark.parametrize("quant,scan,kernel", [
+    ("pq", "union", "pq"), ("sq8", "union", "sq8"), ("none", "slab", "slab"),
+    ("none", "union", "union_min"),
+])
+def test_query_pipeline_on_cuda_matches_cpu(cuda, quant, scan, kernel):
+    """Each scan variant on the card (through its kernel) against the same
+    variant on the CPU (through the plain version), same index: the exact
+    re-rank makes the final distances equal; ids as sets (ties)."""
+    data = make_clustered_dataset(nbase=2048, ntrain=4000, nquery=8, d=32,
+                                  n_clusters=40, gt_k=50, seed=9)
+    params = IndexParams(d=32, nlist=16, pq_m=8, pq_nbits=8, kmeans_iters=8,
+                         pq_kmeans_iters=8)
+    cpu_idx = build_ivf_index(data["train"], data["base"], params,
+                              device="cpu")
+    arrays = {
+        "centroids": cpu_idx.centroids.numpy(),
+        "list_ids": cpu_idx.list_ids.numpy(),
+        "list_sizes": cpu_idx.list_sizes.numpy(),
+        "list_norms": cpu_idx.list_norms.numpy(),
+        "list_codes": cpu_idx.list_codes.numpy(),
+        "codebooks": cpu_idx.codebooks.numpy(),
+        "list_recon_bf16": cpu_idx.host_arrays["payload"],
+    }
+    counters = {
+        "pq": k3.pq_onehot_distances, "sq8": k45.slab_distances_sq8,
+        "slab": k45.slab_distances, "union_min": usm.union_scan_min,
+    }
+    out = {}
+    for dev, idx in (("cpu", cpu_idx),
+                     (cuda, index_from_numpy(arrays, params, cuda))):
+        before = {n: f.launches for n, f in counters.items()}
+        step, args, stats = query_pipeline(
+            idx, data["base"], data["query"], nprobe=6, coarse_probe=40,
+            k=10, quant=quant, scan=scan, tile=64, prune_j=4, device=dev)
+        d, ids = step(*args)
+        delta = {n: f.launches - before[n] for n, f in counters.items()}
+        want = {n: int(dev != "cpu" and n == kernel) for n in counters}
+        assert delta == want
+        out[str(dev)[:3]] = (d.cpu().numpy(), ids.cpu().numpy())
+    np.testing.assert_array_equal(out["cud"][0], out["cpu"][0])
+    for r in range(8):
+        assert set(out["cud"][1][r]) == set(out["cpu"][1][r])

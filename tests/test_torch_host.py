@@ -88,14 +88,21 @@ def test_wire_bin_cross_decode():
         np.testing.assert_array_equal(a, b)
 
 
+def _port_sources():
+    """The port's Python files; what a build or a smoke run leaves under
+    prefhetch_tpu_torch/build/ is not the package."""
+    pkg = ROOT / "prefhetch_tpu_torch"
+    return [p for p in pkg.rglob("*.py")
+            if p.relative_to(pkg).parts[0] != "build"]
+
+
 def test_port_imports_without_jax():
     """Every module of the port and chip_smoke.py import with jax, flax,
     ml_dtypes and the JAX package blocked."""
     mods = sorted(
         "prefhetch_tpu_torch." + ".".join(p.relative_to(
             ROOT / "prefhetch_tpu_torch").with_suffix("").parts)
-        for p in (ROOT / "prefhetch_tpu_torch").rglob("*.py")
-        if p.name != "__init__.py"
+        for p in _port_sources() if p.name != "__init__.py"
     )
     code = (
         "import sys\n"
@@ -118,7 +125,7 @@ def test_port_sources_name_no_jax():
         r"^\s*(import|from)\s+(jax|jaxlib|flax|ml_dtypes|prefhetch_tpu)\b",
         re.M,
     )
-    files = list((ROOT / "prefhetch_tpu_torch").rglob("*.py"))
+    files = _port_sources()
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     for f in files:

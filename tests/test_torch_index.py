@@ -202,6 +202,57 @@ def test_build_ivf_index_matches_jax(data, jax_indexes):
     assert cb_close.mean() > 0.95, cb_close.mean()
     codes_eq = t.list_codes.numpy() == np.asarray(j.list_codes)
     assert codes_eq.mean() > 0.95, codes_eq.mean()
-    with pytest.raises(NotImplementedError):
-        tb.build_ivf_index(data["train"], data["base"],
-                           TParams(**dict(KW, quantizer="sq8")), device="cpu")
+
+
+def test_build_sq8_index_matches_jax(data):
+    """The SQ8 quantizer trains min and scale on the train set in numpy on
+    both sides: bit-equal parameters, and bit-equal codes given the same
+    lists (the coarse k-means lands on the same assignment, as above)."""
+    kw = dict(KW, pq_m=0, quantizer="sq8")
+    j = jb.build_ivf_index(data["train"], data["base"], JParams(**kw))
+    t = tb.build_ivf_index(data["train"], data["base"], TParams(**kw),
+                           device="cpu")
+    assert "SQ8" in t.params.artifact_name()
+    assert t.list_sq.dtype == torch.uint8 and t.list_codes is None
+    np.testing.assert_array_equal(t.list_ids.numpy(), np.asarray(j.list_ids))
+    for name in ("sq_vmin", "sq_scale", "list_sq"):
+        np.testing.assert_array_equal(getattr(t, name).numpy(),
+                                      np.asarray(getattr(j, name)), name)
+
+
+@pytest.mark.parametrize("kind,quant", [
+    ("pq", "sq8"), ("flat", "sq8"), ("pq", "pq"),
+])
+def test_quantised_tiled_views_bit_equal(kind, quant, jax_indexes):
+    """The SQ8 view (quantised from the bf16 recon or the f32 vectors, pad
+    rows included) and the PQ-codes view: every table, the payload bytes, the
+    decoded-value norms and the affine bit-equal to the JAX view's."""
+    j, path = jax_indexes[kind]
+    jv = j_tiled(j, tile=64, quant=quant)
+    tv = t_tiled(tb.load_index(path, device="cpu"), tile=64, quant=quant)
+    for name in ("tile_ids_np", "tile_sizes_np", "tile_start_np",
+                 "tile_count_np", "tile_list_np"):
+        np.testing.assert_array_equal(getattr(tv, name), getattr(jv, name),
+                                      name)
+    assert tv.empty_tile == jv.empty_tile and tv.tile == jv.tile
+    assert tv.payload.dtype == torch.uint8
+    assert tv.payload.shape[2] == (KW["pq_m"] if quant == "pq" else KW["d"])
+    np.testing.assert_array_equal(tv.payload.numpy(), np.asarray(jv.payload))
+    np.testing.assert_array_equal(tv.norms.numpy(), np.asarray(jv.norms))
+    np.testing.assert_array_equal(tv.sizes.numpy(), np.asarray(jv.sizes))
+    np.testing.assert_array_equal(tv.ids.numpy(), np.asarray(jv.ids))
+    if quant == "sq8":
+        np.testing.assert_array_equal(tv.sq_vmin.numpy(),
+                                      np.asarray(jv.sq_vmin))
+        np.testing.assert_array_equal(tv.sq_scale.numpy(),
+                                      np.asarray(jv.sq_scale))
+    else:
+        assert tv.sq_vmin is None and tv.sq_scale is None
+        assert not tv.norms.any()
+
+
+def test_tiled_view_refuses_what_it_cannot_build(jax_indexes):
+    flat = tb.load_index(jax_indexes["flat"][1], device="cpu")
+    assert t_tiled(flat, tile=64, quant="pq") is None      # no codes
+    with pytest.raises(ValueError, match="unknown quant"):
+        t_tiled(flat, tile=64, quant="int4")

@@ -8,15 +8,19 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases, each
 reporting on lines of its own; any failure exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi) and torch's name;
-2. build    — compiles every kernel of the port from csrc/ with nvcc;
+2. build    — compiles every kernel of the port from csrc/ with nvcc, and
+              checks that K1's machine code multiplies on the tensor cores
+              (HMMA or HGMMA in cuobjdump -sass);
 3. edges    — K1 against its plain PyTorch version on the card at edge
               shapes (size-0 and partial tiles, nq not a multiple of the
-              query block, an f32 payload, d above one feature stage);
+              query block, two query blocks, an f32 payload, bf16 at d=40
+              and d=200 where K is not a multiple of 16);
    variant edges — K5, K4 (slab distances over a dense and an SQ8 payload)
-              and K3 (PQ table lookups) against their plain versions at
+              and K3 (PQ table lookups over each query's probed tiles, the
+              scalar, clamp and mask fused) against their plain versions at
               edge shapes (tiles of size T, 1, T-1, 0, a probe row of
-              nothing but the empty tile, byte-wise code loads, a zero list
-              table);
+              nothing but the empty tile, one probe slot, byte-wise code
+              loads, M=200, ksub=64, a zero list table, nq=1 and 70);
    ntt      — K2 (one stage of the four-step NTT) against its plain version
               stage by stage, and the whole transform against the host
               butterfly NTT: exact equality, forward and inverse, N=4096
@@ -44,16 +48,19 @@ reporting on lines of its own; any failure exits non-zero:
               exactly; recall as above; then where one request's time goes;
    variants — the quantised and slab scan variants of the triage pipeline
               (pipeline.query_pipeline) on the same index and base:
-              quant="pq" (PQ codes, 256-slot tiles, K3), quant="sq8"
+              quant="pq" (PQ codes, 256-slot tiles, K3 over the probed
+              tiles, no union), quant="sq8"
               (8-bit payload, K4) and scan="slab" (dense payload, K5). For
               each: the tiled view, the kernel against its plain version at
               the first batch's own shapes, its time beside the plain
               version, a library call and the card's bound, then the same
               4 batches of 64 queries with every kernel's launch count read
               around them, exact returned distances and recall;
-5. timings  — each kernel's time with CUDA events at the main-path shape,
-              beside its plain version, a PyTorch library call and the
-              card's bound for the same work; printed as one JSON line
+5. timings  — each kernel's own device time at the main-path shape
+              (torch.profiler; the CUDA-event time of a loop of wrapper
+              calls beside it, which the host's pace can set for a fast
+              kernel), beside its plain version, a PyTorch library call and
+              the card's bound for the same work; printed as one JSON line
               {"kernels": [...]}; then torch.profiler over warm /search
               requests: device time by kernel and the device's busy share;
 6. result   — the last line, {"ok": true, "device": {...}}.
@@ -109,6 +116,45 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, kernel=None, iters: int = 20, warmup: int = 3):
+    """Device time in ms from torch.profiler over iters calls of fn(): with
+    ``kernel``, the mean time of one launch of the kernels whose name holds
+    it (the kernel's own time on the card, whatever the host's pace between
+    launches); without, all device work per call. None when the profiler
+    recorded no such device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us, count = 0.0, 0
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if ev.device_type == DeviceType.CUDA and us > 0 and (
+                kernel is None or kernel in ev.key):
+            total_us += us
+            count += ev.count
+    if count == 0:
+        return None
+    return total_us / 1e3 / (count if kernel is not None else iters)
+
+
+def kernel_ms(fn, kernel: str, events_ms: float) -> float:
+    """A kernel's time for the kernels line: its device time from the
+    profiler, or the CUDA-event time of the wrapper loop where the profiler
+    saw no device event."""
+    dev = device_ms(fn, kernel)
+    return events_ms if dev is None else dev
 
 
 def check_union_scan_min(name, payload, norms, sizes, q, union,
@@ -173,6 +219,33 @@ def phase_edges() -> None:
     # f32 payload; d = 200 spans two feature stages (128 + 72)
     case("edge/f32,d=200", 3, 64, 200, 5, torch.float32,
          [64, 10, 0, 0], [1, 0, 2, 3])
+    # bf16 on the tensor cores with K not a multiple of 16: d = 40 (one
+    # zero-filled feature chunk) and d = 200 (four chunks, T % 8 != 0)
+    case("edge/bf16,d=40", 4, 512, 40, 64, torch.bfloat16,
+         [512, 37, 0, 300, 0], [0, 1, 2, 3, 4, 4])
+    case("edge/bf16,d=200,T=100", 3, 100, 200, 5, torch.bfloat16,
+         [100, 1, 64, 0], [2, 0, 1, 3])
+    # two query blocks
+    case("edge/bf16,nq=128", 4, 256, 128, 128, torch.bfloat16,
+         [256, 37, 0, 200, 0], [0, 1, 2, 3, 4, 4])
+
+
+def check_tensor_core_sass(path) -> None:
+    """K1's library must multiply on the tensor cores: its machine code
+    (cuobjdump -sass, from the toolkit beside nvcc) holds HMMA (mma.sync) or
+    HGMMA (wgmma) instructions."""
+    from prefhetch_tpu_torch.utils import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts = {op: sum(1 for ln in sass.splitlines() if f" {op}." in ln)
+              for op in ("HMMA", "HGMMA")}
+    if not any(counts.values()):
+        raise AssertionError(f"{path.name}: no HMMA or HGMMA instruction in "
+                             f"its SASS: K1 does not use the tensor cores")
+    log("build", f"{path.name}: tensor-core instructions in the SASS: "
+        f"{counts}")
 
 
 def check_stage(name, x, step, canonical) -> int:
@@ -527,12 +600,14 @@ def time_ntt4_step(tb, nbatch: int, sm_mhz: float) -> dict:
         t_cold = cuda_time_ms(
             lambda: k2.ntt4_step(xs[next(ring) % 8], step, canonical),
             iters=24)
+        t_dev = kernel_ms(lambda: k2.ntt4_step(x0, step, canonical),
+                          "ntt4_step_kernel", min(t_k, t_k2))
         macs = nbatch * step.r * step.m * step.m
         nbytes = (2 * nbatch * step.r * step.m * 4 + step.m * step.m * 4
                   + (2 * step.r * step.m * 4 if step.tw is not None else 0))
-        rows.append((name, min(t_k, t_k2), t_p, t_cold, macs, nbytes))
-    ms, plain_ms, cold_ms, macs, nbytes = (
-        sum(r[i] for r in rows) / len(rows) for i in range(1, 6))
+        rows.append((name, t_dev, t_p, t_cold, macs, nbytes, min(t_k, t_k2)))
+    ms, plain_ms, cold_ms, macs, nbytes, ev_ms = (
+        sum(r[i] for r in rows) / len(rows) for i in range(1, 7))
     # the card's bound: bytes once over the memory rate; the multiply-adds
     # as int8 tensor-core operations (16 digit products each, 2 ops a
     # product) over the int8 peak, the fastest integer unit the card has
@@ -545,17 +620,19 @@ def time_ntt4_step(tb, nbatch: int, sm_mhz: float) -> dict:
     pipe_ms = macs * 2 / (n_sm * 64 * sm_mhz * 1e6) * 1e3
     log("timing", f"ntt4_step at [{nbatch}, {tb.n2}, {tb.n1}] int32, per "
         f"launch: " + "; ".join(
-            f"{n_} {a:.4f} ms (plain {b_:.4f}, inputs past L2 {c:.4f})"
-            for n_, a, b_, c, _, _ in rows))
+            f"{n_} {a:.4f} ms (CUDA events over wrapper calls {e:.4f}, plain "
+            f"{b_:.4f}, inputs past L2 {c:.4f})"
+            for n_, a, b_, c, _, _, e in rows))
     log("timing", f"ntt4_step mean of the four stages: kernel {ms:.4f} "
-        f"ms (inputs past L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"ms on the device (CUDA events over wrapper calls {ev_ms:.4f}, "
+        f"inputs past L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, "
         f"library call none, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{nbytes / 1e6:.2f} MB; {macs / 1e6:.1f} M multiply-adds = "
         f"{ops_s * 1e3:.4f} ms of int8 tensor-core time); the 32-bit "
         f"integer pipe alone would need {pipe_ms:.4f} ms at "
         f"{n_sm} SMs x 64 lanes x {sm_mhz:.0f} MHz")
-    return {"ms": ms, "ms_inputs_past_l2": cold_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return {"ms": ms, "ms_events": ev_ms, "ms_inputs_past_l2": cold_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def profile_device(what: str, run) -> None:
@@ -661,12 +738,12 @@ def kernel_counters():
     wrappers = {
         "union_scan_min": usm.union_scan_min,
         "ntt4_step": k2.ntt4_step,
-        "pq_onehot_distances": k3.pq_onehot_distances,
+        "pq_probed_distances": k3.pq_probed_distances,
         "slab_distances_sq8": k45.slab_distances_sq8,
         "slab_distances": k45.slab_distances,
     }
     plains = [usm.union_scan_min_reference, k2.ntt4_step_plain,
-              k3.pq_onehot_distances_plain, k45.slab_distances_sq8_plain,
+              k3.pq_probed_distances_plain, k45.slab_distances_sq8_plain,
               k45.slab_distances_plain]
     return wrappers, plains
 
@@ -704,27 +781,37 @@ def check_slab(name, kernel, plain, args) -> float:
     return err
 
 
-def check_pq_onehot(name, codes, lutq, lutp, tile_list, union) -> float:
-    """K3 against its plain version on the same card tensors. Both round the
-    table sum to bf16 the same way and add the M terms in f32 in another
-    order: 1e-5 M (max |lutq| + max |lutp|). Returns the max |difference|."""
+def check_pq_probed(name, codes, lutq, lutp, cadd, sizes, tile_list,
+                    tiles) -> float:
+    """K3 against its plain version on the same card tensors. Same PAD
+    lanes; both round the table sum to bf16 the same way and add the M terms
+    in f32 in another order before the same scalar: 1e-5 (M (max |lutq| +
+    max |lutp|) + max |cadd|). Returns the max |difference| over valid
+    lanes."""
     import torch
 
     from prefhetch_tpu_torch.ops import pq_onehot as k3
+    from prefhetch_tpu_torch.ops.topk import PAD_DISTANCE
 
-    got = k3.pq_onehot_distances(codes, lutq, lutp, tile_list, union)
+    args = (codes, lutq, lutp, cadd, sizes, tile_list, tiles)
+    got = k3.pq_probed_distances(*args)
     torch.cuda.synchronize()              # a fault in the run shows here
-    want = k3.pq_onehot_distances_plain(codes, lutq, lutp, tile_list, union)
+    want = k3.pq_probed_distances_plain(*args)
     _, T, M = codes.shape
-    nq, U = lutq.shape[0], union.shape[0]
-    if got.shape != (nq, U * T) or got.dtype != torch.float32:
+    nq, max_t = tiles.shape
+    if got.shape != (nq, max_t * T) or got.dtype != torch.float32:
         raise AssertionError(f"{name}: output {got.shape} {got.dtype}")
-    tol = 1e-5 * M * float(lutq.abs().max() + lutp.abs().max())
-    err = float((got - want).abs().max())
+    pad = want >= PAD_DISTANCE / 2
+    if not torch.equal(got >= PAD_DISTANCE / 2, pad):
+        raise AssertionError(f"{name}: PAD pattern differs")
+    tol = 1e-5 * (M * float(lutq.abs().max() + lutp.abs().max())
+                  + float(cadd.abs().max()))
+    err = float(torch.where(pad, torch.zeros_like(got),
+                            (got - want).abs()).max())
     if not err <= tol:
         raise AssertionError(f"{name}: differs from the plain version, max "
                              f"|err| {err} > {tol}")
-    log("kernel", f"{name}: nq={nq} U={U} T={T} M={M} "
+    log("kernel", f"{name}: nq={nq} max_t={max_t} T={T} M={M} "
         f"ksub={lutq.shape[1] // M}: ok (max |err| {err}, "
         f"tolerance {tol})")
     return err
@@ -734,11 +821,12 @@ def phase_variant_edges() -> None:
     """K5, K4 and K3 at edge shapes: tiles of size T, 1, T-1, 0, T/2 and the
     empty tile, a probe row of nothing but the empty tile, nq not a multiple
     of any block, d past one pass of a warp's lanes, code bytes loaded one
-    at a time (M not a multiple of 16), tables so large that a block holds
-    4, 2 or 1 queries' instead of 8, a zero list part."""
+    at a time (M not a multiple of 16), tables of up to 100 KB, a zero list
+    part, one probe slot."""
     import numpy as np
     import torch
 
+    from prefhetch_tpu_torch.ops import pq_onehot as k3
     from prefhetch_tpu_torch.ops import slab_scan as k45
 
     dev = torch.device("cuda:0")
@@ -782,26 +870,41 @@ def phase_variant_edges() -> None:
         check_slab(f"edge/slab_distances_sq8 T={T}", k45.slab_distances_sq8,
                    k45.slab_distances_sq8_plain,
                    (codes, norms.contiguous(), sizes, vmin, scale, q, probes))
-    # M·ksub = 16384, 32768 and 51200 leave a block room for the tables of
-    # 4, 2 and 1 queries; the smaller ones for 8
-    for T, M, ksub, nq, zero_p in (
-            (256, 32, 256, 13, False), (100, 8, 256, 5, False),
-            (100, 64, 256, 13, False), (64, 128, 256, 5, False),
-            (64, 200, 256, 3, False), (64, 16, 64, 3, True)):
-        rng = np.random.default_rng(T + M + nq)
+    # K3: tiles of size T, 1, T-1, 0, ... and the empty tile 9; a probe row
+    # of nothing but the empty tile (nq > 1); one probe slot; byte-wise
+    # code loads (M=8, 200); tables of 16 to 100 KB; ksub=64 with a zero
+    # list table; one query and 70
+    for T, M, ksub, nq, max_t, zero_p in (
+            (256, 32, 256, 13, 11, False), (100, 8, 256, 5, 4, False),
+            (64, 200, 256, 3, 3, False), (64, 16, 64, 3, 5, True),
+            (32, 16, 256, 1, 3, False), (16, 32, 256, 70, 2, False),
+            (64, 32, 256, 6, 1, False)):
+        rng = np.random.default_rng(T + M + nq + max_t)
         ntiles, nlist = 9, 4
         codes = rng.integers(0, ksub, (ntiles + 1, T, M)).astype(np.uint8)
         codes[-1] = 0
+        sizes = np.array([T, 1, T - 1, 0, T // 2, T, min(3, T), T,
+                          min(2, T), 0], np.int32)
         lutq = (rng.normal(size=(nq, M * ksub)) * 3000).astype(np.float32)
         lutp = (rng.normal(size=(nlist, M * ksub)) * 700).astype(np.float32)
         if zero_p:
             lutp[:] = 0
-        tile_list = np.sort(rng.integers(0, nlist, ntiles + 1))
-        union = np.array([0, 1, 2, 4, 5, 7, 8, 9, 9, 9, 3], np.int32)
-        check_pq_onehot(
-            f"edge/pq_onehot T={T}",
-            *(torch.from_numpy(a).to(dev) for a in (
-                codes, lutq, lutp, tile_list.astype(np.int32), union)))
+        cadd = (rng.normal(size=(nq, nlist)) * 3000 * M ** 0.5).astype(
+            np.float32)
+        tile_list = np.sort(rng.integers(0, nlist, ntiles + 1)).astype(
+            np.int32)
+        tiles = rng.integers(0, ntiles + 1, (nq, max_t)).astype(np.int32)
+        tiles[0, :min(4, max_t)] = np.arange(min(4, max_t))
+        if nq > 1:
+            tiles[-1] = ntiles
+        args = [torch.from_numpy(a).to(dev) for a in (
+            codes, lutq, lutp, cadd, sizes, tile_list, tiles)]
+        check_pq_probed(f"edge/pq_probed T={T} M={M} ksub={ksub} nq={nq} "
+                        f"max_t={max_t}", *args)
+        if nq > 1:
+            last = k3.pq_probed_distances(*args)[-1]
+            if not bool((last >= 3e38).all()):
+                raise AssertionError("an all-empty probe row is not all PAD")
 
 
 def slab_bound(view, probe_ids, q, sq8: bool):
@@ -837,6 +940,7 @@ def time_slab(name, kernel, plain, args, view, sq8: bool) -> dict:
     ms = cuda_time_ms(lambda: kernel(*args))
     plain_ms = cuda_time_ms(lambda: plain(*args), iters=5, warmup=1)
     ms2 = cuda_time_ms(lambda: kernel(*args))
+    dev = kernel_ms(lambda: kernel(*args), "slab_kernel", min(ms, ms2))
     slabs = view.payload[probe_ids.reshape(-1).long()].to(torch.float32)
     qrep = torch.repeat_interleave(q, probe_ids.shape[1], dim=0)[:, :, None]
     library_ms = cuda_time_ms(lambda: torch.bmm(slabs, qrep), iters=10)
@@ -845,58 +949,79 @@ def time_slab(name, kernel, plain, args, view, sq8: bool) -> dict:
     bound_ms, bound_by, mb, gflop = slab_bound(view, probe_ids, q, sq8)
     log("timing", f"{name} at nq={q.shape[0]} max_t={probe_ids.shape[1]} "
         f"T={view.tile} d={q.shape[1]} {view.payload.dtype}: kernel "
-        f"{ms:.4f} / {ms2:.4f} ms, plain {plain_ms:.4f} ms, torch.bmm on "
+        f"{dev:.4f} ms on the device (CUDA events over wrapper calls "
+        f"{ms:.4f} / {ms2:.4f}), plain {plain_ms:.4f} ms, torch.bmm on "
         f"pre-gathered f32 slabs ({slab_mb:.0f} MB, the matvec only) "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{mb:.1f} MB, {gflop:.3f} GFLOP)")
-    return {"ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+    return {"ms": dev, "ms_events": min(ms, ms2), "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms,
             "library_call": "torch.bmm f32 [B,T,d]x[B,d,1] on slabs "
                             "gathered and widened beforehand, the cross "
                             "term only (a partial function)"}
 
 
-def time_pq_onehot(args, sm_mhz: float) -> dict:
-    """K3 at the first batch's shape: kernel, plain, kernel again and the
-    card's bound: the larger of the bytes (the union tiles' codes, the
-    query tables, the list tables of the lists in the union, the indices,
-    the f32 output) over the memory rate and the table lookups (nq U T M
-    bf16 entries of 2 bytes out of shared memory, which delivers 128 bytes
-    an SM a clock: 64 lookups) over the card's shared-memory rate. The list
-    table's reads, one for 8 queries' lookups, are left out of the bound. No
-    one PyTorch call computes the function."""
+def time_pq_probed(args, sm_mhz: float) -> dict:
+    """K3 at the first batch's shape: kernel, plain, kernel again, the
+    kernel once more on all-zero codes (every warp's 32 lookups of a term
+    then read one entry: no bank conflicts; the gap is what the conflicts of
+    random codes cost), and the card's bound: the larger of the bytes (the
+    valid rows' codes of the distinct probed tiles, the bf16 tables of the
+    queries and of the probed lists, the scalars of the probed (query, list)
+    pairs, the indices, the f32 output) over the memory rate and the table
+    lookups (M for every valid lane of every (query, slot) pair, bf16
+    entries of 2 bytes out of shared memory, which delivers 128 bytes an SM
+    a clock: 64 lookups) over the card's shared-memory rate. No one PyTorch
+    call computes the function."""
     import torch
 
     from prefhetch_tpu_torch.ops import pq_onehot as k3
 
-    codes, lutq, lutp, tile_list, union = args
+    codes, lutq, lutp, cadd, sizes, tile_list, tiles = args
     _, T, M = codes.shape
     nq, MK = lutq.shape
-    U = union.shape[0]
-    ms = cuda_time_ms(lambda: k3.pq_onehot_distances(*args))
-    plain_ms = cuda_time_ms(lambda: k3.pq_onehot_distances_plain(*args),
+    max_t = tiles.shape[1]
+    ms = cuda_time_ms(lambda: k3.pq_probed_distances(*args))
+    plain_ms = cuda_time_ms(lambda: k3.pq_probed_distances_plain(*args),
                             iters=3, warmup=1)
-    ms2 = cuda_time_ms(lambda: k3.pq_onehot_distances(*args))
-    tiles = torch.unique(union.long())
-    lists = torch.unique(tile_list.long()[tiles])
-    nbytes = (tiles.numel() * T * M + nq * MK * lutq.element_size()
-              + lists.numel() * MK * lutp.element_size()
-              + tiles.numel() * 4 + U * 4 + nq * U * T * 4)
-    lookups = float(nq) * U * T * M
+    ms2 = cuda_time_ms(lambda: k3.pq_probed_distances(*args))
+    dev = kernel_ms(lambda: k3.pq_probed_distances(*args), "pq_probed_kernel",
+                    min(ms, ms2))
+    flat_codes = (torch.zeros_like(codes),) + tuple(args[1:])
+    dev_flat = kernel_ms(lambda: k3.pq_probed_distances(*flat_codes),
+                         "pq_probed_kernel",
+                         cuda_time_ms(lambda: k3.pq_probed_distances(
+                             *flat_codes)))
+    flat = tiles.reshape(-1).long()
+    live = sizes[flat] > 0
+    distinct = torch.unique(flat)
+    rows = int(sizes[distinct].sum())
+    lists_q = torch.unique(
+        torch.arange(nq, device=flat.device).repeat_interleave(max_t)[live]
+        * cadd.shape[1] + tile_list.long()[flat[live]])
+    lists = torch.unique(tile_list.long()[flat[live]])
+    nbytes = (rows * M + nq * MK * 2 + lists.numel() * MK * 2
+              + lists_q.numel() * 4 + flat.numel() * 4 + distinct.numel() * 8
+              + nq * max_t * T * 4)
+    lookups = float(sizes[flat].sum()) * M
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     t_b = nbytes / HBM_BYTES_S
     t_o = lookups * 2 / (n_sm * 128 * sm_mhz * 1e6)
     bound_ms = max(t_b, t_o) * 1e3
     bound_by = "bytes" if t_b >= t_o else "operations"
-    log("timing", f"pq_onehot_distances at nq={nq} U={U} (distinct tiles "
-        f"{tiles.numel()}, lists {lists.numel()}) T={T} M={M} "
-        f"ksub={MK // M}: kernel {ms:.4f} / {ms2:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, library call none, bound {bound_ms:.4f} ms "
-        f"({bound_by}: {nbytes / 1e6:.1f} MB = {t_b * 1e3:.4f} ms; "
-        f"{lookups / 1e9:.3f} G lookups x 2 B over {n_sm} SMs x 128 B x "
-        f"{sm_mhz:.0f} MHz = {t_o * 1e3:.4f} ms)")
-    return {"ms": min(ms, ms2), "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
+    log("timing", f"pq_probed_distances at nq={nq} max_t={max_t} (distinct "
+        f"tiles {distinct.numel()}, lists {lists.numel()}) T={T} M={M} "
+        f"ksub={MK // M}: kernel {dev:.4f} ms on the device (CUDA events "
+        f"over wrapper calls {ms:.4f} / {ms2:.4f}), on all-zero codes (no "
+        f"bank conflicts) {dev_flat:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library call none, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"{nbytes / 1e6:.1f} MB = {t_b * 1e3:.4f} ms; {lookups / 1e6:.1f} M "
+        f"lookups x 2 B over {n_sm} SMs x 128 B x {sm_mhz:.0f} MHz = "
+        f"{t_o * 1e3:.4f} ms)")
+    return {"ms": dev, "ms_events": min(ms, ms2),
+            "ms_codes_all_zero": dev_flat, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
             "library_call": "none: no single PyTorch call sums table "
                             "entries picked by code (torch.gather needs "
                             "the index spelled out per query, which is "
@@ -905,7 +1030,7 @@ def time_pq_onehot(args, sm_mhz: float) -> dict:
 
 VARIANTS = (
     # quant, scan, the kernel the variant's scan must launch
-    ("pq", "union", "pq_onehot_distances"),
+    ("pq", "union", "pq_probed_distances"),
     ("sq8", "union", "slab_distances_sq8"),
     ("none", "slab", "slab_distances"),
 )
@@ -958,14 +1083,16 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
         step, args, stats = prepare(0)
         payload, norms, sizes, _, _, q_t, tiles_t = args
         if quant == "pq":
-            lut_q, lut_p, _ = pq_luts(index.centroids, index.codebooks, q_t,
-                                      bool(index.params.by_residual))
-            kargs = (payload, lut_q, lut_p,
-                     torch.from_numpy(view.tile_list_np).to(dev),
-                     stats["union"])
-            err = check_pq_onehot(f"variants/{tag} batch0", *kargs)
-            times = time_pq_onehot(kargs, sm_mhz)
-            del lut_q, lut_p
+            lut_q, lut_p, cadd = pq_luts(index.centroids, index.codebooks,
+                                         q_t, bool(index.params.by_residual))
+            # the tables as the kernel reads them (the wrapper casts f32
+            # tables to bf16 first; the function is the same)
+            kargs = (payload, lut_q.to(torch.bfloat16),
+                     lut_p.to(torch.bfloat16), cadd.contiguous(), sizes,
+                     torch.from_numpy(view.tile_list_np).to(dev), tiles_t)
+            err = check_pq_probed(f"variants/{tag} batch0", *kargs)
+            times = time_pq_probed(kargs, sm_mhz)
+            del lut_q, lut_p, cadd
         elif quant == "sq8":
             kargs = (payload, norms, sizes, view.sq_vmin, view.sq_scale, q_t,
                      tiles_t)
@@ -1000,8 +1127,9 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
         launches = {n: w.launches for n, w in wrappers.items()}
         plain_calls = sum(p.calls for p in plains)
         log("variants", f"{tag}: query_pipeline x{N_BATCHES} of {NQ_BATCH} "
-            f"queries: prepare (host: ranking, probe expansion, union, "
-            f"upload) {', '.join(f'{t:.1f}' for t in prep_ms)} ms, step "
+            f"queries: prepare (host: ranking, probe expansion, a union "
+            f"where the scan takes one, upload) "
+            f"{', '.join(f'{t:.1f}' for t in prep_ms)} ms, step "
             f"(device work, host clock) "
             f"{', '.join(f'{t:.2f}' for t in step_ms)} ms; tiles per query "
             f"{stats['tiles_per_query']:.0f}; launches {launches}, "
@@ -1026,8 +1154,11 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
         # where a step's device time goes (the last batch's tensors)
         fns = stats["stage_fns"](args)
         stage_ms = {n: cuda_time_ms(f, iters=10) for n, f in fns.items()}
+        stage_dev = {n: device_ms(f, iters=10) for n, f in fns.items()}
         log("variants", f"{tag}: stages of one step, CUDA events: "
-            + ", ".join(f"{n} {t:.4f} ms" for n, t in stage_ms.items()))
+            + ", ".join(f"{n} {t:.4f} ms" for n, t in stage_ms.items())
+            + "; device work per call (torch.profiler): "
+            + ", ".join(f"{n} {t} ms" for n, t in stage_dev.items()))
         out[kernel_name] = {
             "launches": launches[kernel_name],
             "launches_per_batch": launches[kernel_name] / N_BATCHES,
@@ -1100,6 +1231,7 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         log("build", f"{name}: {info['seconds']:.2f} s; "
             + " | ".join(ptxas))
+    check_tensor_core_sass(built["union_scan_min"]["path"])
 
     # -- 3. kernels at edge shapes -----------------------------------------
     phase_edges()
@@ -1252,6 +1384,8 @@ def main() -> int:
     ms = cuda_time_ms(lambda: usm.union_scan_min(*args))
     plain_ms = cuda_time_ms(lambda: usm.union_scan_min_reference(*args))
     ms2 = cuda_time_ms(lambda: usm.union_scan_min(*args))
+    dev_ms = kernel_ms(lambda: usm.union_scan_min(*args),
+                       "union_scan_min_bf16_kernel", min(ms, ms2))
     # library yardstick: one torch.matmul of the bf16 cross term alone
     # [nq, d] x [d, U_real*T] — a part of K1's function, not all of it
     sizes_u = view.sizes[union1.long()]
@@ -1259,6 +1393,7 @@ def main() -> int:
     slab_t = view.payload[real].reshape(-1, D).T.contiguous()
     qc = q1.to(view.payload.dtype)
     library_ms = cuda_time_ms(lambda: torch.matmul(qc, slab_t))
+    library_dev = device_ms(lambda: torch.matmul(qc, slab_t))
     del slab_t
     # the card's bound for the same work: each input byte read once (the
     # valid payload rows and norms of the union tiles), each output byte
@@ -1274,9 +1409,12 @@ def main() -> int:
     bound_by = ("bytes" if bytes_moved / HBM_BYTES_S >= flops / BF16_FLOPS
                 else "operations")
     log("timing", f"union_scan_min at U={U1} (real tiles {len(real)}, "
-        f"valid rows {rows}) nq={nq1} T={T} d={D}: kernel {ms:.4f} / "
-        f"{ms2:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul cross term "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
+        f"valid rows {rows}) nq={nq1} T={T} d={D}: kernel {dev_ms:.4f} ms "
+        f"on the device ({bytes_moved / dev_ms / 1e6:.0f} GB/s of the "
+        f"bound's bytes; CUDA events over wrapper calls {ms:.4f} / "
+        f"{ms2:.4f}), plain {plain_ms:.4f} ms, torch.matmul cross term "
+        f"{library_ms:.4f} ms (device {library_dev}), bound "
+        f"{bound_ms:.4f} ms ({bound_by}: "
         f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     svc = engine.he_service
     nbatch = NQ_BATCH * -(-cfg.protocol.coarse_probe // (svc.params.n // D))
@@ -1293,7 +1431,8 @@ def main() -> int:
         "launches_per_batch": launches["union_scan_min"] / N_BATCHES,
         "path": f"POST /search x{N_BATCHES}",
         "max_abs_err": max_err,
-        "ms": min(ms, ms2),
+        "ms": dev_ms,
+        "ms_events": min(ms, ms2),
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
@@ -1315,11 +1454,11 @@ def main() -> int:
         "library_call": "none: no single PyTorch call computes an exact "
                         "modular matrix product",
     }, {
-        "name": "pq_onehot_distances",
+        "name": "pq_probed_distances",
         "route": "cuda",
         "source": "prefhetch_tpu_torch/csrc/pq_onehot.cu",
         "replaces": "prefhetch_tpu/ops/pallas_scan.py:358",
-        **variant_rows["pq_onehot_distances"],
+        **variant_rows["pq_probed_distances"],
     }, {
         "name": "slab_distances_sq8",
         "route": "cuda",

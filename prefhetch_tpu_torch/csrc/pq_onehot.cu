@@ -1,41 +1,49 @@
-// K3: partial PQ asymmetric-distance sums over union code tiles, for Hopper
+// K3: the PQ-code scan over each query's own probed tiles, with the
+// per-(query, list) scalar, the clamp and the mask fused, for Hopper
 // (sm_90a).
 //
 // Replaces the TPU kernel prefhetch_tpu/ops/pallas_scan.py _kernel_pq_onehot
-// / pallas_pq_onehot_distances (:330-355, :358-421). For every query q,
-// union slot u (tile = union[u], list = tile_list[tile]) and lane t:
+// / pallas_pq_onehot_distances (:330-355, :358-421) together with the
+// epilogue that prefhetch_tpu/ops/union_scan.py
+// union_pq_scan_distances_pallas (:435-500) runs around it. For every query
+// q, probe slot s (tile = tiles[q, s], L = tile_list[tile]) and lane t:
 //
-//     out[q, u*T + t] = sum_m lut(q, list)[m*ksub + codes[tile, t, m]]
-//     lut(q, list)[i] = bf16( lutq[q, i] + lutp[list, i] )
+//     out[q, s*T + t] = max(cadd[q, L] + sum_m lut(q, L)[m*ksub + codes[tile, t, m]], 0)
+//                                              for t < sizes[tile]
+//     out[q, s*T + t] = PAD                    otherwise
+//     lut(q, L)[i]    = bf16( lutq[q, i] + lutp[L, i] )
 //
 // lutq and lutp arrive as bf16; their sum is taken in f32 and rounded to
 // bf16 (round to nearest even), as the TPU kernel's bf16 add does; the M
-// terms are summed in f32. The kernel does not mask: lanes past a tile's
-// size hold whatever their (zero) codes give, and the caller adds the
-// per-(query, list) scalar, clamps and masks (ops/union_scan.py).
+// terms are summed in f32.
 //
-// The TPU kernel builds a [T, M*ksub] one-hot and multiplies it with the LUT
-// on the matrix unit, because a TPU gathers badly. Here the same function is
-// a table lookup out of shared memory. What bounds it on an H100: shared-
-// memory lookups (nq * U * T * M of them), not bytes. The design cuts the
-// lookups' instruction count and the table staging:
-//   - a block owns QB queries and keeps their LUT part resident for its
-//     whole life, interleaved [M*ksub][QB] bf16, so ONE shared-memory read
-//     of 2*QB bytes fetches the entry of all QB queries (16 bytes at QB=8);
-//   - the block walks a contiguous range of union slots; the per-list part
-//     (lutp[list], M*ksub bf16) is staged only when the list changes, and
-//     the tiles of one list are consecutive in a union;
-//   - a thread owns one candidate lane t: its M code bytes come straight
-//     from device memory with 16-byte loads (a warp reads 32*M contiguous
-//     bytes), and its QB sums stay in registers;
-//   - each out[q, u*T + t] row segment is written with consecutive threads
-//     on consecutive t.
-// Reads by random code hit random banks; that cost is measured (PERF.md),
-// not solved here.
+// The TPU kernel scores every query against every tile of the batch's
+// union (its matrix unit wants dense blocks and a TPU gathers badly), and
+// the JAX stage then keeps each query's own slots: 6.6% of the pairs at the
+// SIFT1M operating point. On the card a lookup costs per entry and a gather
+// is cheap, so this kernel computes only the (query, probed slot) pairs and
+// writes the stage's output [nq, max_t*T] directly: no partial-sum matrix in
+// device memory, no second pass for the scalar, the clamp, the mask or the
+// extraction.
 //
-// Grid: (ceil(nq / QB), ny); block (x, y) takes queries [x*QB, x*QB + QB)
-// and union slots [y*U/ny, (y+1)*U/ny). 256 threads. Shared memory:
-// 2 * M*ksub * (QB + 1) bytes (opted in above 48 KB).
+// What bounds it on an H100: the code bytes (each distinct probed tile's
+// valid rows, M bytes a row), the tables and the f32 output over HBM, and
+// the lookups (nq * slots * T * M two-byte reads out of shared memory,
+// random by code, so a warp's 32 reads meet bank conflicts). The design:
+//   - a block owns one query and a run of SLOTS consecutive probe slots; a
+//     probe's tiles are consecutive in tiles[q] and share a list, so the
+//     combined table lut(q, L) (M*ksub bf16, 16 KB at 32 x 256) is staged
+//     in shared memory once per list change, with the rounding done while
+//     staging: the inner loop is one 2-byte lookup and one f32 add a term;
+//   - a thread owns a lane t: its M code bytes come in 16-byte loads (byte
+//     loads when M % 16 != 0), a warp reading 32*M contiguous bytes; it
+//     adds cadd, clamps, masks and stores with consecutive threads on
+//     consecutive t;
+//   - slots of a size-0 tile (the empty tile that pads probe rows) and
+//     lanes past a tile's size store PAD without lookups or code reads.
+//
+// Grid: (ceil(max_t / SLOTS), nq). 256 threads. Shared memory: 2 * M*ksub
+// bytes (opted in above 48 KB).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,137 +52,121 @@
 namespace {
 
 constexpr int THREADS = 256;
+constexpr int SLOTS = 8;        // probe slots per block
+constexpr float PAD = 3.4e38f;  // ops/topk.py PAD_DISTANCE
 
-// QB bf16 values moved as one machine word of 2 * QB bytes.
-template <int QB> struct Word;
-template <> struct Word<8> { typedef uint4 type; };
-template <> struct Word<4> { typedef uint2 type; };
-template <> struct Word<2> { typedef uint32_t type; };
-template <> struct Word<1> { typedef uint16_t type; };
-
-// One (lane, m) term: look the code up for the list part and for all QB
-// queries, add, round to bf16, accumulate in f32.
-template <int QB>
-__device__ __forceinline__ void add_term(const __nv_bfloat16* __restrict__ lutq_s,
-                                         const __nv_bfloat16* __restrict__ lutp_s,
-                                         int idx, float* acc) {
-  typedef typename Word<QB>::type W;
-  const float lp = __bfloat162float(lutp_s[idx]);
-  const W raw = reinterpret_cast<const W*>(lutq_s)[idx];
-  const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+// lut_s = bf16(lutq_row + lutp_row), MK entries.
+__device__ __forceinline__ void stage_table(const __nv_bfloat16* __restrict__ lq,
+                                            const __nv_bfloat16* __restrict__ lp,
+                                            int MK, __nv_bfloat16* lut_s) {
+  if ((MK & 7) == 0) {          // 8 entries a 16-byte load
+    for (int i = threadIdx.x * 8; i < MK; i += THREADS * 8) {
+      const uint4 a = *reinterpret_cast<const uint4*>(lq + i);
+      const uint4 b = *reinterpret_cast<const uint4*>(lp + i);
+      const __nv_bfloat162* ha = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* hb = reinterpret_cast<const __nv_bfloat162*>(&b);
+      uint4 o;
+      __nv_bfloat162* ho = reinterpret_cast<__nv_bfloat162*>(&o);
 #pragma unroll
-  for (int j = 0; j < QB; ++j)
-    acc[j] += __bfloat162float(
-        __float2bfloat16_rn(__bfloat162float(e[j]) + lp));
+      for (int k = 0; k < 4; ++k) {
+        const float2 fa = __bfloat1622float2(ha[k]);
+        const float2 fb = __bfloat1622float2(hb[k]);
+        ho[k] = __floats2bfloat162_rn(fa.x + fb.x, fa.y + fb.y);
+      }
+      *reinterpret_cast<uint4*>(lut_s + i) = o;
+    }
+  } else {
+    for (int i = threadIdx.x; i < MK; i += THREADS)
+      lut_s[i] = __float2bfloat16_rn(__bfloat162float(lq[i]) +
+                                     __bfloat162float(lp[i]));
+  }
 }
 
-template <int QB>
 __global__ void __launch_bounds__(THREADS)
-pq_onehot_kernel(const uint8_t* __restrict__ codes,         // [ntiles+1, Tn, M]
-                 const __nv_bfloat16* __restrict__ lutq,    // [nq, MK]
-                 const __nv_bfloat16* __restrict__ lutp,    // [nlist, MK]
-                 const int* __restrict__ tile_list,         // [ntiles+1]
-                 const int* __restrict__ union_ids,         // [U]
-                 int nq, int U, int Tn, int M, int ksub,
-                 float* __restrict__ out) {                 // [nq, U*Tn]
+pq_probed_kernel(const uint8_t* __restrict__ codes,        // [ntiles+1, Tn, M]
+                 const __nv_bfloat16* __restrict__ lutq,   // [nq, MK]
+                 const __nv_bfloat16* __restrict__ lutp,   // [nlist, MK]
+                 const float* __restrict__ cadd,           // [nq, nlist]
+                 const int* __restrict__ sizes,            // [ntiles+1]
+                 const int* __restrict__ tile_list,        // [ntiles+1]
+                 const int* __restrict__ tiles,            // [nq, max_t]
+                 int max_t, int Tn, int M, int ksub, int nlist,
+                 float* __restrict__ out) {                // [nq, max_t*Tn]
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* lut_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MK]
   const int MK = M * ksub;
-  __nv_bfloat16* lutq_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [MK][QB]
-  __nv_bfloat16* lutp_s = lutq_s + (size_t)MK * QB;                    // [MK]
-
-  const int q0 = blockIdx.x * QB;
-  const int u_lo = (int)((long long)U * blockIdx.y / gridDim.y);
-  const int u_hi = (int)((long long)U * (blockIdx.y + 1) / gridDim.y);
-
-  // the block's query LUTs, interleaved; rows past nq are zero
-  for (int j = 0; j < QB; ++j) {
-    const bool real = q0 + j < nq;
-    const __nv_bfloat16* src = lutq + (size_t)(real ? q0 + j : 0) * MK;
-    for (int i = threadIdx.x; i < MK; i += THREADS)
-      lutq_s[(size_t)i * QB + j] = real ? src[i] : __float2bfloat16_rn(0.f);
-  }
+  const int q = blockIdx.y;
+  const int s0 = blockIdx.x * SLOTS;
+  const int s1 = min(s0 + SLOTS, max_t);
+  const int* tq = tiles + (size_t)q * max_t;
+  float* oq = out + (size_t)q * max_t * Tn;
 
   int cur_list = -1;
-  for (int u = u_lo; u < u_hi; ++u) {
-    const int tile = union_ids[u];
+  for (int s = s0; s < s1; ++s) {
+    const int tile = tq[s];
+    const int size = sizes[tile];
+    float* o = oq + (size_t)s * Tn;
+    if (size == 0) {            // block-uniform: no lookups, no table
+      for (int t = threadIdx.x; t < Tn; t += THREADS) o[t] = PAD;
+      continue;
+    }
     const int list = tile_list[tile];
     if (list != cur_list) {     // block-uniform
-      __syncthreads();          // every lane is done with the old list part
-      const __nv_bfloat16* src = lutp + (size_t)list * MK;
-      for (int i = threadIdx.x; i < MK; i += THREADS) lutp_s[i] = src[i];
+      __syncthreads();          // every lane is done with the old table
+      stage_table(lutq + (size_t)q * MK, lutp + (size_t)list * MK, MK, lut_s);
       cur_list = list;
-      __syncthreads();          // also covers the lutq_s stores above
+      __syncthreads();
     }
+    const float c = cadd[(size_t)q * nlist + list];
     const uint8_t* ct = codes + (size_t)tile * Tn * M;
     for (int t = threadIdx.x; t < Tn; t += THREADS) {
-      float acc[QB];
-#pragma unroll
-      for (int j = 0; j < QB; ++j) acc[j] = 0.f;
-      const uint8_t* c = ct + (size_t)t * M;
+      if (t >= size) {
+        o[t] = PAD;
+        continue;
+      }
+      const uint8_t* cr = ct + (size_t)t * M;
+      float acc = 0.f;
       if ((M & 15) == 0) {      // 16 codes a load
         for (int m0 = 0; m0 < M; m0 += 16) {
-          const uint4 raw = *reinterpret_cast<const uint4*>(c + m0);
+          const uint4 raw = *reinterpret_cast<const uint4*>(cr + m0);
           const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+          const __nv_bfloat16* lm = lut_s + m0 * ksub;
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int k = 0; k < 4; ++k)
-              add_term<QB>(lutq_s, lutp_s,
-                           (m0 + 4 * i + k) * ksub + ((w[i] >> (8 * k)) & 0xffu),
-                           acc);
+              acc += __bfloat162float(
+                  lm[(4 * i + k) * ksub + ((w[i] >> (8 * k)) & 0xffu)]);
         }
       } else {
         for (int m = 0; m < M; ++m)
-          add_term<QB>(lutq_s, lutp_s, m * ksub + c[m], acc);
+          acc += __bfloat162float(lut_s[m * ksub + cr[m]]);
       }
-#pragma unroll
-      for (int j = 0; j < QB; ++j)
-        if (q0 + j < nq)
-          out[(size_t)(q0 + j) * U * Tn + (size_t)u * Tn + t] = acc[j];
+      o[t] = fmaxf(c + acc, 0.f);
     }
   }
 }
 
-template <int QB>
-int launch(const uint8_t* codes, const __nv_bfloat16* lutq,
-           const __nv_bfloat16* lutp, const int* tile_list,
-           const int* union_ids, int nq, int U, int Tn, int M, int ksub,
-           int ny, float* out, cudaStream_t stream) {
-  const size_t smem = (size_t)M * ksub * 2 * (QB + 1);
-  cudaError_t err = cudaFuncSetAttribute(
-      pq_onehot_kernel<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((nq + QB - 1) / QB, ny);
-  pq_onehot_kernel<QB><<<grid, THREADS, smem, stream>>>(
-      codes, lutq, lutp, tile_list, union_ids, nq, U, Tn, M, ksub, out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// C interface (bound with ctypes in ops/pq_onehot.py). qb in {1, 2, 4, 8} is
-// the number of queries a block keeps resident; ny the number of union
-// ranges. Returns the cudaError_t of the launch (0 = launched), or -1 for a
-// qb this file does not instantiate.
-extern "C" int pfh_pq_onehot(const void* codes, const void* lutq,
-                             const void* lutp, const int* tile_list,
-                             const int* union_ids, int nq, int U, int Tn,
-                             int M, int ksub, int qb, int ny, float* out,
+// C interface (bound with ctypes in ops/pq_onehot.py). Returns the
+// cudaError_t of the launch (0 = launched).
+extern "C" int pfh_pq_probed(const void* codes, const void* lutq,
+                             const void* lutp, const float* cadd,
+                             const int* sizes, const int* tile_list,
+                             const int* tiles, int nq, int max_t, int Tn,
+                             int M, int ksub, int nlist, float* out,
                              void* stream) {
-  const uint8_t* c = static_cast<const uint8_t*>(codes);
-  const __nv_bfloat16* lq = static_cast<const __nv_bfloat16*>(lutq);
-  const __nv_bfloat16* lp = static_cast<const __nv_bfloat16*>(lutp);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (qb) {
-    case 8: return launch<8>(c, lq, lp, tile_list, union_ids, nq, U, Tn, M,
-                             ksub, ny, out, s);
-    case 4: return launch<4>(c, lq, lp, tile_list, union_ids, nq, U, Tn, M,
-                             ksub, ny, out, s);
-    case 2: return launch<2>(c, lq, lp, tile_list, union_ids, nq, U, Tn, M,
-                             ksub, ny, out, s);
-    case 1: return launch<1>(c, lq, lp, tile_list, union_ids, nq, U, Tn, M,
-                             ksub, ny, out, s);
-  }
-  return -1;
+  const size_t smem = (size_t)M * ksub * sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      pq_probed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((max_t + SLOTS - 1) / SLOTS, nq);
+  pq_probed_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(codes),
+      static_cast<const __nv_bfloat16*>(lutq),
+      static_cast<const __nv_bfloat16*>(lutp), cadd, sizes, tile_list, tiles,
+      max_t, Tn, M, ksub, nlist, out);
+  return (int)cudaGetLastError();
 }

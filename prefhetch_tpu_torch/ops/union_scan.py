@@ -16,8 +16,9 @@ f32 formulations the JAX package runs through XLA; they stay plain PyTorch
 
 The memory-tight configuration scans the raw PQ codes (M bytes per vector)
 instead of a dense payload: ``union_pq_scan_distances`` is the exact f32 ADC
-(plain PyTorch, the oracle) and ``union_pq_scan_distances_kernel`` runs the
-code lookups on kernel K3 (ops/pq_onehot.py) with bf16 tables.
+over the union (plain PyTorch, the oracle). ``union_pq_scan_distances_kernel``
+skips the union: kernel K3 (ops/pq_onehot.py) scores each query against its
+own probed tiles only, with bf16 tables, and writes the finished distances.
 
 The union is padded with the empty tile to a multiple of 128 and the empty
 tile is always its last entry. The JAX engine also pads the union to a power
@@ -33,9 +34,9 @@ import numpy as np
 import torch
 
 from prefhetch_tpu_torch.ops.pq_onehot import (
-    adc_lookup_sum, pq_onehot_distances,
+    adc_lookup_sum, pq_finish, pq_probed_distances,
 )
-from prefhetch_tpu_torch.ops.topk import PAD_DISTANCE, topk_smallest
+from prefhetch_tpu_torch.ops.topk import topk_smallest
 from prefhetch_tpu_torch.ops.union_scan_min import (
     union_distances, union_scan_min,
 )
@@ -118,20 +119,6 @@ def pq_luts(centroids, codebooks, queries, by_residual: bool):
     return lut_q, lut_p, cadd
 
 
-def _pq_finish(part, cadd, sizes, tile_list, union, pos):
-    """Partial ADC sums [nq, U, T] → distances [nq, max_t·T]: add the
-    per-(query, list) scalar, clamp at 0, PAD past each tile's size, extract
-    each query's tiles by position."""
-    nq, _, T = part.shape
-    u = union.long()
-    lists_u = tile_list.long()[u]                             # [U]
-    d2 = torch.clamp(part + cadd[:, lists_u][:, :, None], min=0.0)
-    lane = torch.arange(T, device=part.device)
-    valid = lane[None, :] < sizes[u][:, None]                 # [U, T]
-    d2 = torch.where(valid[None], d2, PAD_DISTANCE)
-    return _extract(d2, pos).reshape(nq, -1)
-
-
 def union_pq_scan_distances(
     codes: torch.Tensor,      # [ntiles+1, T, M] uint8 — PQ codes payload
     sizes: torch.Tensor,      # [ntiles+1] int32
@@ -149,7 +136,7 @@ def union_pq_scan_distances(
     Plain PyTorch; the oracle of the kernel route below."""
     lut_q, lut_p, cadd = pq_luts(centroids, codebooks, queries, by_residual)
     part = adc_lookup_sum(codes, lut_q, lut_p, tile_list, union)
-    return _pq_finish(part, cadd, sizes, tile_list, union, pos)
+    return pq_finish(part, cadd, sizes, tile_list, union, pos)
 
 
 def union_pq_scan_distances_kernel(
@@ -159,26 +146,22 @@ def union_pq_scan_distances_kernel(
     centroids: torch.Tensor,  # [nlist, d]
     codebooks: torch.Tensor,  # [M, ksub, dsub]
     queries: torch.Tensor,    # [nq, d]
-    union: torch.Tensor,      # [U] int32
-    pos: torch.Tensor,        # [nq, max_t] int32
+    tiles: torch.Tensor,      # [nq, max_t] int32 — each query's probed tiles
     by_residual: bool = True,
 ) -> torch.Tensor:
     """The ADC scan on kernel K3 — the counterpart of the JAX package's
-    union_pq_scan_distances_pallas: the tables are built in f32 here, K3
-    looks the codes up in their bf16 roundings, then the scalar, the clamp,
-    the mask and the extraction follow as in the exact scan. The bf16 tables
+    union_pq_scan_distances_pallas, which scores the union and extracts each
+    query's tiles by position; K3 scores the probed tiles directly, so the
+    same [nq, max_t·T] distances need no union. The tables are built in f32
+    here and K3 looks the codes up in their bf16 roundings. The bf16 tables
     cost a few percent of coarse-distance error (cancellation between the
     ±⟨r, cb⟩ terms), which the exact re-rank downstream absorbs."""
-    nq = queries.shape[0]
-    U = union.shape[0]
-    T = codes.shape[1]
     lut_q, lut_p, cadd = pq_luts(centroids, codebooks, queries, by_residual)
     if lut_p is None:
         lut_p = torch.zeros((centroids.shape[0], lut_q.shape[1]),
                             dtype=torch.float32, device=lut_q.device)
-    part = pq_onehot_distances(codes, lut_q, lut_p, tile_list, union)
-    return _pq_finish(part.reshape(nq, U, T), cadd, sizes, tile_list, union,
-                      pos)
+    return pq_probed_distances(codes, lut_q, lut_p, cadd, sizes, tile_list,
+                               tiles)
 
 
 def union_scan_pruned(

@@ -14,10 +14,13 @@ product; ‖q‖² comes from the f32 queries.
 ``union_scan_min`` picks by the device of its tensors: CPU tensors take the
 plain PyTorch version (``union_scan_min_reference``), CUDA tensors launch
 the hand-written kernel ``csrc/union_scan_min.cu`` (nvcc for sm_90a, bound
-with ctypes, built at first use) or raise. There is no fallback from the
-kernel to the plain version. ``union_scan_min.launches`` counts kernel
-launches and ``union_scan_min_reference.calls`` counts plain-version calls,
-so a run can show which one it went through.
+with ctypes, built at first use) or raise. A bf16 payload goes to the
+tensor cores (mma.sync bf16, f32 accumulation, payload chunks streamed
+through a cp.async ring); an f32 payload to an FMA loop on the FP32 cores.
+There is no fallback from the kernel to the plain version.
+``union_scan_min.launches`` counts kernel launches and
+``union_scan_min_reference.calls`` counts plain-version calls, so a run can
+show which one it went through.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch
 from prefhetch_tpu_torch.ops.topk import PAD_DISTANCE
 
 _LIB = "union_scan_min"
+_MAX_SMEM = 232448                  # bytes a block may opt into on sm_90
 
 
 def _queries_for(payload: torch.Tensor, queries: torch.Tensor):
@@ -84,6 +88,8 @@ def _library() -> ctypes.CDLL:
     from prefhetch_tpu_torch.utils.cuda_build import load
 
     lib = load(_LIB)
+    lib.pfh_union_scan_min_bf16_smem.restype = ctypes.c_int
+    lib.pfh_union_scan_min_bf16_smem.argtypes = [ctypes.c_int]
     fn = lib.pfh_union_scan_min
     fn.restype = ctypes.c_int
     fn.argtypes = [
@@ -142,6 +148,10 @@ def union_scan_min(
     lib = _library()
     _, T, d = payload.shape
     U, nq = union.shape[0], queries.shape[0]
+    bf16 = payload.dtype == torch.bfloat16
+    if bf16 and lib.pfh_union_scan_min_bf16_smem(d) > _MAX_SMEM:
+        raise ValueError(f"d={d}: the bf16 query block and payload ring "
+                         f"exceed the shared memory a block may use")
     with torch.cuda.device(payload.device):
         qsq, qc = _queries_for(payload, queries)
         qc = qc.contiguous()
@@ -151,7 +161,7 @@ def union_scan_min(
                            device=payload.device)
         stream = torch.cuda.current_stream(payload.device).cuda_stream
         err = lib.pfh_union_scan_min(
-            payload.data_ptr(), int(payload.dtype == torch.bfloat16),
+            payload.data_ptr(), int(bf16),
             norms.data_ptr(), sizes.data_ptr(), qc.data_ptr(),
             qsq.data_ptr(), union.data_ptr(), U, nq, T, d,
             d2.data_ptr(), dmin.data_ptr(), stream,

@@ -11,8 +11,8 @@ stages (scan, topk, tail) as zero-argument functions over the same tensors,
 for per-stage timing. The scan is one of five:
 
 - ``quant="pq"``   — PQ codes payload (M bytes per vector, FAISS IVFPQ
-  serving-memory parity), ADC over union tiles on kernel K3
-  (ops/union_scan.union_pq_scan_distances_kernel);
+  serving-memory parity), ADC over each query's probed tiles on kernel K3
+  (ops/union_scan.union_pq_scan_distances_kernel; no union is built);
 - ``quant="sq8"``  — per-dimension 8-bit payload, per-(query, tile) slab
   distances on kernel K4 (ops/slab_scan.slab_distances_sq8);
 - ``scan="union"`` with tile pruning — kernel K1 over the union tiles, each
@@ -105,7 +105,7 @@ def query_pipeline(
 
     j = 0                           # set by the union branch; 0 = no pruning
     union_t = pos_t = None
-    if quant == "pq" or (quant == "none" and scan == "union"):
+    if quant == "none" and scan == "union":
         union_np, pos_np = union_probe_tiles(tiles_np, view.empty_tile)
         union_t = torch.from_numpy(union_np.astype(np.int32)).to(dev)
         pos_t = torch.from_numpy(pos_np).to(dev)
@@ -117,7 +117,7 @@ def query_pipeline(
         def prog_scan(payload, norms, sizes, q, tiles):
             return union_pq_scan_distances_kernel(
                 payload, sizes, tile_list_t, index.centroids,
-                index.codebooks, q, union_t, pos_t, by_residual=by_res,
+                index.codebooks, q, tiles, by_residual=by_res,
             )
     elif quant == "sq8":
         def prog_scan(payload, norms, sizes, q, tiles):

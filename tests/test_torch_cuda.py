@@ -58,6 +58,9 @@ def _tiles(dev, ntiles, T, d, sizes, dtype, seed):
     (512, 128, 64, torch.bfloat16),
     (64, 32, 70, torch.bfloat16),
     (100, 200, 5, torch.float32),
+    (512, 40, 64, torch.bfloat16),      # K tail: d not a multiple of 16
+    (100, 200, 5, torch.bfloat16),      # four feature chunks, T % 8 != 0
+    (256, 128, 128, torch.bfloat16),    # two query blocks
 ])
 def test_union_scan_min_kernel_matches_plain(cuda, T, d, nq, dtype):
     sizes = [T, 1, 0, T // 2, 0]
@@ -321,54 +324,69 @@ def test_slab_kernels_reject_what_they_cannot_take(cuda):
                                q[:, :24].contiguous(), probes)
 
 
-@pytest.mark.parametrize("T,M,ksub,nq", [
-    (256, 32, 256, 64),         # the operating point's widths: 8 queries a block
-    (256, 32, 256, 13),         # nq not a multiple of the query block
-    (100, 8, 256, 5),           # M not a multiple of 16: byte loads
-    (100, 64, 256, 13),         # tables that leave room for 4 queries a block
-    (64, 128, 256, 5),          # for 2
-    (64, 200, 256, 3),          # for 1, byte loads
-    (64, 16, 64, 3),
-])
-def test_pq_onehot_kernel_matches_plain(cuda, T, M, ksub, nq):
-    rng = np.random.default_rng(T + M + nq)
+def _pq_probed_inputs(dev, T, M, ksub, nq, seed):
+    """Tiles of sizes T, 1, T−1, 0, ... and the empty tile 9; four lists;
+    probe rows mixing them, the last one nothing but the empty tile."""
+    rng = np.random.default_rng(seed)
     ntiles, nlist = 9, 4
     codes = rng.integers(0, ksub, (ntiles + 1, T, M)).astype(np.uint8)
     codes[-1] = 0
+    sizes = np.array([T, 1, T - 1, 0, T // 2, T, 3, T, 2, 0], np.int32)
     lutq = (rng.normal(size=(nq, M * ksub)) * 3000).astype(np.float32)
     lutp = (rng.normal(size=(nlist, M * ksub)) * 700).astype(np.float32)
+    cadd = (rng.normal(size=(nq, nlist)) * 3000 * M ** 0.5).astype(np.float32)
     tile_list = np.sort(rng.integers(0, nlist, ntiles + 1)).astype(np.int32)
-    union = np.array([0, 1, 2, 4, 5, 7, 8, 9, 9, 9, 3], np.int32)
-    args = [torch.from_numpy(a).to(cuda)
-            for a in (codes, lutq, lutp, tile_list, union)]
-    before = k3.pq_onehot_distances.launches
-    got = k3.pq_onehot_distances(*args)
+    tiles = rng.integers(0, ntiles + 1, (nq, 11)).astype(np.int32)
+    tiles[0, :4] = [0, 1, 2, 3]
+    tiles[-1] = ntiles
+    return [torch.from_numpy(a).to(dev) for a in
+            (codes, lutq, lutp, cadd, sizes, tile_list, tiles)]
+
+
+@pytest.mark.parametrize("T,M,ksub,nq", [
+    (256, 32, 256, 64),         # the operating point's widths
+    (256, 32, 256, 13),
+    (100, 8, 256, 5),           # M not a multiple of 16: byte loads
+    (100, 64, 256, 13),         # a 32 KB table
+    (64, 128, 256, 5),          # 64 KB
+    (64, 200, 256, 3),          # 100 KB, byte loads
+    (64, 16, 64, 3),
+])
+def test_pq_onehot_kernel_matches_plain(cuda, T, M, ksub, nq):
+    """K3 (pq_probed_distances) against its plain version."""
+    args = _pq_probed_inputs(cuda, T, M, ksub, nq, seed=T + M + nq)
+    before = k3.pq_probed_distances.launches
+    got = k3.pq_probed_distances(*args)
     torch.cuda.synchronize()
-    assert k3.pq_onehot_distances.launches == before + 1
-    want = k3.pq_onehot_distances_plain(*args)
-    assert got.shape == (nq, len(union) * T) and got.dtype == torch.float32
+    assert k3.pq_probed_distances.launches == before + 1
+    want = k3.pq_probed_distances_plain(*args)
+    assert got.shape == (nq, 11 * T) and got.dtype == torch.float32
+    pad = want >= PAD / 2
+    assert torch.equal(got >= PAD / 2, pad)
+    assert bool((got[-1] == PAD).all())
     # the bf16 table sums round the same way on both sides; the M terms are
-    # added in f32 in another order: 1e-5·Σ|terms|
-    tol = 1e-5 * M * (np.abs(lutq).max() + np.abs(lutp).max())
-    assert float((got - want).abs().max()) <= tol
+    # added in f32 in another order: 1e-5·(Σ|terms| + |cadd|)
+    lutq, lutp, cadd = args[1], args[2], args[3]
+    tol = 1e-5 * (M * float(lutq.abs().max() + lutp.abs().max())
+                  + float(cadd.abs().max()))
+    err = torch.where(pad, torch.zeros_like(got), (got - want).abs())
+    assert float(err.max()) <= tol
 
 
 def test_pq_onehot_kernel_rejects_what_it_cannot_take(cuda):
-    codes = torch.zeros((3, 8, 4), dtype=torch.uint8, device=cuda)
-    lutq = torch.zeros((2, 64), device=cuda)
-    lutp = torch.zeros((5, 64), device=cuda)
-    tl = torch.zeros(3, dtype=torch.int32, device=cuda)
-    un = torch.zeros(2, dtype=torch.int32, device=cuda)
+    args = _pq_probed_inputs(cuda, 8, 4, 16, 2, seed=0)
+    codes, lutq, lutp, cadd, sizes, tl, tiles = args
     with pytest.raises(ValueError, match="uint8"):
-        k3.pq_onehot_distances(codes.int(), lutq, lutp, tl, un)
+        k3.pq_probed_distances(codes.int(), *args[1:])
     with pytest.raises(ValueError, match="int32"):
-        k3.pq_onehot_distances(codes, lutq, lutp, tl, un.long())
-    wide = torch.zeros((3, 8, 256), dtype=torch.uint8, device=cuda)
-    with pytest.raises(ValueError, match="exceed the shared"):
-        k3.pq_onehot_distances(wide, torch.zeros((2, 65536), device=cuda),
-                               torch.zeros((5, 65536), device=cuda), tl, un)
+        k3.pq_probed_distances(*args[:6], tiles.long())
+    wide = torch.zeros((10, 8, 512), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="exceeds the shared"):
+        k3.pq_probed_distances(
+            wide, torch.zeros((2, 512 * 256), device=cuda),
+            torch.zeros((4, 512 * 256), device=cuda), cadd, sizes, tl, tiles)
     with pytest.raises(ValueError, match="is on"):
-        k3.pq_onehot_distances(codes, lutq.cpu(), lutp, tl, un)
+        k3.pq_probed_distances(codes, lutq.cpu(), *args[2:])
 
 
 @pytest.mark.parametrize("quant,scan,kernel", [
@@ -395,7 +413,7 @@ def test_query_pipeline_on_cuda_matches_cpu(cuda, quant, scan, kernel):
         "list_recon_bf16": cpu_idx.host_arrays["payload"],
     }
     counters = {
-        "pq": k3.pq_onehot_distances, "sq8": k45.slab_distances_sq8,
+        "pq": k3.pq_probed_distances, "sq8": k45.slab_distances_sq8,
         "slab": k45.slab_distances, "union_min": usm.union_scan_min,
     }
     out = {}

@@ -114,7 +114,7 @@ def jax_pipeline(index, base, queries, quant, scan, prune_j):
 
 BRANCHES = [
     # quant, scan, prune_j, the plain version the CPU run must reach
-    ("pq", "union", None, k3.pq_onehot_distances_plain),
+    ("pq", "union", None, k3.pq_probed_distances_plain),
     ("sq8", "union", None, k45.slab_distances_sq8_plain),
     ("none", "union", PRUNE_J, k1.union_scan_min_reference),
     ("none", "union", 0, None),
@@ -132,9 +132,9 @@ def test_query_pipeline_matches_jax_composition(quant, scan, prune_j, plain,
     d_j, i_j, j_keep = jax_pipeline(j, base, queries, quant, scan,
                                     PRUNE_J if prune_j is None else prune_j)
 
-    wrappers = (k1.union_scan_min, k3.pq_onehot_distances,
+    wrappers = (k1.union_scan_min, k3.pq_probed_distances,
                 k45.slab_distances, k45.slab_distances_sq8)
-    plains = (k1.union_scan_min_reference, k3.pq_onehot_distances_plain,
+    plains = (k1.union_scan_min_reference, k3.pq_probed_distances_plain,
               k45.slab_distances_plain, k45.slab_distances_sq8_plain)
     launches = [w.launches for w in wrappers]
     calls = {f: f.calls for f in plains}

@@ -185,11 +185,8 @@ def test_pq_onehot_matches_pallas_interpret(T, M, ksub, nq, nqb, zero_lutp):
     ref = np.asarray(jp.pallas_pq_onehot_distances(
         jnp.asarray(codes), jnp.asarray(lutq), jnp.asarray(lutp),
         jnp.asarray(tile_list), jnp.asarray(union), nqb=nqb, interpret=True))
-    calls = k3.pq_onehot_distances_plain.calls
-    got = k3.pq_onehot_distances(t(codes), t(lutq), t(lutp), t(tile_list),
-                                 t(union))
-    assert k3.pq_onehot_distances_plain.calls == calls + 1
-    assert k3.pq_onehot_distances.launches == 0
+    got = k3.pq_onehot_distances_plain(t(codes), t(lutq), t(lutp),
+                                       t(tile_list), t(union))
     assert got.dtype == torch.float32 and got.shape == (nq, len(union) * T)
     # f32 summation error of M terms; a LUT sum rounded otherwise than to the
     # nearest-even bf16 would be off by 2^-9 of a term, far above this
@@ -201,26 +198,6 @@ def test_pq_onehot_matches_pallas_interpret(T, M, ksub, nq, nqb, zero_lutp):
     want = sum(lut[m * ksub + codes[union[0], :, m].astype(np.int64)]
                for m in range(M))
     np.testing.assert_allclose(got.numpy()[1, :T], want, rtol=1e-6)
-
-
-def test_pq_onehot_wrapper_refuses_bad_arguments():
-    codes = torch.zeros((3, 8, 4), dtype=torch.uint8)
-    lutq, lutp = torch.zeros((2, 64)), torch.zeros((5, 64))
-    tl = torch.zeros(3, dtype=torch.int32)
-    un = torch.zeros(2, dtype=torch.int32)
-    k3._check(codes, lutq, lutp, tl, un)
-    with pytest.raises(ValueError, match="uint8"):
-        k3._check(codes.int(), lutq, lutp, tl, un)
-    with pytest.raises(ValueError, match="lutp must"):
-        k3._check(codes, lutq, lutp[:, :32], tl, un)
-    with pytest.raises(ValueError, match="int32"):
-        k3._check(codes, lutq, lutp, tl, un.long())
-    with pytest.raises(ValueError, match="256 codewords"):
-        k3._check(codes, torch.zeros((2, 4 * 512)), torch.zeros((5, 4 * 512)),
-                  tl, un)
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        k3.pq_onehot_distances(codes.to("meta"), lutq, lutp, tl, un)
-    assert k3.smem_bytes(8192, 8) == 147456
 
 
 # -- the dense-layout scans and the union PQ scans, on built indexes ------------
@@ -373,22 +350,25 @@ def test_union_pq_scan_matches_lut_scan(data, indexes, probes, pq_views):
 @pytest.mark.parametrize("kind", ["pq", "pq_nores"])
 def test_union_pq_scan_kernel_route_matches_pallas_interpret(
         kind, data, indexes, pq_views):
-    """The K3 route (plain version on the CPU) against the JAX Pallas route
-    in interpret mode: same PAD lanes, and distances within the f32 error of
-    the table build (the bf16 roundings are the same on both sides, but an
-    f32 table entry that differs in its last bit can round to the next bf16,
-    2^-8 of one entry: atol 2^-8·max|entry| covers one such flip a lane)."""
+    """The K3 route (plain version on the CPU, over the probed tiles)
+    against the JAX Pallas route (over the union) in interpret mode: same
+    PAD lanes, and distances within the f32 error of the table build (the
+    bf16 roundings are the same on both sides, but an f32 table entry that
+    differs in its last bit can round to the next bf16, 2^-8 of one entry:
+    atol 2^-8·max|entry| covers one such flip a lane)."""
     j, p = indexes[kind]
-    jv, tv, _, union, pos = pq_views[kind]
+    jv, tv, tile_idx, union, pos = pq_views[kind]
     q = data["query"].astype(np.float32)
     by_res = j.params.by_residual
     ref = np.asarray(jus.union_pq_scan_distances_pallas(
         *_pq_args(j, jv, q, union, pos, jnp.asarray), by_residual=by_res,
         interpret=True))
-    calls = k3.pq_onehot_distances_plain.calls
+    calls = k3.pq_probed_distances_plain.calls
+    # the K3 route takes each query's own tiles; no union, no positions
     got = tus.union_pq_scan_distances_kernel(
-        *_pq_args(p, tv, q, union, pos, t), by_residual=by_res).numpy()
-    assert k3.pq_onehot_distances_plain.calls == calls + 1
+        *_pq_args(p, tv, q, union, pos, t)[:6], t(tile_idx),
+        by_residual=by_res).numpy()
+    assert k3.pq_probed_distances_plain.calls == calls + 1
     pad = ref >= PAD / 2
     np.testing.assert_array_equal(got >= PAD / 2, pad)
     lut_q, lut_p, _ = tus.pq_luts(p.centroids, p.codebooks, t(q), by_res)

@@ -9,8 +9,9 @@ reporting on lines of its own; any failure exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi) and torch's name;
 2. build    — compiles every kernel of the port from csrc/ with nvcc, and
-              checks that K1's machine code multiplies on the tensor cores
-              (HMMA or HGMMA in cuobjdump -sass);
+              checks that K1's and K2's machine code multiply on the tensor
+              cores (HMMA or HGMMA for K1's bf16, IMMA for K2's int8 digit
+              products, in cuobjdump -sass);
 3. edges    — K1 against its plain PyTorch version on the card at edge
               shapes (size-0 and partial tiles, nq not a multiple of the
               query block, two query blocks, an f32 payload, bf16 at d=40
@@ -20,12 +21,14 @@ reporting on lines of its own; any failure exits non-zero:
               scalar, clamp and mask fused) against their plain versions at
               edge shapes (tiles of size T, 1, T-1, 0, a probe row of
               nothing but the empty tile, one probe slot, byte-wise code
-              loads, M=200, ksub=64, a zero list table, nq=1 and 70);
-   ntt      — K2 (one stage of the four-step NTT) against its plain version
-              stage by stage, and the whole transform against the host
-              butterfly NTT: exact equality, forward and inverse, N=4096
-              (64x64) and N=8192 (m=64 and 128), B in {1, 33, 512},
-              canonical and lazy inputs;
+              loads, M=200, ksub=64, a zero list table, nq=1 and 70; for
+              K4's tile-major schedule also a tile probed by all 64
+              queries and nothing but size-0 tiles);
+   ntt      — K2 (the whole four-step NTT in one launch) against its plain
+              version (two plain stages) and the host butterfly NTT: exact
+              equality, forward and inverse, N=4096 (64x64) and N=8192
+              (64x128), B in {1, 33, 512}, canonical, lazy, all-(q-1) and
+              near-2^31 inputs, int32 and int64;
 4. main     — the SIFT1M operating point (1M x 128 base, 100K train,
               IVF1024 + PQ32x8 with a bf16 reconstruction payload,
               nprobe=16, COARSE_PROBE=256, K=100): synthetic SIFT-style data
@@ -42,7 +45,8 @@ reporting on lines of its own; any failure exits non-zero:
               for the same 4 batches of 64 queries (3 with respMod "full",
               1 with "q1" and a sparse key), client decrypt, top-100. K2 is
               first held against its plain version at the first batch's own
-              stage inputs, and the device program against its numpy twin;
+              transform inputs, and the device program against its numpy
+              twin;
               launch counts are read around the requests only; decrypted
               distances must equal the plaintext precise_search scores
               exactly; recall as above; then where one request's time goes;
@@ -63,6 +67,12 @@ reporting on lines of its own; any failure exits non-zero:
               the card's bound for the same work; printed as one JSON line
               {"kernels": [...]}; then torch.profiler over warm /search
               requests: device time by kernel and the device's busy share;
+   ablation — K4 and K2 rebuilt with one part taken out or one constant
+              changed (tools/kernel_ablation.py), K4 timed on the first
+              quant="sq8" batch's own inputs and K2 on the forward transform
+              at the request's shape, each beside the unchanged source; the
+              variants that change a constant are held against the plain
+              version;
 6. result   — the last line, {"ok": true, "device": {...}}.
 
 Without CUDA, or without the port beside it, it exits non-zero and prints no
@@ -230,38 +240,42 @@ def phase_edges() -> None:
          [256, 37, 0, 200, 0], [0, 1, 2, 3, 4, 4])
 
 
-def check_tensor_core_sass(path) -> None:
-    """K1's library must multiply on the tensor cores: its machine code
-    (cuobjdump -sass, from the toolkit beside nvcc) holds HMMA (mma.sync) or
-    HGMMA (wgmma) instructions."""
+def check_tensor_core_sass(path, ops, kernel: str) -> None:
+    """A kernel's library must multiply on the tensor cores: its machine
+    code (cuobjdump -sass, from the toolkit beside nvcc) holds one of
+    ``ops`` (HMMA/HGMMA for K1's bf16 mma.sync/wgmma, IMMA for K2's int8)."""
     from prefhetch_tpu_torch.utils import cuda_build
 
     tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
     counts = {op: sum(1 for ln in sass.splitlines() if f" {op}." in ln)
-              for op in ("HMMA", "HGMMA")}
+              for op in ops}
     if not any(counts.values()):
-        raise AssertionError(f"{path.name}: no HMMA or HGMMA instruction in "
-                             f"its SASS: K1 does not use the tensor cores")
+        raise AssertionError(f"{path.name}: none of {ops} in its SASS: "
+                             f"{kernel} does not use the tensor cores")
     log("build", f"{path.name}: tensor-core instructions in the SASS: "
         f"{counts}")
 
 
-def check_stage(name, x, step, canonical) -> int:
-    """K2 against its plain version on one stage input on the card. Returns
-    the max |residue difference| (must be 0)."""
+def check_transform(name, x, tb, inverse) -> int:
+    """K2 (one launch) against its plain version (two plain stages) on the
+    same card tensor: equal, canonical. Returns the max |difference| (0)."""
     import torch
 
-    from prefhetch_tpu_torch.ops import ntt4_step as k2
+    from prefhetch_tpu_torch.ops import ntt4 as n4
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
 
-    got = k2.ntt4_step(x, step, canonical)
+    before = k2.ntt4_transform.launches
+    got = (n4.intt4 if inverse else n4.ntt4)(x, tb)
     torch.cuda.synchronize()              # a fault in the run shows here
-    want = k2.ntt4_step_plain(x, step)
-    lim = step.q if canonical else 2 * step.q
-    if int(got.min()) < 0 or int(got.max()) >= lim:
-        raise AssertionError(f"{name}: output outside [0, {lim})")
-    err = int(((got % step.q).long() - want.long()).abs().max())
+    if k2.ntt4_transform.launches != before + 1:
+        raise AssertionError(f"{name}: not one K2 launch")
+    want = n4.transform_plain(x, tb, inverse)
+    if got.dtype != torch.int32 or int(got.min()) < 0 \
+            or int(got.max()) >= tb.q:
+        raise AssertionError(f"{name}: output not canonical int32")
+    err = int((got.long() - want.long()).abs().max())
     if err != 0:
         raise AssertionError(f"{name}: K2 differs from its plain version "
                              f"(max |diff| {err})")
@@ -269,8 +283,9 @@ def check_stage(name, x, step, canonical) -> int:
 
 
 def phase_ntt() -> None:
-    """K2 stage by stage against its plain version, and the transform
-    against the host butterfly NTT, all exact."""
+    """K2, the whole transform in one launch, against its plain version and
+    the host butterfly NTT, all exact: forward and inverse, int32 and int64
+    inputs, canonical, lazy, all-(q-1) and near-2^31 values."""
     import numpy as np
     import torch
 
@@ -281,55 +296,53 @@ def phase_ntt() -> None:
     for n in (4096, 8192):
         q = find_ntt_primes(n, 30, 2)[1]
         tb = n4.build_ntt4_tables(q, n)
-        perm, _ = n4.fourstep_perm(tb)
+        perm, inv_perm = n4.fourstep_perm(tb)
         host_tb = hostntt.build_tables(q, n)
         for bsz in (1, 33, 512):
-            for kind, hi in (("canonical", q), ("lazy", 1 << 31)):
-                rng = np.random.default_rng(n + bsz + hi % 7)
-                x = rng.integers(0, hi, (bsz, n), dtype=np.int64)
-                x[0, :4] = [0, q - 1, min(q, hi - 1), hi - 1]
-                xc = torch.from_numpy(x).cuda()
-                # each stage on the input the transform gives it
-                a = xc.to(torch.int32).reshape(bsz, tb.n1, tb.n2)
-                at = a.transpose(1, 2).contiguous()
-                check_stage(f"ntt/f_a n={n} B={bsz} {kind}", at, tb.f_a, False)
+            for kind in ("canonical", "lazy", "all q-1", "near 2^31"):
+                rng = np.random.default_rng(n + bsz + len(kind))
+                if kind == "canonical":
+                    x = rng.integers(0, q, (bsz, n), dtype=np.int64)
+                elif kind == "lazy":
+                    x = rng.integers(0, 1 << 31, (bsz, n), dtype=np.int64)
+                elif kind == "all q-1":
+                    x = np.full((bsz, n), q - 1, np.int64)
+                else:
+                    x = (1 << 31) - 1 - rng.integers(0, 1 << 20, (bsz, n),
+                                                     dtype=np.int64)
+                x[0, :4] = [0, q - 1, q, (1 << 31) - 1]
+                for dtype in (torch.int32, torch.int64):
+                    xc = torch.from_numpy(x).to("cuda", dtype)
+                    tag = f"n={n} B={bsz} {kind} {dtype}"
+                    check_transform(f"ntt4 {tag}", xc, tb, False)
+                    check_transform(f"intt4 {tag}", xc, tb, True)
                 fwd = n4.ntt4(xc, tb)
-                fwd_plain = n4.ntt4(xc, tb, plain=True)
-                if not torch.equal(fwd, fwd_plain):
-                    raise AssertionError(f"ntt4 n={n} B={bsz} {kind}: kernel "
-                                         f"and plain transforms differ")
                 host = hostntt.ntt(x % q, host_tb)
                 if not np.array_equal(fwd.cpu().numpy(), host[:, perm]):
                     raise AssertionError(f"ntt4 n={n} B={bsz} {kind}: differs "
                                          f"from the host butterfly NTT")
-                # inverse, fed the lazy input itself (four-step order in)
-                check_stage(f"ntt/g_a n={n} B={bsz} {kind}",
-                            a.contiguous(), tb.g_a, False)
                 inv = n4.intt4(xc, tb)
-                inv_plain = n4.intt4(xc, tb, plain=True)
-                _, inv_perm = n4.fourstep_perm(tb)
                 host_inv = hostntt.intt((x % q)[:, inv_perm], host_tb)
-                if not torch.equal(inv, inv_plain) or not np.array_equal(
-                        inv.cpu().numpy(), host_inv):
+                if not np.array_equal(inv.cpu().numpy(), host_inv):
                     raise AssertionError(f"intt4 n={n} B={bsz} {kind}: "
-                                         f"kernel, plain and host differ")
-                back = n4.intt4(fwd, tb)
+                                         f"differs from the host butterfly")
+                back = n4.intt4(fwd.long(), tb)
                 if not np.array_equal(back.cpu().numpy(), x % q):
                     raise AssertionError(f"n={n} B={bsz} {kind}: inverse of "
                                          f"forward is not the input")
         log("ntt", f"N={n} ({tb.n1}x{tb.n2}) q={q}: K2 = plain = host "
-            f"butterfly, forward and inverse, B in (1, 33, 512), canonical "
-            f"and lazy inputs: ok (max |err| 0)")
+            f"butterfly, forward and inverse, B in (1, 33, 512), canonical, "
+            f"lazy, all-(q-1) and near-2^31 inputs, int32 and int64: ok "
+            f"(max |err| 0)")
 
 
 def check_k2_at_request_shape(svc, ctq, idx) -> int:
-    """K2 against its plain version at the stage inputs of one real request
-    (the candidate polynomials of this batch, then the c0 products), every
-    stage of every limb. Returns the max |difference| (0)."""
+    """K2 against its plain version at the transform inputs of one real
+    request (the lifted candidate polynomials, int32, then the int64 c0
+    products), every limb. Returns the max |difference| (0)."""
     import torch
 
-    from prefhetch_tpu_torch.ops.ntt4 import modmul
-    from prefhetch_tpu_torch.ops.ntt4_step import ntt4_step_plain
+    from prefhetch_tpu_torch.ops.ntt4 import modmul, transform_plain
 
     n = svc.params.n
     nq = idx.shape[0]
@@ -339,19 +352,14 @@ def check_k2_at_request_shape(svc, ctq, idx) -> int:
     err = 0
     for i, tb in enumerate(svc._tables):
         lifted = torch.where(polys < 0, polys + tb.q, polys)
-        a = lifted.reshape(-1, tb.n1, tb.n2).transpose(1, 2).contiguous()
-        err = max(err, check_stage(f"req/f_a limb {i}", a, tb.f_a, False))
-        y = ntt4_step_plain(a, tb.f_a).transpose(1, 2).contiguous()
-        err = max(err, check_stage(f"req/f_b limb {i}", y, tb.f_b, True))
-        pt = ntt4_step_plain(y, tb.f_b).reshape(nq, nb, n)
-        o0 = modmul(c0q[:, None, i], pt, tb.q).to(torch.int32)
-        b = o0.reshape(-1, tb.n1, tb.n2).contiguous()
-        err = max(err, check_stage(f"req/g_a limb {i}", b, tb.g_a, False))
-        z = ntt4_step_plain(b, tb.g_a).transpose(1, 2).contiguous()
-        err = max(err, check_stage(f"req/g_b limb {i}", z, tb.g_b, True))
-    log("kernel", f"ntt4_step at the request's stage inputs "
-        f"[{polys.shape[0]}, {svc._tables[0].n2}, {svc._tables[0].n1}] x "
-        f"{len(svc._tables)} limbs x 4 stages: ok (max |err| {err})")
+        err = max(err, check_transform(f"req/ntt4 limb {i}", lifted, tb,
+                                       False))
+        pt = transform_plain(lifted, tb, False).reshape(nq, nb, n)
+        o0 = modmul(c0q[:, None, i], pt, tb.q).reshape(-1, n)
+        err = max(err, check_transform(f"req/intt4 limb {i}", o0, tb, True))
+    log("kernel", f"ntt4_transform at the request's transform inputs "
+        f"[{polys.shape[0]}, {n}] int32 (forward) and int64 (inverse) x "
+        f"{len(svc._tables)} limbs: ok (max |err| {err})")
     return err
 
 
@@ -469,7 +477,8 @@ def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
 
     from prefhetch_tpu_torch.client.he import HEClient
     from prefhetch_tpu_torch.metrics import benchmark_results
-    from prefhetch_tpu_torch.ops import ntt4_step as k2
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
     from prefhetch_tpu_torch.ops import union_scan_min as usm
 
     cfg = engine.config
@@ -515,10 +524,10 @@ def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
         sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
         cand, ms = post_coarse_topk(disp, queries[sl], probes[sl], cp)
         coarse_ms.append(ms)
-        before = k2.ntt4_step.launches
+        before = k2.ntt4_transform.launches
         dists, req, up, down, enc_t, dec_t = post_encrypted(
             disp, clients[mode], queries[sl], cand, mode)
-        per_request[mode].append(k2.ntt4_step.launches - before)
+        per_request[mode].append(k2.ntt4_transform.launches - before)
         plain = engine.precise_search(queries[sl], cand)
         enc_err = max(enc_err, float(np.abs(dists - plain).max()))
         if not np.array_equal(dists, plain):
@@ -531,16 +540,18 @@ def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
                         f"response {down / 1e6:.2f} MB; client encrypt "
                         f"{enc_t:.0f} ms, decrypt {dec_t:.0f} ms)")
     enc_launches = {"union_scan_min": usm.union_scan_min.launches,
-                    "ntt4_step": k2.ntt4_step.launches}
+                    "ntt4_transform": k2.ntt4_transform.launches}
     enc_plain_calls = (usm.union_scan_min_reference.calls
-                       + k2.ntt4_step_plain.calls)
+                       + k2s.ntt4_step_plain.calls)
     L = he_full.n_limbs
-    want = {"full": 4 * L, "q1": 6 * L}
+    # one launch per transform: per limb a forward NTT of the candidates and
+    # an inverse of the c0 products, and for q1 an inverse of c1
+    want = {"full": 2 * L, "q1": 3 * L}
     log("encrypted", f"POST /coarsesearch top-{cp} x{N_BATCHES}: "
         f"{', '.join(f'{t:.1f}' for t in coarse_ms)} ms; POST "
         f"/encryptedsearch x{N_BATCHES} of {NQ_BATCH} queries (host clock): "
         + "; ".join(enc_rows))
-    log("encrypted", f"launches {enc_launches}; ntt4_step launches counted "
+    log("encrypted", f"launches {enc_launches}; ntt4_transform launches counted "
         f"around each /encryptedsearch request {per_request} (expected "
         f"{want['full']} per full request, {want['q1']} per q1 request), "
         f"plain-version calls {enc_plain_calls}; decrypted distances = "
@@ -549,7 +560,7 @@ def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
         if not counts or any(c != want[mode] for c in counts):
             raise AssertionError(f"K2 launches per {mode} request {counts}, "
                                  f"expected {want[mode]} each")
-    if enc_launches["ntt4_step"] != sum(map(sum, per_request.values())):
+    if enc_launches["ntt4_transform"] != sum(map(sum, per_request.values())):
         raise AssertionError("K2 ran outside the /encryptedsearch requests")
     if enc_plain_calls != 0:
         raise AssertionError("a plain version ran on the encrypted path")
@@ -574,65 +585,59 @@ def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
     return enc_launches, per_request, k2_err
 
 
-def time_ntt4_step(tb, nbatch: int, sm_mhz: float) -> dict:
-    """K2 per launch at the request's shape ([nbatch, r, m] int32), each of
-    the four stages of one limb (two carry twiddles) on random residues,
-    beside the plain version and the card's bound. Returns the timing keys
-    of K2's entry in the kernels line (means over the four stages)."""
+def time_ntt4_transform(tb, nbatch: int) -> dict:
+    """K2 per transform at the request's shape ([nbatch, N]): the forward
+    transform of int32 residues and the inverse of int64 ones, as the
+    request runs them, each beside the plain version and the card's bound.
+    Returns the timing keys of K2's entry in the kernels line (means of the
+    two directions; each direction's own under "forward"/"inverse")."""
     import torch
 
-    from prefhetch_tpu_torch.ops import ntt4_step as k2
+    from prefhetch_tpu_torch.ops import ntt4 as n4
 
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(3)
-    stages = [("f_a", tb.f_a, False), ("f_b", tb.f_b, True),
-              ("g_a", tb.g_a, False), ("g_b", tb.g_b, True)]
-    rows = []
-    for name, step, canonical in stages:
-        xs = [torch.randint(0, tb.q, (nbatch, step.r, step.m), device=dev,
-                            dtype=torch.int32, generator=gen)
-              for _ in range(8)]            # 8 x 8.4 MB in + out: past L2
+    rows = {}
+    for name, inverse, dtype in (("forward", False, torch.int32),
+                                 ("inverse", True, torch.int64)):
+        fn = n4.intt4 if inverse else n4.ntt4
+        xs = [torch.randint(0, tb.q, (nbatch, tb.n), device=dev, dtype=dtype,
+                            generator=gen)
+              for _ in range(6)]            # 6 x 25 MB in + out: past L2
         x0 = xs[0]
-        t_k = cuda_time_ms(lambda: k2.ntt4_step(x0, step, canonical))
-        t_p = cuda_time_ms(lambda: k2.ntt4_step_plain(x0, step))
-        t_k2 = cuda_time_ms(lambda: k2.ntt4_step(x0, step, canonical))
+        t_k = cuda_time_ms(lambda: fn(x0, tb))
+        t_p = cuda_time_ms(lambda: fn(x0, tb, plain=True))
+        t_k2 = cuda_time_ms(lambda: fn(x0, tb))
         ring = iter(range(10 ** 9))
-        t_cold = cuda_time_ms(
-            lambda: k2.ntt4_step(xs[next(ring) % 8], step, canonical),
-            iters=24)
-        t_dev = kernel_ms(lambda: k2.ntt4_step(x0, step, canonical),
-                          "ntt4_step_kernel", min(t_k, t_k2))
-        macs = nbatch * step.r * step.m * step.m
-        nbytes = (2 * nbatch * step.r * step.m * 4 + step.m * step.m * 4
-                  + (2 * step.r * step.m * 4 if step.tw is not None else 0))
-        rows.append((name, t_dev, t_p, t_cold, macs, nbytes, min(t_k, t_k2)))
-    ms, plain_ms, cold_ms, macs, nbytes, ev_ms = (
-        sum(r[i] for r in rows) / len(rows) for i in range(1, 7))
-    # the card's bound: bytes once over the memory rate; the multiply-adds
-    # as int8 tensor-core operations (16 digit products each, 2 ops a
-    # product) over the int8 peak, the fastest integer unit the card has
-    ops_s = macs * INT8_MACS_PER_MODMAC * 2 / INT8_OPS
-    bound_ms = max(nbytes / HBM_BYTES_S, ops_s) * 1e3
-    bound_by = "bytes" if nbytes / HBM_BYTES_S >= ops_s else "operations"
-    # what the route this kernel takes could reach: one 32-bit multiply-add
-    # per integer lane per clock (64 lanes an SM), two for a 32x32->64 product
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    pipe_ms = macs * 2 / (n_sm * 64 * sm_mhz * 1e6) * 1e3
-    log("timing", f"ntt4_step at [{nbatch}, {tb.n2}, {tb.n1}] int32, per "
-        f"launch: " + "; ".join(
-            f"{n_} {a:.4f} ms (CUDA events over wrapper calls {e:.4f}, plain "
-            f"{b_:.4f}, inputs past L2 {c:.4f})"
-            for n_, a, b_, c, _, _, e in rows))
-    log("timing", f"ntt4_step mean of the four stages: kernel {ms:.4f} "
-        f"ms on the device (CUDA events over wrapper calls {ev_ms:.4f}, "
-        f"inputs past L2 {cold_ms:.4f}), plain {plain_ms:.4f} ms, "
-        f"library call none, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.2f} MB; {macs / 1e6:.1f} M multiply-adds = "
-        f"{ops_s * 1e3:.4f} ms of int8 tensor-core time); the 32-bit "
-        f"integer pipe alone would need {pipe_ms:.4f} ms at "
-        f"{n_sm} SMs x 64 lanes x {sm_mhz:.0f} MHz")
-    return {"ms": ms, "ms_events": ev_ms, "ms_inputs_past_l2": cold_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        t_cold = cuda_time_ms(lambda: fn(xs[next(ring) % 6], tb), iters=24)
+        t_dev = kernel_ms(lambda: fn(x0, tb), "ntt4_kernel", min(t_k, t_k2))
+        # bytes: input read once, int32 output written once, the four digit
+        # tables and the packed twiddles read once
+        nbytes = (nbatch * tb.n * (x0.element_size() + 4)
+                  + 4 * (tb.n1 ** 2 + tb.n2 ** 2) + tb.n * 8)
+        # int8 multiply-adds: two stages of [64, n2] outputs over k = 64 and
+        # k = n2, 16 digit products each; 2 operations a multiply-add
+        macs = nbatch * tb.n * (tb.n1 + tb.n2) * INT8_MACS_PER_MODMAC
+        t_b, t_o = nbytes / HBM_BYTES_S, 2 * macs / INT8_OPS
+        rows[name] = {
+            "ms": t_dev, "ms_events": min(t_k, t_k2),
+            "ms_inputs_past_l2": t_cold, "plain_ms": t_p,
+            "bound_ms": max(t_b, t_o) * 1e3,
+            "bound_by": "bytes" if t_b >= t_o else "operations",
+            "bytes_ms": t_b * 1e3, "int8_ms": t_o * 1e3}
+        log("timing", f"ntt4_transform {name} at [{nbatch}, {tb.n}] "
+            f"{str(dtype)[6:]} in, int32 out: kernel {t_dev:.4f} ms on the "
+            f"device (CUDA events over wrapper calls {min(t_k, t_k2):.4f}, "
+            f"inputs past L2 {t_cold:.4f}), plain {t_p:.4f} ms, library "
+            f"call none, bound {max(t_b, t_o) * 1e3:.4f} ms "
+            f"({nbytes / 1e6:.2f} MB = {t_b * 1e3:.4f} ms; {macs / 1e9:.2f} "
+            f"G int8 multiply-adds = {t_o * 1e3:.4f} ms), "
+            f"{max(t_b, t_o) * 1e3 / t_dev:.0%} of the bound")
+    keys = ("ms", "ms_events", "ms_inputs_past_l2", "plain_ms", "bound_ms")
+    out = {k: sum(r[k] for r in rows.values()) / len(rows) for k in keys}
+    out["bound_by"] = rows["forward"]["bound_by"]
+    out.update(rows)
+    return out
 
 
 def profile_device(what: str, run) -> None:
@@ -730,19 +735,20 @@ def check_answers(tag, ids, dists, base64, q64, groundtruth, k):
 def kernel_counters():
     """({name: wrapper with .launches}, [plain versions with .calls]) of
     every kernel of the port."""
-    from prefhetch_tpu_torch.ops import ntt4_step as k2
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
     from prefhetch_tpu_torch.ops import pq_onehot as k3
     from prefhetch_tpu_torch.ops import slab_scan as k45
     from prefhetch_tpu_torch.ops import union_scan_min as usm
 
     wrappers = {
         "union_scan_min": usm.union_scan_min,
-        "ntt4_step": k2.ntt4_step,
+        "ntt4_transform": k2.ntt4_transform,
         "pq_probed_distances": k3.pq_probed_distances,
         "slab_distances_sq8": k45.slab_distances_sq8,
         "slab_distances": k45.slab_distances,
     }
-    plains = [usm.union_scan_min_reference, k2.ntt4_step_plain,
+    plains = [usm.union_scan_min_reference, k2s.ntt4_step_plain,
               k3.pq_probed_distances_plain, k45.slab_distances_sq8_plain,
               k45.slab_distances_plain]
     return wrappers, plains
@@ -870,6 +876,30 @@ def phase_variant_edges() -> None:
         check_slab(f"edge/slab_distances_sq8 T={T}", k45.slab_distances_sq8,
                    k45.slab_distances_sq8_plain,
                    (codes, norms.contiguous(), sizes, vmin, scale, q, probes))
+    # K4's tile-major schedule at its hard cases, 64 queries of 8 slots:
+    # tile 0 probed by every query (a run of 64 pairs, 8 chunks), tile 2
+    # probed twice by one query, and a batch of nothing but size-0 tiles
+    codes, sizes, q, probes = slab_case(1024, 128, 64, 8, torch.uint8, 5)
+    g = torch.Generator().manual_seed(5)
+    vmin = (torch.rand(128, generator=g) * 10 - 5).to(dev)
+    scale = (torch.rand(128, generator=g) * 0.8 + 0.2).to(dev)
+    norms = ((vmin + (codes.float() + 0.5) * scale) ** 2).sum(-1).contiguous()
+    probes[:, 0] = 0
+    probes[1, 1:3] = 2
+    all_empty = probes.clone()
+    all_empty[:] = torch.tensor([3, 5], dtype=torch.int32, device=dev).repeat(
+        4)
+    for tag, pids in (("tile 0 probed by all 64 queries", probes),
+                    ("only size-0 tiles", all_empty)):
+        _, _, length, tile = k45.sq8_runs(
+            k45.sq8_schedule(pids, codes.shape[0])[0])
+        check_slab(f"edge/slab_distances_sq8 {tag} (runs {length.numel()}, "
+                   f"longest {int(length.max())})", k45.slab_distances_sq8,
+                   k45.slab_distances_sq8_plain,
+                   (codes, norms, sizes, vmin, scale, q, pids))
+    if not bool((k45.slab_distances_sq8(codes, norms, sizes, vmin, scale, q,
+                                        all_empty) >= 3e38).all()):
+        raise AssertionError("a batch of size-0 tiles is not all PAD")
     # K3: tiles of size T, 1, T-1, 0, ... and the empty tile 9; a probe row
     # of nothing but the empty tile (nq > 1); one probe slot; byte-wise
     # code loads (M=8, 200); tables of 16 to 100 KB; ksub=64 with a zero
@@ -933,14 +963,35 @@ def slab_bound(view, probe_ids, q, sq8: bool):
 def time_slab(name, kernel, plain, args, view, sq8: bool) -> dict:
     """K5 or K4 at the first batch's shape: kernel, plain, kernel again, one
     torch.bmm over slabs gathered and widened beforehand (the matvec alone,
-    a part of the function), and the card's bound."""
+    a part of the function), and the card's bound. For K4 also the device
+    work of the whole wrapper call (its schedule's sort included), and in
+    the log the tile reads and code decodes that its schedule plans
+    (``sq8_runs`` counts them from the sorted pairs; the kernel counts
+    nothing)."""
     import torch
+
+    from prefhetch_tpu_torch.ops import slab_scan as k45
 
     q, probe_ids = args[-2], args[-1]
     ms = cuda_time_ms(lambda: kernel(*args))
     plain_ms = cuda_time_ms(lambda: plain(*args), iters=5, warmup=1)
     ms2 = cuda_time_ms(lambda: kernel(*args))
-    dev = kernel_ms(lambda: kernel(*args), "slab_kernel", min(ms, ms2))
+    dev = kernel_ms(lambda: kernel(*args),
+                    "sq8_tiled_kernel" if sq8 else "slab_kernel", min(ms, ms2))
+    extra, note = {}, ""
+    if sq8:
+        _, _, _, tile = k45.sq8_runs(
+            k45.sq8_schedule(probe_ids, view.payload.shape[0])[0])
+        rows = view.sizes[tile].long()
+        flat = probe_ids.reshape(-1).long()
+        pair_rows = view.sizes[flat].long()
+        extra = {"ms_with_schedule": device_ms(lambda: kernel(*args))}
+        note = (f"; the wrapper call's device work with the schedule's sort "
+                f"{extra['ms_with_schedule']} ms; the schedule's plan (not "
+                f"read from the kernel): tile reads {int((rows > 0).sum())} "
+                f"(one per pair: {int((pair_rows > 0).sum())}), code decodes "
+                f"{int(rows.sum()) * q.shape[1] / 1e6:.1f} M (one per pair: "
+                f"{int(pair_rows.sum()) * q.shape[1] / 1e6:.1f} M)")
     slabs = view.payload[probe_ids.reshape(-1).long()].to(torch.float32)
     qrep = torch.repeat_interleave(q, probe_ids.shape[1], dim=0)[:, :, None]
     library_ms = cuda_time_ms(lambda: torch.bmm(slabs, qrep), iters=10)
@@ -953,8 +1004,10 @@ def time_slab(name, kernel, plain, args, view, sq8: bool) -> dict:
         f"{ms:.4f} / {ms2:.4f}), plain {plain_ms:.4f} ms, torch.bmm on "
         f"pre-gathered f32 slabs ({slab_mb:.0f} MB, the matvec only) "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{mb:.1f} MB, {gflop:.3f} GFLOP)")
-    return {"ms": dev, "ms_events": min(ms, ms2), "plain_ms": plain_ms,
+        f"{mb:.1f} MB, {gflop:.3f} GFLOP), {bound_ms / dev:.0%} of the "
+        f"bound" + note)
+    return {**extra, "ms": dev, "ms_events": min(ms, ms2),
+            "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "library_call": "torch.bmm f32 [B,T,d]x[B,d,1] on slabs "
@@ -1037,13 +1090,14 @@ VARIANTS = (
 
 
 def phase_variants(engine, data, queries, reset_counts, sm_mhz,
-                   search_recall, base64, q64) -> dict:
+                   search_recall, base64, q64, hold: dict) -> dict:
     """The quantised and slab scan variants of the triage pipeline on the
     index and base of the main phase: for each, the tiled view, the kernel
     against its plain version at the first batch's own shapes, N_BATCHES
     query_pipeline steps with every launch count read around them, exact
     returned distances, recall, stage times and the kernel's timings.
-    Returns {kernel name: its entry's keys for the kernels line}."""
+    Returns {kernel name: its entry's keys for the kernels line}; ``hold``
+    gets the first sq8 batch's K4 arguments under "sq8"."""
     import numpy as np
     import torch
 
@@ -1100,6 +1154,7 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
                              k45.slab_distances_sq8_plain, kargs)
             times = time_slab("slab_distances_sq8", k45.slab_distances_sq8,
                               k45.slab_distances_sq8_plain, kargs, view, True)
+            hold["sq8"] = kargs
         else:
             kargs = (payload, norms, sizes, q_t, tiles_t)
             err = check_slab(f"variants/{tag} batch0", k45.slab_distances,
@@ -1170,6 +1225,38 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
     return out
 
 
+def phase_ablation(kargs, tb, nbatch: int) -> None:
+    """K4 on the first sq8 batch's own arguments and K2 at the request's
+    shape under every variant of tools/kernel_ablation.py."""
+    import torch
+
+    from prefhetch_tpu_torch.ops import slab_scan as k45
+    from prefhetch_tpu_torch.tools import kernel_ablation as ka
+
+    def timer(fn, kernel):
+        ms = device_ms(fn, kernel)
+        if ms is None:
+            raise AssertionError(f"the profiler saw no {kernel} launch")
+        return ms
+
+    probe_ids = kargs[-1]
+    flat = probe_ids.reshape(-1).long()
+    live = flat[kargs[2][flat] > 0]
+    tiles = int(torch.unique(live).numel())
+    log("ablation", f"K4 on the first quant=sq8 batch: {probe_ids.shape[0]} "
+        f"queries x {probe_ids.shape[1]} slots, {live.numel()} pairs on "
+        f"tiles with rows, {tiles} distinct tiles "
+        f"({live.numel() / tiles:.2f} pairs a tile)")
+    k4 = ka.ablate_k4(kargs, timer, lambda v: check_slab(
+        f"ablation/K4 {v}", k45.slab_distances_sq8,
+        k45.slab_distances_sq8_plain, kargs))
+    log("ablation", "K4 device ms a launch: " + ", ".join(
+        f"{v} {t:.4f}" for v, t in k4.items()))
+    k2 = ka.ablate_k2(tb, nbatch, timer)
+    log("ablation", f"K2 forward transform of {nbatch} polynomials, device "
+        f"ms a launch: " + ", ".join(f"{v} {t:.4f}" for v, t in k2.items()))
+
+
 def main() -> int:
     try:
         import torch
@@ -1197,7 +1284,8 @@ def main() -> int:
     from prefhetch_tpu_torch.data.io import write_fvecs
     from prefhetch_tpu_torch.data.synthetic import make_clustered_dataset
     from prefhetch_tpu_torch.engine.server import QueryEngine
-    from prefhetch_tpu_torch.ops import ntt4_step as k2
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
     from prefhetch_tpu_torch.ops import union_scan_min as usm
     from prefhetch_tpu_torch.ops.distances import rank_centroids
     from prefhetch_tpu_torch.ops.topk import topk_smallest
@@ -1231,7 +1319,9 @@ def main() -> int:
                  if "registers" in ln or "spill" in ln]
         log("build", f"{name}: {info['seconds']:.2f} s; "
             + " | ".join(ptxas))
-    check_tensor_core_sass(built["union_scan_min"]["path"])
+    check_tensor_core_sass(built["union_scan_min"]["path"], ("HMMA", "HGMMA"),
+                           "K1")
+    check_tensor_core_sass(built["ntt4_step"]["path"], ("IMMA",), "K2")
 
     # -- 3. kernels at edge shapes -----------------------------------------
     phase_edges()
@@ -1349,9 +1439,9 @@ def main() -> int:
         ids_all.append(ids)
         dists_all.append(dists)
     launches = {"union_scan_min": usm.union_scan_min.launches,
-                "ntt4_step": k2.ntt4_step.launches}
+                "ntt4_transform": k2.ntt4_transform.launches}
     plain_calls = (usm.union_scan_min_reference.calls
-                   + k2.ntt4_step_plain.calls)
+                   + k2s.ntt4_step_plain.calls)
     log("main", f"POST /search x{N_BATCHES} of {NQ_BATCH} queries: "
         f"{', '.join(f'{t:.1f}' for t in req_ms)} ms (host clock, first "
         f"request includes warm-up); launches {launches}, plain-version "
@@ -1375,8 +1465,9 @@ def main() -> int:
 
     # -- 4c. the quantised and slab scan variants of the triage pipeline -----
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    hold = {}
     variant_rows = phase_variants(engine, data, queries, reset_counts, sm_mhz,
-                                  rep, base64, q64)
+                                  rep, base64, q64, hold)
     del base64, q64
 
     # -- 5. timings at the main-path shape (first batch) ---------------------
@@ -1418,8 +1509,9 @@ def main() -> int:
         f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
     svc = engine.he_service
     nbatch = NQ_BATCH * -(-cfg.protocol.coarse_probe // (svc.params.n // D))
-    k2_times = time_ntt4_step(svc._tables[0], nbatch, sm_mhz)
+    k2_times = time_ntt4_transform(svc._tables[0], nbatch)
     profile_search(disp, queries, probes, k)
+    phase_ablation(hold.pop("sq8"), svc._tables[0], nbatch)
     log("done", f"wall {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -1440,17 +1532,18 @@ def main() -> int:
         "library_call": "torch.matmul bf16 [nq,d]x[d,U_real*T], the cross "
                         "term only (a partial function)",
     }, {
-        "name": "ntt4_step",
+        "name": "ntt4_transform",
         "route": "cuda",
         "source": "prefhetch_tpu_torch/csrc/ntt4_step.cu",
         "replaces": "prefhetch_tpu/ops/ntt_pallas.py:246",
-        "launches": enc_launches["ntt4_step"],
+        "launches": enc_launches["ntt4_transform"],
         "launches_per_request": k2_per_request,
         "path": f"POST /encryptedsearch x{N_BATCHES} "
                 f"({N_BATCHES - 1} full, 1 q1)",
         "max_abs_err": k2_err,
         **k2_times,
         "library_ms": None,
+        "per": "transform (one launch)",
         "library_call": "none: no single PyTorch call computes an exact "
                         "modular matrix product",
     }, {

@@ -14,8 +14,8 @@ end to end):
                  the tiled serving view
 - ``ops``      — distances, top-k, the union scan with its CUDA kernel
                  (``ops/union_scan_min.py``), exact re-rank, k-means; the
-                 four-step NTT (``ops/ntt4.py``) with its CUDA stage kernel
-                 (``ops/ntt4_step.py``)
+                 four-step NTT (``ops/ntt4.py``) with its CUDA kernel, one
+                 launch per transform (``ops/ntt4_fused.py``)
 - ``crypto``   — host-side RNS-BFV, the butterfly NTT, packing, RNG (numpy)
 - ``client``   — ``HEClient``: keygen, query encryption, score decryption
 - ``engine``   — ``QueryEngine`` (fused search, coarse top-k, encrypted

@@ -11,8 +11,8 @@ is unconditional on the server side.
 Ported: the two response wires that need only ct×pt arithmetic,
 ``encrypted_scores_trunc`` ("full") and ``encrypted_scores_trunc_q1``
 ("q1"). Each is one gather, one forward four-step NTT, pointwise modmuls and
-inverse NTTs; every transform is two launches of kernel K2
-(ops/ntt4_step.py). The device program is eager PyTorch on int32/int64
+inverse NTTs; every transform is one launch of kernel K2
+(ops/ntt4_fused.py). The device program is eager PyTorch on int32/int64
 tensors: CUDA has native 64-bit integer multiply and remainder, so every
 step is exact and the result is bit-equal to the JAX program's.
 

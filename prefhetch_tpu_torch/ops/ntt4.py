@@ -7,9 +7,12 @@ With N = N1·N2, ω of order N, ω1 = ω^{N2}, ω2 = ω^{N1} and A the input as
 
     X[j2·N1 + j1] = Σ_{k2} ω2^{j2k2} · ω^{j1k2} · Σ_{k1} A[k1,k2] ω1^{j1k1}
 
-is two small modular matrix products (N1² and N2²) and one twiddle multiply:
-two launches of kernel K2 (ops/ntt4_step.py). The negacyclic ψ-twists are
-folded into the static tables (ψ^k = ψ^{k1·N2}·ψ^{k2} scales W1's contraction
+is two small modular matrix products (N1² and N2²) and one twiddle multiply.
+On the card the whole transform is one launch of kernel K2
+(ops/ntt4_fused.py); its plain version, which a CPU tensor runs, is two
+stages of ``ntt4_step_plain`` (ops/ntt4_step.py) with the transposes
+between them (``transform_plain``). The negacyclic ψ-twists are folded
+into the static tables (ψ^k = ψ^{k1·N2}·ψ^{k2} scales W1's contraction
 columns and rides the middle twiddle), exactly as the JAX package folds them.
 
 The forward output lands in four-step order (position j1·N2 + j2 holds
@@ -17,10 +20,8 @@ natural index j2·N1 + j1), canonical [0, q); ``intt4`` consumes that order
 and returns natural order. All NTT-domain consumers are pointwise, so the
 order is a private convention; ``fourstep_perm`` converts.
 
-What the port leaves behind: the int8 balanced-digit planes of the tables
-(the TPU's matrix unit multiplies only int8; here the tables are plain
-residues in [0, q), the same integers the JAX package decomposes), the dense
-N×N transform (``ntt_mxu``/``intt_mxu``, not on a served path yet), and
+What the port leaves behind: the dense N×N transform
+(``ntt_mxu``/``intt_mxu``, not on a served path yet), and
 ``shift_mod_reduce``: the card has native 64-bit integer arithmetic, so
 ``modmul`` is ``%`` on the int64 product, which is exact.
 """
@@ -34,9 +35,8 @@ import numpy as np
 import torch
 
 from prefhetch_tpu_torch.crypto.params import root_of_unity
-from prefhetch_tpu_torch.ops.ntt4_step import (
-    NTT4Step, ntt4_step, ntt4_step_plain,
-)
+from prefhetch_tpu_torch.ops.ntt4_fused import ntt4_transform
+from prefhetch_tpu_torch.ops.ntt4_step import NTT4Step, ntt4_step_plain
 
 
 class NTT4Tables(NamedTuple):
@@ -44,7 +44,7 @@ class NTT4Tables(NamedTuple):
     n: int
     n1: int
     n2: int
-    # the four K2 stages. Their tables are the residue matrices M[j, k] that
+    # the four stages. Their tables are the residue matrices M[j, k] that
     # prefhetch_tpu/ops/ntt_mxu.py:253-271 has before its digit
     # decomposition, transposed into right-multiply form W[k, j]
     f_a: NTT4Step            # forward: contract k1 with ω1^{j1·k1}·ψ^{k1·N2},
@@ -102,8 +102,8 @@ def build_ntt4_tables(q: int, n: int, n1: int | None = None) -> NTT4Tables:
     f_tw = wp[(j1 * k2) % n] * psiv[None, :] % q
     g_tw = iwp[(j1 * k2) % n] * ipsiv[None, :] % q
     assert (1 << 30) - q < (1 << 20)
-    # K2 multiplies on the right, out[.., j] = Σ_k in[.., k]·W[k, j], so each
-    # stage takes the transpose of M[j, k]; stage a's twiddle is indexed
+    # a stage multiplies on the right, out[.., j] = Σ_k in[.., k]·W[k, j], so
+    # each stage takes the transpose of M[j, k]; stage a's twiddle is indexed
     # [row, output column] of that stage's [B, r, m] block
     return NTT4Tables(
         q=q, n=n, n1=n1, n2=n2,
@@ -130,29 +130,39 @@ def modmul(a: torch.Tensor, b, q: int) -> torch.Tensor:
     return a.to(torch.int64) * b % q
 
 
-def _stage(x, st: NTT4Step, canonical: bool, plain: bool) -> torch.Tensor:
-    return ntt4_step_plain(x, st) if plain else ntt4_step(x, st, canonical)
+def transform_plain(x: torch.Tensor, tb: NTT4Tables,
+                    inverse: bool) -> torch.Tensor:
+    """K2's plain version on x's device: two ``ntt4_step_plain`` stages with
+    the transposes between them. Forward: [B, N] natural order in, four-step
+    order out; inverse: four-step order in, natural order out; canonical
+    [0, q), int32."""
+    bsz = x.shape[0]
+    if not inverse:
+        a = x.to(torch.int32).reshape(bsz, tb.n1, tb.n2)
+        at = a.transpose(1, 2).contiguous()          # [B, k2, k1]
+        y = ntt4_step_plain(at, tb.f_a)              # [B, k2, j1]
+        yt = y.transpose(1, 2).contiguous()          # [B, j1, k2]
+        return ntt4_step_plain(yt, tb.f_b).reshape(bsz, tb.n)
+    a = x.to(torch.int32).reshape(bsz, tb.n1, tb.n2).contiguous()
+    y = ntt4_step_plain(a, tb.g_a)                   # [B, j1, k2]
+    yt = y.transpose(1, 2).contiguous()              # [B, k2, j1]
+    z = ntt4_step_plain(yt, tb.g_b)                  # [B, k2, k1]
+    return z.transpose(1, 2).reshape(bsz, tb.n)
 
 
 def ntt4(x: torch.Tensor, tb: NTT4Tables, plain: bool = False) -> torch.Tensor:
-    """Forward negacyclic NTT of [B, N] int residues (values in [0, 2^31)),
-    four-step order output, canonical [0, q), int32. ``plain`` runs every
-    stage through K2's plain version, to hold the kernel against."""
-    bsz = x.shape[0]
-    a = x.to(torch.int32).reshape(bsz, tb.n1, tb.n2)
-    at = a.transpose(1, 2).contiguous()              # [B, k2, k1]
-    y = _stage(at, tb.f_a, False, plain)
-    yt = y.transpose(1, 2).contiguous()              # [B, j1, k2]
-    z = _stage(yt, tb.f_b, True, plain)
-    return z.reshape(bsz, tb.n)
+    """Forward negacyclic NTT of [B, N] int32/int64 values (any value, taken
+    as its residue mod q; int64 by its low 32 bits), four-step order output,
+    canonical [0, q), int32. One K2 launch on the card; ``plain`` runs K2's
+    plain version, to hold the kernel against."""
+    if plain:
+        return transform_plain(x, tb, False)
+    return ntt4_transform(x.contiguous(), tb, False)
 
 
 def intt4(x: torch.Tensor, tb: NTT4Tables, plain: bool = False) -> torch.Tensor:
     """Inverse of ntt4: consumes four-step order, emits natural order,
     canonical [0, q), int32."""
-    bsz = x.shape[0]
-    a = x.to(torch.int32).reshape(bsz, tb.n1, tb.n2).contiguous()
-    y = _stage(a, tb.g_a, False, plain)            # [B, j1, k2]
-    yt = y.transpose(1, 2).contiguous()              # [B, k2, j1]
-    z = _stage(yt, tb.g_b, True, plain)            # [B, k2, k1]
-    return z.transpose(1, 2).reshape(bsz, tb.n)
+    if plain:
+        return transform_plain(x, tb, True)
+    return ntt4_transform(x.contiguous(), tb, True)

@@ -15,6 +15,13 @@ The query stays f32 (K1 casts it to a bf16 payload's type; these two do
 not), and K4 keeps the folded affine form instead of decode-then-dot. A
 size-0 tile yields PAD.
 
+K5 runs one block per pair. K4 is tile-major: ``sq8_schedule`` sorts the
+flat pairs by tile id on the device (a stable ``torch.sort``, no host sync)
+and the kernel takes ``SQ8_CHUNK`` consecutive sorted pairs a block, so the
+pairs of a chunk that share a tile read and decode it once. ``sq8_runs``
+lists the (chunk, run of one tile) pieces that the kernel's blocks walk, in
+plain torch, for the tests and for counting tile reads.
+
 ``slab_distances`` and ``slab_distances_sq8`` pick by the device of their
 tensors: CPU tensors take the plain PyTorch versions
 (``slab_distances_plain``, ``slab_distances_sq8_plain``), CUDA tensors launch
@@ -27,7 +34,7 @@ launches and ``.calls`` on each plain version counts its calls.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,6 +43,7 @@ from prefhetch_tpu_torch.ops.topk import PAD_DISTANCE
 _LIB = "slab_scan"
 _PLAIN_CHUNK_BYTES = 256 << 20      # widened f32 slab per chunk of pairs
 _MAX_SMEM = 232448                  # bytes a block may opt into on sm_90
+SQ8_CHUNK = 4                       # sorted pairs a K4 block (csrc CHUNK)
 
 
 def _plain(payload, norms, sizes, queries, probe_ids,
@@ -104,6 +112,34 @@ def slab_distances_sq8_plain(
 slab_distances_sq8_plain.calls = 0
 
 
+def sq8_schedule(probe_ids: torch.Tensor, n_tiles: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's schedule: the flat pairs (query qi, slot k) → qi·max_t + k of
+    ``probe_ids`` [nq, max_t] (tile ids below ``n_tiles``) sorted by tile
+    id, stably, on ``probe_ids``' device. Returns (tiles [P] sorted, order
+    [P] int64: the flat pair of each). The keys are int16 when every tile id
+    fits (a radix sort over half the bits), else int32."""
+    flat = probe_ids.reshape(-1)
+    if n_tiles <= torch.iinfo(torch.int16).max + 1:
+        flat = flat.to(torch.int16)
+    return torch.sort(flat, stable=True)
+
+
+def sq8_runs(tiles: torch.Tensor, chunk: int = SQ8_CHUNK
+             ) -> Tuple[torch.Tensor, ...]:
+    """The pieces K4's blocks walk: block b takes sorted pairs
+    [b·chunk, (b+1)·chunk) and splits them into runs of one tile. Returns
+    (block, start, length, tile) per run, int64, in the kernel's order; a
+    run of a tile with rows is one read of that tile."""
+    n = tiles.numel()
+    pos = torch.arange(n, device=tiles.device)
+    first = pos % chunk == 0
+    first[1:] |= tiles[1:] != tiles[:-1]
+    start = pos[first]
+    length = torch.diff(start, append=torch.tensor([n], device=tiles.device))
+    return start // chunk, start, length, tiles[start].long()
+
+
 def _library() -> ctypes.CDLL:
     from prefhetch_tpu_torch.utils.cuda_build import load
 
@@ -118,7 +154,8 @@ def _library() -> ctypes.CDLL:
     ]
     lib.pfh_slab_distances_sq8.restype = i
     lib.pfh_slab_distances_sq8.argtypes = [
-        p, p, p, p, p, p, p,       # codes, norms, sizes, vmin, scale, q, ids
+        p, p, p, p, p, p,          # codes, norms, sizes, vmin, scale, q
+        p, p,                      # probe_ids, the flat pairs by tile
         i, i, i, i,                # nq, max_t, T, d
         p, p,                      # out, stream
     ]
@@ -126,7 +163,7 @@ def _library() -> ctypes.CDLL:
 
 
 def _check(payload, norms, sizes, queries, probe_ids, dtypes, d_mult,
-           affine=()) -> None:
+           affine=(), smem=None) -> None:
     dev = payload.device
     for name, t in (("norms", norms), ("sizes", sizes), ("queries", queries),
                     ("probe_ids", probe_ids), *affine):
@@ -159,9 +196,18 @@ def _check(payload, norms, sizes, queries, probe_ids, dtypes, d_mult,
         if t.dtype != torch.float32 or tuple(t.shape) != (d,) \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous f32 [{d}]")
-    if 4 * (d + 8 + T) > _MAX_SMEM:
+    need = 4 * (d + 8 + T) if smem is None else smem(T, d)
+    if need > _MAX_SMEM:
         raise ValueError(f"T={T}, d={d} needs more shared memory than a "
                          f"block may use ({_MAX_SMEM} bytes)")
+
+
+def sq8_smem_bytes(T: int, d: int) -> int:
+    """K4's shared memory: each of the 8 warps' ring of 4 stages of 8 code
+    rows with their norms; each pair of a chunk's scale⊙q [d], ‖q‖²,
+    ⟨vmin, q⟩ and three ints. T does not enter: the lanes finish their own
+    rows."""
+    return 8 * 4 * 8 * (d + 4) + 4 * SQ8_CHUNK * (d + 2) + 12 * SQ8_CHUNK
 
 
 def slab_distances(
@@ -219,18 +265,20 @@ def slab_distances_sq8(
     if payload.device.type != "cuda":
         raise ValueError(f"K4 runs on cuda or cpu, not {payload.device}")
     _check(payload, norms, sizes, queries, probe_ids, (torch.uint8,), 16,
-           affine=(("vmin", vmin), ("scale", scale)))
+           affine=(("vmin", vmin), ("scale", scale)), smem=sq8_smem_bytes)
     lib = _library()
     _, T, d = payload.shape
     nq, max_t = probe_ids.shape
     with torch.cuda.device(payload.device):
         q = queries.to(torch.float32).contiguous()
+        _, order = sq8_schedule(probe_ids, payload.shape[0])
         out = torch.empty((nq, max_t * T), dtype=torch.float32,
                           device=payload.device)
         err = lib.pfh_slab_distances_sq8(
             payload.data_ptr(), norms.data_ptr(), sizes.data_ptr(),
             vmin.data_ptr(), scale.data_ptr(), q.data_ptr(),
-            probe_ids.data_ptr(), nq, max_t, T, d, out.data_ptr(),
+            probe_ids.data_ptr(), order.data_ptr(), nq, max_t, T, d,
+            out.data_ptr(),
             torch.cuda.current_stream(payload.device).cuda_stream,
         )
     if err != 0:

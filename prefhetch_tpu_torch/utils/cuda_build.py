@@ -10,6 +10,7 @@ the slowest compile only.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Iterator
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -85,6 +86,25 @@ def build(names: Iterable[str]) -> Dict[str, dict]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return out
+
+
+@contextlib.contextmanager
+def substituted(name: str, path) -> Iterator[ctypes.CDLL]:
+    """Within the block, ``load(name)`` returns the library at ``path``
+    instead (a build of an edited copy of the source); after it, what it
+    returned before."""
+    with _lock:
+        before = _loaded.get(name)
+        lib = ctypes.CDLL(str(path))
+        _loaded[name] = lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            if before is None:
+                _loaded.pop(name, None)
+            else:
+                _loaded[name] = before
 
 
 def load(name: str) -> ctypes.CDLL:

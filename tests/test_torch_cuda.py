@@ -19,12 +19,12 @@ from prefhetch_tpu_torch.client.he import HEClient
 from prefhetch_tpu_torch.crypto import ntt as hostntt
 from prefhetch_tpu_torch.crypto.params import find_ntt_primes
 from prefhetch_tpu_torch.engine.hecompute import HEComputeService
-from prefhetch_tpu_torch.ops import ntt4_step as k2
+from prefhetch_tpu_torch.ops import ntt4_fused as k2
 from prefhetch_tpu_torch.ops import pq_onehot as k3
 from prefhetch_tpu_torch.ops import slab_scan as k45
 from prefhetch_tpu_torch.ops import union_scan_min as usm
 from prefhetch_tpu_torch.ops.ntt4 import (
-    build_ntt4_tables, fourstep_perm, intt4, ntt4,
+    build_ntt4_tables, fourstep_perm, intt4, ntt4, transform_plain,
 )
 from prefhetch_tpu_torch.pipeline import query_pipeline
 from prefhetch_tpu_torch.utils.config import (
@@ -139,28 +139,30 @@ def test_engine_on_cuda_matches_cpu(cuda, monkeypatch):
 
 
 @pytest.mark.parametrize("n,bsz", [(4096, 33), (8192, 7)])
-@pytest.mark.parametrize("name", ["f_a", "f_b", "g_a", "g_b"])
-def test_ntt4_step_kernel_matches_plain(cuda, n, bsz, name):
-    """K2 at every stage shape of N=4096 (64x64) and N=8192 (m=64 and 128),
-    odd batches, lazy inputs anywhere in [0, 2^31), canonical and lazy
-    output: residues equal the plain version's exactly."""
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_ntt4_transform_kernel_matches_plain(cuda, n, bsz, inverse, dtype):
+    """K2, one launch per transform, at N=4096 (64x64) and N=8192 (64x128),
+    odd batches, lazy inputs anywhere in [0, 2^31), negative inputs, int32
+    and int64 (low 32 bits): bit-equal to its plain version and canonical."""
     q = find_ntt_primes(n, 30, 2)[1]
-    step = getattr(build_ntt4_tables(q, n), name)
-    rng = np.random.default_rng(n + bsz + step.m)
-    x = rng.integers(0, 1 << 31, (bsz, step.r, step.m), dtype=np.int64)
-    x[0, 0, :4] = [0, q - 1, q, (1 << 31) - 1]
-    xc = torch.from_numpy(x.astype(np.int32)).to(cuda)
-    want = k2.ntt4_step_plain(xc, step)
-    for canonical in (True, False):
-        before = k2.ntt4_step.launches
-        got = k2.ntt4_step(xc, step, canonical)
-        torch.cuda.synchronize()
-        assert k2.ntt4_step.launches == before + 1
-        assert got.dtype == torch.int32 and int(got.min()) >= 0
-        assert int(got.max()) < (q if canonical else 2 * q)
-        assert torch.equal(got % q, want)
-    # negative int32 inputs are taken as their residue, as the plain version
-    assert torch.equal(k2.ntt4_step(xc - q, step), want)
+    tb = build_ntt4_tables(q, n)
+    rng = np.random.default_rng(n + bsz + inverse)
+    x = rng.integers(0, 1 << 31, (bsz, n), dtype=np.int64)
+    x[0, :4] = [0, q - 1, q, (1 << 31) - 1]
+    xc = torch.from_numpy(x).to(cuda, dtype)
+    before = k2.ntt4_transform.launches
+    got = k2.ntt4_transform(xc, tb, inverse)
+    torch.cuda.synchronize()
+    assert k2.ntt4_transform.launches == before + 1
+    assert got.dtype == torch.int32 and int(got.min()) >= 0
+    assert int(got.max()) < q
+    assert torch.equal(got, transform_plain(xc, tb, inverse))
+    # negative values (int64: low 32 bits a negative int32) are taken as
+    # their residue, as the plain version takes them
+    neg = -xc - 1
+    assert torch.equal(k2.ntt4_transform(neg, tb, inverse),
+                       transform_plain(neg, tb, inverse))
 
 
 @pytest.mark.parametrize("n,bsz", [(4096, 33), (8192, 5)])
@@ -168,11 +170,11 @@ def test_ntt4_on_cuda_matches_cpu_and_host_butterfly(cuda, n, bsz):
     q = find_ntt_primes(n, 30, 1)[0]
     tb = build_ntt4_tables(q, n)
     x = np.random.default_rng(n).integers(0, 2 * q - 1, (bsz, n))
-    before = k2.ntt4_step.launches
+    before = k2.ntt4_transform.launches
     fwd = ntt4(torch.from_numpy(x).to(cuda), tb)
     back = intt4(fwd, tb)
     torch.cuda.synchronize()
-    assert k2.ntt4_step.launches == before + 4
+    assert k2.ntt4_transform.launches == before + 2
     assert torch.equal(fwd.cpu(), ntt4(torch.from_numpy(x), tb))
     perm, _ = fourstep_perm(tb)
     host = hostntt.ntt(x % q, hostntt.build_tables(q, n))
@@ -180,21 +182,21 @@ def test_ntt4_on_cuda_matches_cpu_and_host_butterfly(cuda, n, bsz):
     np.testing.assert_array_equal(back.cpu().numpy(), x % q)
 
 
-def test_ntt4_step_kernel_rejects_what_it_cannot_take(cuda):
+def test_ntt4_transform_kernel_rejects_what_it_cannot_take(cuda):
     q = find_ntt_primes(4096, 30, 1)[0]
     tb = build_ntt4_tables(q, 4096)
-    x = torch.zeros((2, 64, 64), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="int32"):
-        k2.ntt4_step(x.long(), tb.f_a)
+    x = torch.zeros((2, 4096), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32 or int64"):
+        k2.ntt4_transform(x.short(), tb, False)
     with pytest.raises(ValueError, match="contiguous"):
-        k2.ntt4_step(x.transpose(1, 2), tb.f_a)
-    with pytest.raises(ValueError, match="tables are for"):
-        k2.ntt4_step(x.reshape(2, 32, 128), tb.f_a)
+        k2.ntt4_transform(x.reshape(4, 2048), tb, False)
+    with pytest.raises(ValueError, match="non-empty"):
+        k2.ntt4_transform(x[:0], tb, True)
     q256 = find_ntt_primes(256, 30, 1)[0]
     small = build_ntt4_tables(q256, 256)          # 16 x 16: no served ring
-    with pytest.raises(ValueError, match="m in"):
-        k2.ntt4_step(torch.zeros((1, 16, 16), dtype=torch.int32, device=cuda),
-                     small.f_a)
+    with pytest.raises(ValueError, match="64 x n2"):
+        k2.ntt4_transform(torch.zeros((1, 256), dtype=torch.int32,
+                                      device=cuda), small, False)
 
 
 @pytest.mark.parametrize("mode", ["full", "q1"])
@@ -213,18 +215,18 @@ def test_he_service_on_cuda_matches_cpu(cuda, mode):
     for s in (gpu, cpu):
         s.set_base(base)
     cts = [cpu.ctx.ct_from_wire(w) for w in client.encrypt_query_batch(q)]
-    before = k2.ntt4_step.launches
+    before = k2.ntt4_transform.launches
     if mode == "full":
         rg = gpu.encrypted_scores_trunc(cts, cand)
         rc = cpu.encrypted_scores_trunc(cts, cand)
         got = client.decrypt_scores_trunc(*rg, q)
-        per_limb = 4
+        per_limb = 2                 # transforms: forward, inverse of c0
     else:
         rg = gpu.encrypted_scores_trunc_q1(cts, cand)
         rc = cpu.encrypted_scores_trunc_q1(cts, cand)
         got = client.decrypt_scores_trunc_q1(*rg, q)
-        per_limb = 6
-    assert k2.ntt4_step.launches == before + 2 * per_limb
+        per_limb = 3                 # and the inverse of c1
+    assert k2.ntt4_transform.launches == before + 2 * per_limb
     for a, b in zip(rg, rc):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(
@@ -302,6 +304,34 @@ def test_slab_distances_sq8_kernel_matches_plain(cuda, T, d, nq, max_t):
     want = k45.slab_distances_sq8_plain(codes, norms, sizes, vmin, scale, q,
                                         probes)
     _assert_slab_equal(got, want, q, norms)
+
+
+@pytest.mark.parametrize("case", ["all queries", "size-0 only", "twice"])
+def test_slab_distances_sq8_kernel_schedule_cases(cuda, case):
+    """K4's tile-major schedule at its hard cases: one tile probed by every
+    query (a run over several chunks), nothing but size-0 tiles, a query
+    probing one tile twice."""
+    codes, sizes, q, probes = _slab_inputs(cuda, 256, 128, 64, 8,
+                                           torch.uint8, seed=11)
+    q = q.abs() * 3
+    g = torch.Generator().manual_seed(11)
+    vmin = (torch.rand(128, generator=g) * 10 - 5).to(cuda)
+    scale = (torch.rand(128, generator=g) * 0.8 + 0.2).to(cuda)
+    norms = ((vmin + (codes.float() + 0.5) * scale) ** 2).sum(-1).contiguous()
+    if case == "all queries":
+        probes[:, 0] = 0
+    elif case == "size-0 only":
+        probes[:] = 3
+        probes[:, ::2] = 5
+    else:
+        probes[1, 1:3] = 2
+    got = k45.slab_distances_sq8(codes, norms, sizes, vmin, scale, q, probes)
+    torch.cuda.synchronize()
+    want = k45.slab_distances_sq8_plain(codes, norms, sizes, vmin, scale, q,
+                                        probes)
+    _assert_slab_equal(got, want, q, norms)
+    if case == "size-0 only":
+        assert bool((got == PAD).all())
 
 
 def test_slab_kernels_reject_what_they_cannot_take(cuda):

@@ -27,7 +27,7 @@ from prefhetch_tpu_torch.crypto.params import bfv_params_for
 from prefhetch_tpu_torch.engine.hecompute import HEComputeService as TService
 from prefhetch_tpu_torch.engine.server import QueryEngine as TEngine
 from prefhetch_tpu_torch.index.build import index_from_numpy
-from prefhetch_tpu_torch.ops import ntt4_step
+from prefhetch_tpu_torch.ops import ntt4_fused, ntt4_step
 from prefhetch_tpu_torch.serve.handlers import Dispatcher as TDispatcher
 from prefhetch_tpu_torch.utils import config as tcfg
 from prefhetch_tpu_torch.utils.wire import unpack_i32
@@ -69,7 +69,7 @@ def test_service_matches_jax_device_program_and_numpy_twin(svc_setup, mode):
     cts_t = [ts.ctx.ct_from_wire(w) for w in wires]
     cts_j = [js.ctx.ct_from_wire(w) for w in wires]
     plain_calls = ntt4_step.ntt4_step_plain.calls
-    launches = ntt4_step.ntt4_step.launches
+    launches = ntt4_fused.ntt4_transform.launches
     if mode == "full":
         bt, nt = ts.encrypted_scores_trunc_async(cts_t, cand)
         bj, nj = js.encrypted_scores_trunc_async(cts_j, cand)
@@ -78,10 +78,10 @@ def test_service_matches_jax_device_program_and_numpy_twin(svc_setup, mode):
         bt, nt = ts.encrypted_scores_trunc_q1_async(cts_t, cand)
         bj, nj = js.encrypted_scores_trunc_q1_async(cts_j, cand)
         per_limb = 6
-    # K2 stages per request: 2 per transform; on CPU all through the plain
-    # version and none through the kernel
+    # K2's plain version per request: 2 stages per transform; on CPU all
+    # through the plain version and none through the kernel
     assert ntt4_step.ntt4_step_plain.calls == plain_calls + 2 * per_limb
-    assert ntt4_step.ntt4_step.launches == launches
+    assert ntt4_fused.ntt4_transform.launches == launches
     assert bt.dtype == torch.int32
     bt = bt.numpy()
     nb, B = 3, N // D

@@ -21,6 +21,8 @@ from prefhetch_tpu.utils.config import IndexParams as JIndexParams
 from prefhetch_tpu_torch import metrics as t_metrics
 from prefhetch_tpu_torch.data import io as t_io
 from prefhetch_tpu_torch.data import synthetic as t_syn
+from prefhetch_tpu_torch.tools import kernel_ablation as ka
+from prefhetch_tpu_torch.utils import cuda_build
 from prefhetch_tpu_torch.utils import wire_bin as t_wire
 from prefhetch_tpu_torch.utils.config import IndexParams as TIndexParams
 
@@ -175,38 +177,48 @@ def test_kernel_wrapper_cpu_takes_plain_version():
 
 
 def test_ntt4_step_wrapper_cpu_takes_plain_version():
-    """K2's wrapper: a CPU tensor goes to the plain version and launches
-    nothing; what the kernel would refuse is refused by shape and type
-    before any build."""
+    """K2's wrapper: a CPU tensor goes to the plain version (two plain
+    stages) and launches nothing; what the kernel would refuse is refused by
+    shape and type before any build."""
     from prefhetch_tpu_torch.crypto.params import find_ntt_primes
-    from prefhetch_tpu_torch.ops import ntt4_step as k2
-    from prefhetch_tpu_torch.ops.ntt4 import build_ntt4_tables
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
+    from prefhetch_tpu_torch.ops.ntt4 import build_ntt4_tables, transform_plain
 
     q = find_ntt_primes(4096, 30, 1)[0]
     tb = build_ntt4_tables(q, 4096)
     x = torch.from_numpy(np.random.default_rng(3).integers(
-        0, 1 << 31, (2, 64, 64)).astype(np.int32))
-    launches, calls = k2.ntt4_step.launches, k2.ntt4_step_plain.calls
-    y = k2.ntt4_step(x, tb.f_a, canonical=False)
-    assert k2.ntt4_step.launches == launches
-    assert k2.ntt4_step_plain.calls == calls + 1
+        0, 1 << 31, (2, 4096)).astype(np.int32))
+    launches, calls = k2.ntt4_transform.launches, k2s.ntt4_step_plain.calls
+    y = k2.ntt4_transform(x, tb, inverse=False)
+    assert k2.ntt4_transform.launches == launches
+    assert k2s.ntt4_step_plain.calls == calls + 2
     assert y.dtype == torch.int32 and y.shape == x.shape
     assert int(y.min()) >= 0 and int(y.max()) < q
+    assert torch.equal(y, transform_plain(x, tb, False))
     # negative int32 values are taken as their residue
     np.testing.assert_array_equal(
-        k2.ntt4_step(x - q, tb.f_a).numpy(), y.numpy())
-    assert k2._check(x, tb.f_a) == (2, 64, 64)
-    assert k2.smem_bytes(64, 64) == 32768
-    with pytest.raises(ValueError, match="int32"):
-        k2._check(x.long(), tb.f_a)
+        k2.ntt4_transform(x - q, tb, inverse=False).numpy(), y.numpy())
+    # int64 input is taken by its low 32 bits, as .to(torch.int32) does
+    np.testing.assert_array_equal(
+        k2.ntt4_transform(x.long(), tb, inverse=True).numpy(),
+        transform_plain(x, tb, True).numpy())
+    assert k2.check(x, tb) == 2 and k2.check(x.long(), tb) == 2
+    with pytest.raises(ValueError, match="int32 or int64"):
+        k2.check(x.short(), tb)
     with pytest.raises(ValueError, match="contiguous"):
-        k2._check(x.transpose(1, 2), tb.f_a)
-    with pytest.raises(ValueError, match="tables are for"):
-        k2._check(x.reshape(2, 32, 128), tb.f_a)
+        k2.check(x.reshape(2, 64, 64).transpose(1, 2).reshape(2, 4096)
+                 .T.contiguous().T, tb)
+    with pytest.raises(ValueError, match="contiguous"):
+        k2.check(x.reshape(4, 2048), tb)
     with pytest.raises(ValueError, match="non-empty"):
-        k2._check(x[:0], tb.f_a)
+        k2.check(x[:0], tb)
+    q256 = find_ntt_primes(256, 30, 1)[0]
+    small = build_ntt4_tables(q256, 256)          # 16 x 16: no served ring
+    with pytest.raises(ValueError, match="64 x n2"):
+        k2.check(torch.zeros((1, 256), dtype=torch.int32), small)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        k2.ntt4_step(x.to("meta"), tb.f_a)
+        k2.ntt4_transform(x.to("meta"), tb, inverse=False)
     # the Shoup companions: floor(tw * 2^32 / q), exact in Python integers
     tws = tb.f_a.tw_shoup
     assert tws.dtype == np.uint32 and tb.f_b.tw_shoup is None
@@ -228,3 +240,29 @@ def test_he_service_follows_the_engine_device(monkeypatch):
     svc = HEComputeService(p, device="cpu")
     assert svc.device == torch.device("cpu")
     assert svc._perm.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("kernel,variant", [
+    (k, v) for k, (_, variants) in sorted(ka.SOURCES.items())
+    for v in variants])
+def test_ablation_edits_match_the_current_sources(kernel, variant):
+    """Every edit of tools/kernel_ablation.py (what ``chip_smoke.py``
+    compiles for its ablation phase) matches its kernel's source exactly
+    once, so a change to a patched line fails here and not first on the
+    card."""
+    name, variants = ka.SOURCES[kernel]
+    src = (cuda_build.CSRC / f"{name}.cu").read_text()
+    edited = ka.apply_edits(src, variants[variant], f"{kernel}/{variant}")
+    assert edited != src
+    with pytest.raises(ValueError, match="does not match"):
+        ka.apply_edits(edited, variants[variant], "twice")
+
+
+def test_substituted_library_is_restored():
+    """cuda_build.substituted: inside the block load() returns the given
+    library, after it the state before (here: nothing loaded)."""
+    some_lib = pathlib.Path(torch.__file__).parent / "lib" / "libc10.so"
+    assert "probe" not in cuda_build._loaded
+    with cuda_build.substituted("probe", some_lib) as lib:
+        assert cuda_build.load("probe") is lib
+    assert "probe" not in cuda_build._loaded

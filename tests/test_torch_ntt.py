@@ -1,10 +1,10 @@
-"""Port parity: the four-step NTT (ops/ntt4.py) and its stage kernel's plain
-version (ops/ntt4_step.py, K2) against the JAX package.
+"""Port parity: the four-step NTT (ops/ntt4.py) and the plain stage of its
+kernel K2 (ops/ntt4_step.py) against the JAX package.
 
 Everything here is integer arithmetic mod q: tolerance zero. The JAX side
 runs its Pallas kernel in interpret mode (the same kernel program the TPU
 runs) and its XLA formulation; the port runs on CPU tensors, where K2's
-wrapper takes the plain version. Between stages the two step kernels may
+wrapper takes the plain version. Between stages the two implementations may
 leave different lazy values (the Pallas kernel up to 2q, the plain version
 always below q): residues must agree, ranges need not."""
 
@@ -95,7 +95,7 @@ def test_step_plain_matches_pallas_step(name):
     want = np.asarray(j_pallas._run_step(
         jnp.asarray(x), ps, q, pt.delta, canonical, True))
     calls = t_step.ntt4_step_plain.calls
-    got = t_step.ntt4_step(torch.from_numpy(x), ts, canonical).numpy()
+    got = t_step.ntt4_step_plain(torch.from_numpy(x), ts).numpy()
     assert t_step.ntt4_step_plain.calls == calls + 1
     assert got.dtype == np.int32 and got.min() >= 0 and got.max() < q
     assert want.min() >= 0                      # lazy, but below 2^31

@@ -22,8 +22,12 @@ reporting on lines of its own; any failure exits non-zero:
               edge shapes (tiles of size T, 1, T-1, 0, a probe row of
               nothing but the empty tile, one probe slot, byte-wise code
               loads, M=200, ksub=64, a zero list table, nq=1 and 70; for
-              K4's tile-major schedule also a tile probed by all 64
-              queries and nothing but size-0 tiles);
+              the tile-major K4 and K5, at bf16 and f32, also a tile probed
+              by all 64 queries, a query probing one tile twice and nothing
+              but size-0 tiles); the tile schedule of K4 and K5 bit-equal
+              to torch.sort(stable=True) on every edge's probe ids, past
+              32,768 tiles (int32 keys) and past the 6,144 pairs it stages
+              in shared memory, its piece list equal to the plain one;
    ntt      — K2 (the whole four-step NTT in one launch) against its plain
               version (two plain stages) and the host butterfly NTT: exact
               equality, forward and inverse, N=4096 (64x64) and N=8192
@@ -54,12 +58,15 @@ reporting on lines of its own; any failure exits non-zero:
               (pipeline.query_pipeline) on the same index and base:
               quant="pq" (PQ codes, 256-slot tiles, K3 over the probed
               tiles, no union), quant="sq8"
-              (8-bit payload, K4) and scan="slab" (dense payload, K5). For
-              each: the tiled view, the kernel against its plain version at
-              the first batch's own shapes, its time beside the plain
-              version, a library call and the card's bound, then the same
-              4 batches of 64 queries with every kernel's launch count read
-              around them, exact returned distances and recall;
+              (8-bit payload, K4) and scan="slab" (dense payload, K5); K4
+              and K5 each after one launch of the tile schedule. For each:
+              the tiled view, the schedule against torch.sort at the first
+              batch's probe ids, the kernel against its plain version at
+              the first batch's own shapes, its time (and the schedule's)
+              beside the plain version, a library call and the card's
+              bound, then the same 4 batches of 64 queries with every
+              kernel's launch count read around them, exact returned
+              distances and recall;
 5. timings  — each kernel's own device time at the main-path shape
               (torch.profiler; the CUDA-event time of a loop of wrapper
               calls beside it, which the host's pace can set for a fast
@@ -67,10 +74,11 @@ reporting on lines of its own; any failure exits non-zero:
               the card's bound for the same work; printed as one JSON line
               {"kernels": [...]}; then torch.profiler over warm /search
               requests: device time by kernel and the device's busy share;
-   ablation — K4 and K2 rebuilt with one part taken out or one constant
-              changed (tools/kernel_ablation.py), K4 timed on the first
-              quant="sq8" batch's own inputs and K2 on the forward transform
-              at the request's shape, each beside the unchanged source; the
+   ablation — K4, K5 and K2 rebuilt with one part taken out or one
+              constant changed (tools/kernel_ablation.py), K4 timed on the
+              first quant="sq8" batch's own inputs, K5 on the first
+              scan="slab" batch's, K2 on the forward transform at the
+              request's shape, each beside the unchanged source; the
               variants that change a constant are held against the plain
               version;
 6. result   — the last line, {"ok": true, "device": {...}}.
@@ -747,10 +755,11 @@ def kernel_counters():
         "pq_probed_distances": k3.pq_probed_distances,
         "slab_distances_sq8": k45.slab_distances_sq8,
         "slab_distances": k45.slab_distances,
+        "tile_schedule": k45.tile_schedule,
     }
     plains = [usm.union_scan_min_reference, k2s.ntt4_step_plain,
               k3.pq_probed_distances_plain, k45.slab_distances_sq8_plain,
-              k45.slab_distances_plain]
+              k45.slab_distances_plain, k45.tile_schedule_plain]
     return wrappers, plains
 
 
@@ -784,6 +793,38 @@ def check_slab(name, kernel, plain, args) -> float:
     log("kernel", f"{name}: nq={nq} max_t={max_t} T={payload.shape[1]} "
         f"d={payload.shape[2]} {payload.dtype}: ok (max |d2 err| {err}, "
         f"tolerance {float(tol.min())}..{float(tol.max())})")
+    return err
+
+
+def check_schedule(name, probe_ids, n_tiles, chunk=0) -> int:
+    """The tile schedule of K4 and K5 against torch.sort(stable=True) on
+    the same card tensor, bit for bit, and with ``chunk`` its piece list
+    against the plain version's. Returns the max |difference| of the sorted
+    keys and the order (0, or it raises)."""
+    import torch
+
+    from prefhetch_tpu_torch.ops import slab_scan as k45
+
+    got = k45.tile_schedule(probe_ids, n_tiles, chunk)
+    torch.cuda.synchronize()              # a fault in the run shows here
+    keys = probe_ids.reshape(-1).to(
+        torch.int16 if n_tiles <= 32768 else torch.int32)
+    want = torch.sort(keys, stable=True)
+    err = max(int((got[0].long() - want.values.long()).abs().max()),
+              int((got[1] - want.indices).abs().max()))
+    if got[0].dtype != want.values.dtype or err != 0:
+        raise AssertionError(f"{name}: the schedule differs from "
+                             f"torch.sort(stable=True) (max |err| {err})")
+    note = ""
+    if chunk:
+        plain = k45.tile_schedule_plain(probe_ids, n_tiles, chunk)[2]
+        n = int(plain[0])
+        if not torch.equal(got[2][:1 + 2 * n], plain[:1 + 2 * n]):
+            raise AssertionError(f"{name}: the piece list differs")
+        note = f", {n} pieces of at most {chunk} pairs equal"
+    log("kernel", f"{name}: tile_schedule of {probe_ids.numel()} pairs over "
+        f"{n_tiles} tiles ({keys.dtype} keys): bit-equal to "
+        f"torch.sort(stable=True){note}")
     return err
 
 
@@ -859,6 +900,9 @@ def phase_variant_edges() -> None:
             (64, 32, 70, 5, torch.bfloat16)):
         payload, sizes, q, probes = slab_case(T, d, nq, max_t, dtype, T + d)
         norms = (payload.float() ** 2).sum(-1).contiguous()
+        for chunk in (0, k45.SLAB_CHUNK):
+            check_schedule(f"edge/T={T} nq={nq}", probes, payload.shape[0],
+                           chunk)
         got_last = k45.slab_distances(payload, norms, sizes, q, probes)[-1]
         if not bool((got_last >= 3e38).all()):
             raise AssertionError("an all-empty probe row is not all PAD")
@@ -873,33 +917,57 @@ def phase_variant_edges() -> None:
         vmin = (torch.rand(d, generator=g) * 10 - 5).to(dev)
         scale = (torch.rand(d, generator=g) * 0.8 + 0.2).to(dev)
         norms = ((vmin + (codes.float() + 0.5) * scale) ** 2).sum(-1)
+        check_schedule(f"edge/T={T} nq={nq}", probes, codes.shape[0])
         check_slab(f"edge/slab_distances_sq8 T={T}", k45.slab_distances_sq8,
                    k45.slab_distances_sq8_plain,
                    (codes, norms.contiguous(), sizes, vmin, scale, q, probes))
-    # K4's tile-major schedule at its hard cases, 64 queries of 8 slots:
-    # tile 0 probed by every query (a run of 64 pairs, 8 chunks), tile 2
+    # the tile-major K4 and K5 at the schedule's hard cases, 64 queries of
+    # 8 slots: tile 0 probed by every query (a run of 64 pairs), tile 2
     # probed twice by one query, and a batch of nothing but size-0 tiles
-    codes, sizes, q, probes = slab_case(1024, 128, 64, 8, torch.uint8, 5)
-    g = torch.Generator().manual_seed(5)
-    vmin = (torch.rand(128, generator=g) * 10 - 5).to(dev)
-    scale = (torch.rand(128, generator=g) * 0.8 + 0.2).to(dev)
-    norms = ((vmin + (codes.float() + 0.5) * scale) ** 2).sum(-1).contiguous()
-    probes[:, 0] = 0
-    probes[1, 1:3] = 2
-    all_empty = probes.clone()
-    all_empty[:] = torch.tensor([3, 5], dtype=torch.int32, device=dev).repeat(
-        4)
-    for tag, pids in (("tile 0 probed by all 64 queries", probes),
-                    ("only size-0 tiles", all_empty)):
-        _, _, length, tile = k45.sq8_runs(
-            k45.sq8_schedule(pids, codes.shape[0])[0])
-        check_slab(f"edge/slab_distances_sq8 {tag} (runs {length.numel()}, "
-                   f"longest {int(length.max())})", k45.slab_distances_sq8,
-                   k45.slab_distances_sq8_plain,
-                   (codes, norms, sizes, vmin, scale, q, pids))
-    if not bool((k45.slab_distances_sq8(codes, norms, sizes, vmin, scale, q,
-                                        all_empty) >= 3e38).all()):
-        raise AssertionError("a batch of size-0 tiles is not all PAD")
+    for dtype, T, d in ((torch.uint8, 1024, 128), (torch.bfloat16, 1024, 128),
+                        (torch.float32, 100, 200)):
+        payload, sizes, q, probes = slab_case(T, d, 64, 8, dtype, 5)
+        if dtype == torch.uint8:
+            g = torch.Generator().manual_seed(5)
+            vmin = (torch.rand(d, generator=g) * 10 - 5).to(dev)
+            scale = (torch.rand(d, generator=g) * 0.8 + 0.2).to(dev)
+            norms = ((vmin + (payload.float() + 0.5) * scale) ** 2).sum(-1)
+            kernel = k45.slab_distances_sq8
+            plain = k45.slab_distances_sq8_plain
+            chunk, aligned, aff = k45.SQ8_CHUNK, False, (vmin, scale)
+        else:
+            norms = (payload.float() ** 2).sum(-1)
+            kernel, plain = k45.slab_distances, k45.slab_distances_plain
+            chunk, aligned, aff = k45.SLAB_CHUNK, True, ()
+        norms = norms.contiguous()
+        probes[:, 0] = 0
+        probes[1, 1:3] = 2
+        all_empty = probes.clone()
+        all_empty[:] = torch.tensor([3, 5], dtype=torch.int32,
+                                    device=dev).repeat(4)
+        for tag, pids in (("tile 0 probed by all 64 queries", probes),
+                          ("only size-0 tiles", all_empty)):
+            check_schedule(f"edge/{tag}", pids, payload.shape[0],
+                           chunk if aligned else 0)
+            _, _, length, _ = k45.tile_runs(
+                k45.tile_schedule(pids, payload.shape[0])[0], chunk, aligned)
+            args = (payload, norms, sizes, *aff, q, pids)
+            check_slab(f"edge/{kernel.__name__} {payload.dtype} {tag} (runs "
+                       f"{length.numel()}, longest {int(length.max())})",
+                       kernel, plain, args)
+            if pids is all_empty and not bool((kernel(*args) >= 3e38).all()):
+                raise AssertionError("a batch of size-0 tiles is not all PAD")
+    # the schedule past int16 tile ids (int32 keys, counts in device
+    # memory), and past the pairs it stages in shared memory
+    gen = torch.Generator(device=dev).manual_seed(1)
+    big = torch.randint(0, 40000, (64, 48), dtype=torch.int32, device=dev,
+                        generator=gen)
+    big[:, :3] = 39999
+    many = torch.randint(0, 1474, (128, 64), dtype=torch.int32, device=dev,
+                         generator=gen)
+    for chunk in (0, k45.SLAB_CHUNK):
+        check_schedule("edge/40,000 tiles", big, 40000, chunk)
+        check_schedule("edge/8,192 pairs", many, 1474, chunk)
     # K3: tiles of size T, 1, T-1, 0, ... and the empty tile 9; a probe row
     # of nothing but the empty tile (nq > 1); one probe slot; byte-wise
     # code loads (M=8, 200); tables of 16 to 100 KB; ksub=64 with a zero
@@ -960,59 +1028,108 @@ def slab_bound(view, probe_ids, q, sq8: bool):
             nbytes / 1e6, flops / 1e9)
 
 
-def time_slab(name, kernel, plain, args, view, sq8: bool) -> dict:
+def time_schedule(probe_ids, n_tiles: int, chunk: int) -> dict:
+    """The tile schedule at a batch's shape: its kernel's device time, the
+    plain version (torch.sort, and the piece list in torch ops), one
+    torch.sort(stable=True) of the keys (the function without the piece
+    list) and the card's bound: the keys read once, the sorted keys, the
+    order and the pieces this batch makes written once."""
+    import torch
+
+    from prefhetch_tpu_torch.ops import slab_scan as k45
+
+    def run():
+        return k45.tile_schedule(probe_ids, n_tiles, chunk)
+
+    ms = cuda_time_ms(run)
+    plain_ms = cuda_time_ms(
+        lambda: k45.tile_schedule_plain(probe_ids, n_tiles, chunk), iters=10)
+    dev = kernel_ms(run, "tile_schedule_kernel", ms)
+    keys = probe_ids.reshape(-1).to(
+        torch.int16 if n_tiles <= 32768 else torch.int32)
+    library_ms = cuda_time_ms(lambda: torch.sort(keys, stable=True))
+    library_dev = device_ms(lambda: torch.sort(keys, stable=True))
+    n_pieces = int(run()[2][0]) if chunk else 0
+    P = keys.numel()
+    nbytes = P * 4 + P * keys.element_size() + P * 8 \
+        + (4 + 8 * n_pieces if chunk else 0)
+    bound_ms = nbytes / HBM_BYTES_S * 1e3
+    log("timing", f"tile_schedule of {P} pairs over {n_tiles} tiles"
+        + (f" ({n_pieces} pieces of at most {chunk})" if chunk else "")
+        + f": kernel {dev:.4f} ms on the device (CUDA events over wrapper "
+        f"calls {ms:.4f}), plain {plain_ms:.4f} ms, torch.sort(stable=True) "
+        f"{library_ms:.4f} ms (device {library_dev}), bound "
+        f"{bound_ms:.6f} ms (bytes: {nbytes / 1e3:.1f} KB)")
+    return {"ms": dev, "ms_events": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms, "library_device_ms": library_dev,
+            "library_call": "torch.sort(stable=True) of the keys (without "
+                            "the piece list)"}
+
+
+def time_slab(name, kernel, plain, args, view, sq8: bool):
     """K5 or K4 at the first batch's shape: kernel, plain, kernel again, one
     torch.bmm over slabs gathered and widened beforehand (the matvec alone,
-    a part of the function), and the card's bound. For K4 also the device
-    work of the whole wrapper call (its schedule's sort included), and in
-    the log the tile reads and code decodes that its schedule plans
-    (``sq8_runs`` counts them from the sorted pairs; the kernel counts
-    nothing)."""
+    a part of the function), and the card's bound; the device work of the
+    whole wrapper call (the schedule's launch included) and the schedule
+    alone; in the log the tile reads that its schedule plans (``tile_runs``
+    counts them from the sorted pairs; the kernel counts nothing). Returns
+    (the kernel's entry, the schedule's timing)."""
     import torch
 
     from prefhetch_tpu_torch.ops import slab_scan as k45
 
     q, probe_ids = args[-2], args[-1]
+    n_tiles, d = view.payload.shape[0], q.shape[1]
+    chunk = k45.SQ8_CHUNK if sq8 else k45.SLAB_CHUNK
     ms = cuda_time_ms(lambda: kernel(*args))
     plain_ms = cuda_time_ms(lambda: plain(*args), iters=5, warmup=1)
     ms2 = cuda_time_ms(lambda: kernel(*args))
     dev = kernel_ms(lambda: kernel(*args),
-                    "sq8_tiled_kernel" if sq8 else "slab_kernel", min(ms, ms2))
-    extra, note = {}, ""
+                    "sq8_tiled_kernel" if sq8 else "slab_tiled_kernel",
+                    min(ms, ms2))
+    sched = time_schedule(probe_ids, n_tiles, 0 if sq8 else chunk)
+    with_schedule = device_ms(lambda: kernel(*args))
+    _, _, _, tile = k45.tile_runs(k45.tile_schedule(probe_ids, n_tiles)[0],
+                                  chunk, aligned=not sq8)
+    rows = view.sizes[tile].long()
+    flat = probe_ids.reshape(-1).long()
+    pair_rows = view.sizes[flat].long()
+    distinct = view.sizes[torch.unique(flat)] > 0
+    row_bytes = d * view.payload.element_size() + 4
+    note = (f"; the wrapper call's device work with the schedule "
+            f"{with_schedule} ms, the schedule kernel {sched['ms']:.4f} ms; "
+            f"the schedule's plan (not read from the kernel): tile reads "
+            f"{int((rows > 0).sum())} (one per pair: "
+            f"{int((pair_rows > 0).sum())}; distinct tiles with rows "
+            f"{int(distinct.sum())}), rows and norms read "
+            f"{int(rows.sum()) * row_bytes / 1e6:.1f} MB (one per pair: "
+            f"{int(pair_rows.sum()) * row_bytes / 1e6:.1f} MB)")
     if sq8:
-        _, _, _, tile = k45.sq8_runs(
-            k45.sq8_schedule(probe_ids, view.payload.shape[0])[0])
-        rows = view.sizes[tile].long()
-        flat = probe_ids.reshape(-1).long()
-        pair_rows = view.sizes[flat].long()
-        extra = {"ms_with_schedule": device_ms(lambda: kernel(*args))}
-        note = (f"; the wrapper call's device work with the schedule's sort "
-                f"{extra['ms_with_schedule']} ms; the schedule's plan (not "
-                f"read from the kernel): tile reads {int((rows > 0).sum())} "
-                f"(one per pair: {int((pair_rows > 0).sum())}), code decodes "
-                f"{int(rows.sum()) * q.shape[1] / 1e6:.1f} M (one per pair: "
-                f"{int(pair_rows.sum()) * q.shape[1] / 1e6:.1f} M)")
-    slabs = view.payload[probe_ids.reshape(-1).long()].to(torch.float32)
+        note += (f", code decodes {int(rows.sum()) * d / 1e6:.1f} M (one per "
+                 f"pair: {int(pair_rows.sum()) * d / 1e6:.1f} M)")
+    slabs = view.payload[flat].to(torch.float32)
     qrep = torch.repeat_interleave(q, probe_ids.shape[1], dim=0)[:, :, None]
     library_ms = cuda_time_ms(lambda: torch.bmm(slabs, qrep), iters=10)
     slab_mb = slabs.numel() * 4 / 1e6
     del slabs, qrep
     bound_ms, bound_by, mb, gflop = slab_bound(view, probe_ids, q, sq8)
     log("timing", f"{name} at nq={q.shape[0]} max_t={probe_ids.shape[1]} "
-        f"T={view.tile} d={q.shape[1]} {view.payload.dtype}: kernel "
+        f"T={view.tile} d={d} {view.payload.dtype}: kernel "
         f"{dev:.4f} ms on the device (CUDA events over wrapper calls "
         f"{ms:.4f} / {ms2:.4f}), plain {plain_ms:.4f} ms, torch.bmm on "
         f"pre-gathered f32 slabs ({slab_mb:.0f} MB, the matvec only) "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{mb:.1f} MB, {gflop:.3f} GFLOP), {bound_ms / dev:.0%} of the "
         f"bound" + note)
-    return {**extra, "ms": dev, "ms_events": min(ms, ms2),
+    return {"ms": dev, "ms_events": min(ms, ms2),
+            "ms_with_schedule": with_schedule, "schedule_ms": sched["ms"],
             "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
             "library_call": "torch.bmm f32 [B,T,d]x[B,d,1] on slabs "
                             "gathered and widened beforehand, the cross "
-                            "term only (a partial function)"}
+                            "term only (a partial function)"}, sched
 
 
 def time_pq_probed(args, sm_mhz: float) -> dict:
@@ -1082,10 +1199,11 @@ def time_pq_probed(args, sm_mhz: float) -> dict:
 
 
 VARIANTS = (
-    # quant, scan, the kernel the variant's scan must launch
-    ("pq", "union", "pq_probed_distances"),
-    ("sq8", "union", "slab_distances_sq8"),
-    ("none", "slab", "slab_distances"),
+    # quant, scan, the kernel the variant's scan must launch, and the
+    # kernels that must run beside it, each once a batch
+    ("pq", "union", "pq_probed_distances", ()),
+    ("sq8", "union", "slab_distances_sq8", ("tile_schedule",)),
+    ("none", "slab", "slab_distances", ("tile_schedule",)),
 )
 
 
@@ -1097,7 +1215,8 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
     query_pipeline steps with every launch count read around them, exact
     returned distances, recall, stage times and the kernel's timings.
     Returns {kernel name: its entry's keys for the kernels line}; ``hold``
-    gets the first sq8 batch's K4 arguments under "sq8"."""
+    gets the first sq8 batch's K4 arguments under "sq8" and the first slab
+    batch's K5 arguments under "slab"."""
     import numpy as np
     import torch
 
@@ -1112,8 +1231,9 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
     index = engine.index
     dev = index.device
     wrappers, plains = kernel_counters()
-    out = {}
-    for quant, scan, kernel_name in VARIANTS:
+    schedule = {"launches": 0}            # the tile schedule's entry
+    out = {"tile_schedule": schedule}
+    for quant, scan, kernel_name, beside in VARIANTS:
         tag = f"quant={quant} scan={scan}"
         t0 = time.perf_counter()
         view = build_tiled_view(index, tile=default_tile(quant), quant=quant)
@@ -1136,6 +1256,11 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
         # the kernel against its plain version at the first batch's shapes
         step, args, stats = prepare(0)
         payload, norms, sizes, _, _, q_t, tiles_t = args
+        for chunk in (0, k45.SLAB_CHUNK):
+            schedule["max_abs_err"] = max(
+                schedule.get("max_abs_err", 0),
+                check_schedule(f"variants/{tag} batch0", tiles_t,
+                               view.payload.shape[0], chunk))
         if quant == "pq":
             lut_q, lut_p, cadd = pq_luts(index.centroids, index.codebooks,
                                          q_t, bool(index.params.by_residual))
@@ -1152,15 +1277,20 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
                      tiles_t)
             err = check_slab(f"variants/{tag} batch0", k45.slab_distances_sq8,
                              k45.slab_distances_sq8_plain, kargs)
-            times = time_slab("slab_distances_sq8", k45.slab_distances_sq8,
-                              k45.slab_distances_sq8_plain, kargs, view, True)
+            times, sched = time_slab(
+                "slab_distances_sq8", k45.slab_distances_sq8,
+                k45.slab_distances_sq8_plain, kargs, view, True)
+            schedule["ms_sq8_batch"] = sched["ms"]
             hold["sq8"] = kargs
         else:
             kargs = (payload, norms, sizes, q_t, tiles_t)
             err = check_slab(f"variants/{tag} batch0", k45.slab_distances,
                              k45.slab_distances_plain, kargs)
-            times = time_slab("slab_distances", k45.slab_distances,
-                              k45.slab_distances_plain, kargs, view, False)
+            times, sched = time_slab(
+                "slab_distances", k45.slab_distances,
+                k45.slab_distances_plain, kargs, view, False)
+            schedule.update(sched)
+            hold["slab"] = kargs
         step(*args)                       # warm-up, outside the counts
         torch.cuda.synchronize()
 
@@ -1189,7 +1319,8 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
             f"{', '.join(f'{t:.2f}' for t in step_ms)} ms; tiles per query "
             f"{stats['tiles_per_query']:.0f}; launches {launches}, "
             f"plain-version calls {plain_calls}")
-        want = {n: (N_BATCHES if n == kernel_name else 0) for n in wrappers}
+        want = {n: (N_BATCHES if n == kernel_name or n in beside else 0)
+                for n in wrappers}
         if launches != want:
             raise AssertionError(f"{tag}: launches {launches}, expected "
                                  f"{want}")
@@ -1214,6 +1345,7 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
             + ", ".join(f"{n} {t:.4f} ms" for n, t in stage_ms.items())
             + "; device work per call (torch.profiler): "
             + ", ".join(f"{n} {t} ms" for n, t in stage_dev.items()))
+        schedule["launches"] += launches["tile_schedule"]
         out[kernel_name] = {
             "launches": launches[kernel_name],
             "launches_per_batch": launches[kernel_name] / N_BATCHES,
@@ -1225,33 +1357,43 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
     return out
 
 
-def phase_ablation(kargs, tb, nbatch: int) -> None:
-    """K4 on the first sq8 batch's own arguments and K2 at the request's
-    shape under every variant of tools/kernel_ablation.py."""
+def phase_ablation(k4args, k5args, tb, nbatch: int) -> None:
+    """K4 and K5 on the first sq8 and slab batches' own arguments and K2 at
+    the request's shape under every variant of tools/kernel_ablation.py."""
     import torch
 
     from prefhetch_tpu_torch.ops import slab_scan as k45
     from prefhetch_tpu_torch.tools import kernel_ablation as ka
 
     def timer(fn, kernel):
-        ms = device_ms(fn, kernel)
-        if ms is None:
-            raise AssertionError(f"the profiler saw no {kernel} launch")
-        return ms
+        for _ in range(3):                # the profiler at times drops a
+            ms = device_ms(fn, kernel)    # window's kernel records
+            if ms is not None:
+                return ms
+        raise AssertionError(f"the profiler saw no {kernel} launch")
 
-    probe_ids = kargs[-1]
-    flat = probe_ids.reshape(-1).long()
-    live = flat[kargs[2][flat] > 0]
-    tiles = int(torch.unique(live).numel())
-    log("ablation", f"K4 on the first quant=sq8 batch: {probe_ids.shape[0]} "
-        f"queries x {probe_ids.shape[1]} slots, {live.numel()} pairs on "
-        f"tiles with rows, {tiles} distinct tiles "
-        f"({live.numel() / tiles:.2f} pairs a tile)")
-    k4 = ka.ablate_k4(kargs, timer, lambda v: check_slab(
-        f"ablation/K4 {v}", k45.slab_distances_sq8,
-        k45.slab_distances_sq8_plain, kargs))
-    log("ablation", "K4 device ms a launch: " + ", ".join(
-        f"{v} {t:.4f}" for v, t in k4.items()))
+    kernels = {"K4": (k45.slab_distances_sq8, k45.slab_distances_sq8_plain,
+                      k4args),
+               "K5": (k45.slab_distances, k45.slab_distances_plain, k5args)}
+    for k, (_, _, kargs) in kernels.items():
+        probe_ids = kargs[-1]
+        flat = probe_ids.reshape(-1).long()
+        live = flat[kargs[2][flat] > 0]
+        tiles = int(torch.unique(live).numel())
+        which = {"K4": "quant=sq8", "K5": "scan=slab"}[k]
+        log("ablation", f"{k} on the first {which} batch: "
+            f"{probe_ids.shape[0]} queries x {probe_ids.shape[1]} "
+            f"slots, {live.numel()} pairs on tiles with rows, {tiles} "
+            f"distinct tiles ({live.numel() / tiles:.2f} pairs a tile)")
+
+    def check(k, v):
+        kernel, plain, kargs = kernels[k]
+        check_slab(f"ablation/{k} {v}", kernel, plain, kargs)
+
+    k4, k5 = ka.ablate_slab(k4args, k5args, timer, check)
+    for k, times in (("K4", k4), ("K5", k5)):
+        log("ablation", f"{k} device ms a launch: " + ", ".join(
+            f"{v} {t:.4f}" for v, t in times.items()))
     k2 = ka.ablate_k2(tb, nbatch, timer)
     log("ablation", f"K2 forward transform of {nbatch} polynomials, device "
         f"ms a launch: " + ", ".join(f"{v} {t:.4f}" for v, t in k2.items()))
@@ -1310,7 +1452,8 @@ def main() -> int:
     dev = torch.device("cuda:0")
 
     # -- 2. build -----------------------------------------------------------
-    kernels = ["union_scan_min", "ntt4_step", "pq_onehot", "slab_scan"]
+    kernels = ["union_scan_min", "ntt4_step", "pq_onehot", "slab_scan",
+               "tile_schedule"]
     for name in kernels:                  # always compile from the sources
         cuda_build.library_path(name).unlink(missing_ok=True)
     built = cuda_build.build(kernels)
@@ -1511,7 +1654,7 @@ def main() -> int:
     nbatch = NQ_BATCH * -(-cfg.protocol.coarse_probe // (svc.params.n // D))
     k2_times = time_ntt4_transform(svc._tables[0], nbatch)
     profile_search(disp, queries, probes, k)
-    phase_ablation(hold.pop("sq8"), svc._tables[0], nbatch)
+    phase_ablation(hold.pop("sq8"), hold.pop("slab"), svc._tables[0], nbatch)
     log("done", f"wall {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -1564,6 +1707,15 @@ def main() -> int:
         "source": "prefhetch_tpu_torch/csrc/slab_scan.cu",
         "replaces": "prefhetch_tpu/ops/pallas_scan.py:161",
         **variant_rows["slab_distances"],
+    }, {
+        "name": "tile_schedule",
+        "route": "cuda",
+        "source": "prefhetch_tpu_torch/csrc/tile_schedule.cu",
+        "replaces": "prefhetch_tpu/ops/pallas_scan.py:183",
+        "part_of": "slab_distances_sq8 and slab_distances: the pairs by "
+                   "tile, which the TPU grids (:123, :183) walk in order",
+        "path": f"query_pipeline(quant=sq8, scan=slab) x{N_BATCHES} each",
+        **variant_rows["tile_schedule"],
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,17 +15,21 @@ The query stays f32 (K1 casts it to a bf16 payload's type; these two do
 not), and K4 keeps the folded affine form instead of decode-then-dot. A
 size-0 tile yields PAD.
 
-K5 runs one block per pair. K4 is tile-major: ``sq8_schedule`` sorts the
-flat pairs by tile id on the device (a stable ``torch.sort``, no host sync)
-and the kernel takes ``SQ8_CHUNK`` consecutive sorted pairs a block, so the
-pairs of a chunk that share a tile read and decode it once. ``sq8_runs``
-lists the (chunk, run of one tile) pieces that the kernel's blocks walk, in
-plain torch, for the tests and for counting tile reads.
+Both are tile-major. ``tile_schedule`` sorts a batch's flat (query, slot)
+pairs by tile id on the device (``csrc/tile_schedule.cu``: one launch of a
+stable counting sort, bit-equal to ``torch.sort(stable=True)``, no host
+sync), so the pairs that probe one tile share one read of it. K4 takes
+``SQ8_CHUNK`` consecutive sorted pairs a block; K5 takes a piece of at most
+``SLAB_CHUNK`` pairs of one tile, from the piece list the same launch
+writes. ``tile_runs`` lists the (block, run of one tile) pieces that either
+kernel's blocks walk, in plain torch, for the tests and for counting tile
+reads.
 
-``slab_distances`` and ``slab_distances_sq8`` pick by the device of their
-tensors: CPU tensors take the plain PyTorch versions
-(``slab_distances_plain``, ``slab_distances_sq8_plain``), CUDA tensors launch
-the hand-written kernels of ``csrc/slab_scan.cu`` (nvcc for sm_90a, bound
+``slab_distances``, ``slab_distances_sq8`` and ``tile_schedule`` pick by the
+device of their tensors: CPU tensors take the plain PyTorch versions
+(``slab_distances_plain``, ``slab_distances_sq8_plain``,
+``tile_schedule_plain``), CUDA tensors launch the hand-written kernels of
+``csrc/slab_scan.cu`` and ``csrc/tile_schedule.cu`` (nvcc for sm_90a, bound
 with ctypes, built at first use) or raise. There is no fallback from a
 kernel to its plain version. ``.launches`` on each wrapper counts kernel
 launches and ``.calls`` on each plain version counts its calls.
@@ -41,9 +45,13 @@ import torch
 from prefhetch_tpu_torch.ops.topk import PAD_DISTANCE
 
 _LIB = "slab_scan"
+_SCHEDULE_LIB = "tile_schedule"
 _PLAIN_CHUNK_BYTES = 256 << 20      # widened f32 slab per chunk of pairs
 _MAX_SMEM = 232448                  # bytes a block may opt into on sm_90
 SQ8_CHUNK = 4                       # sorted pairs a K4 block (csrc CHUNK)
+SLAB_CHUNK = 8                      # pairs a K5 piece at most (SLAB_CHUNK)
+SLAB_NST = 2                        # K5's ring stages (SLAB_NST)
+SLAB_WARPS = 8                      # K5's warps a block (SLAB_WARPS)
 
 
 def _plain(payload, norms, sizes, queries, probe_ids,
@@ -112,32 +120,127 @@ def slab_distances_sq8_plain(
 slab_distances_sq8_plain.calls = 0
 
 
-def sq8_schedule(probe_ids: torch.Tensor, n_tiles: int
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4's schedule: the flat pairs (query qi, slot k) → qi·max_t + k of
-    ``probe_ids`` [nq, max_t] (tile ids below ``n_tiles``) sorted by tile
-    id, stably, on ``probe_ids``' device. Returns (tiles [P] sorted, order
-    [P] int64: the flat pair of each). The keys are int16 when every tile id
-    fits (a radix sort over half the bits), else int32."""
+def tile_schedule_plain(probe_ids: torch.Tensor, n_tiles: int,
+                        chunk: int = 0):
+    """Plain version of the schedule: the flat pairs (query qi, slot k) →
+    qi·max_t + k of ``probe_ids`` [nq, max_t] (tile ids below ``n_tiles``)
+    sorted by tile id, stably. Returns (tiles [P] sorted, order [P] int64:
+    the flat pair of each); the keys are int16 when every tile id fits,
+    else int32. With ``chunk`` > 0 also the piece list, int32
+    [1 + 2·piece_bound]: the count, then (start, length) of each piece, a
+    run of one tile cut into pieces of at most ``chunk`` pairs (entries past
+    the count are 0)."""
+    tile_schedule_plain.calls += 1
     flat = probe_ids.reshape(-1)
     if n_tiles <= torch.iinfo(torch.int16).max + 1:
         flat = flat.to(torch.int16)
-    return torch.sort(flat, stable=True)
+    tiles, order = torch.sort(flat, stable=True)
+    if chunk <= 0:
+        return tiles, order
+    _, start, length, _ = tile_runs(tiles, chunk, aligned=True)
+    pieces = torch.zeros(1 + 2 * piece_bound(flat.numel(), n_tiles, chunk),
+                         dtype=torch.int32, device=flat.device)
+    n = start.numel()
+    pieces[0] = n
+    pieces[1:1 + 2 * n:2] = start.to(torch.int32)
+    pieces[2:2 + 2 * n:2] = length.to(torch.int32)
+    return tiles, order, pieces
 
 
-def sq8_runs(tiles: torch.Tensor, chunk: int = SQ8_CHUNK
-             ) -> Tuple[torch.Tensor, ...]:
-    """The pieces K4's blocks walk: block b takes sorted pairs
-    [b·chunk, (b+1)·chunk) and splits them into runs of one tile. Returns
-    (block, start, length, tile) per run, int64, in the kernel's order; a
-    run of a tile with rows is one read of that tile."""
+tile_schedule_plain.calls = 0
+
+
+def piece_bound(P: int, n_tiles: int, chunk: int) -> int:
+    """The most pieces of at most ``chunk`` pairs that P pairs over at most
+    ``n_tiles`` distinct tiles can make: Σ ⌈c_t / chunk⌉ over the tiles'
+    counts c_t, at most (P + R·(chunk − 1)) / chunk with R ≤ min(n_tiles,
+    P) tiles, and never more than P. K5's grid is this many blocks."""
+    r = min(n_tiles, P)
+    return min(P, (P + r * (chunk - 1)) // chunk)
+
+
+def tile_runs(tiles: torch.Tensor, chunk: int = SQ8_CHUNK,
+              aligned: bool = False) -> Tuple[torch.Tensor, ...]:
+    """The pieces that the kernels' blocks walk over the sorted ``tiles``.
+    Fixed (K4): block b takes sorted pairs [b·chunk, (b+1)·chunk) and splits
+    them into runs of one tile. Aligned (K5): each run of one tile is cut
+    into pieces of at most ``chunk`` pairs and block b takes piece b.
+    Returns (block, start, length, tile) per run, int64, in the kernel's
+    order; a run of a tile with rows is one read of that tile."""
     n = tiles.numel()
     pos = torch.arange(n, device=tiles.device)
-    first = pos % chunk == 0
-    first[1:] |= tiles[1:] != tiles[:-1]
+    new_run = torch.ones(n, dtype=torch.bool, device=tiles.device)
+    new_run[1:] = tiles[1:] != tiles[:-1]
+    if aligned:
+        run_start = torch.cummax(torch.where(new_run, pos, 0), 0).values
+        first = new_run | ((pos - run_start) % chunk == 0)
+    else:
+        first = new_run | (pos % chunk == 0)
     start = pos[first]
     length = torch.diff(start, append=torch.tensor([n], device=tiles.device))
-    return start // chunk, start, length, tiles[start].long()
+    block = (torch.arange(start.numel(), device=tiles.device) if aligned
+             else start // chunk)
+    return block, start, length, tiles[start].long()
+
+
+def _schedule_library() -> ctypes.CDLL:
+    from prefhetch_tpu_torch.utils.cuda_build import load
+
+    lib = load(_SCHEDULE_LIB)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pfh_tile_schedule.restype = i
+    lib.pfh_tile_schedule.argtypes = [
+        p, i, i, i, i,             # keys, P, n_tiles, chunk, int16 keys
+        p, p, p, p, p,             # scratch counts, tiles, order, pieces,
+    ]                              # stream
+    lib.pfh_tile_schedule_scratch.restype = ctypes.c_longlong
+    lib.pfh_tile_schedule_scratch.argtypes = [i]
+    return lib
+
+
+def tile_schedule(probe_ids: torch.Tensor, n_tiles: int, chunk: int = 0):
+    """The schedule of K4 and K5 on ``probe_ids``' device: (tiles, order)
+    sorted by tile, stably, and with ``chunk`` > 0 the piece list, as
+    ``tile_schedule_plain`` defines them (piece entries past the count are
+    left unwritten on the card). CPU tensors take the plain version; CUDA
+    tensors launch the schedule kernel (one block, no host sync)."""
+    if probe_ids.device.type == "cpu":
+        return tile_schedule_plain(probe_ids, n_tiles, chunk)
+    if probe_ids.device.type != "cuda":
+        raise ValueError(f"the schedule runs on cuda or cpu, not "
+                         f"{probe_ids.device}")
+    if probe_ids.dtype != torch.int32 or not probe_ids.is_contiguous() \
+            or probe_ids.numel() == 0:
+        raise ValueError("probe_ids must be a non-empty contiguous int32 "
+                         "tensor")
+    lib = _schedule_library()
+    P = probe_ids.numel()
+    dev = probe_ids.device
+    keys16 = n_tiles <= torch.iinfo(torch.int16).max + 1
+    with torch.cuda.device(dev):
+        tiles = torch.empty(P, dtype=torch.int16 if keys16 else torch.int32,
+                            device=dev)
+        order = torch.empty(P, dtype=torch.int64, device=dev)
+        scratch = lib.pfh_tile_schedule_scratch(n_tiles)
+        counts = (torch.empty(scratch, dtype=torch.int32, device=dev)
+                  if scratch else None)
+        pieces = (torch.empty(1 + 2 * piece_bound(P, n_tiles, chunk),
+                              dtype=torch.int32, device=dev)
+                  if chunk > 0 else None)
+        err = lib.pfh_tile_schedule(
+            probe_ids.data_ptr(), P, n_tiles, chunk, int(keys16),
+            None if counts is None else counts.data_ptr(), tiles.data_ptr(),
+            order.data_ptr(), None if pieces is None else pieces.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"tile_schedule kernel launch failed: "
+                           f"cudaError {err}")
+    tile_schedule.launches += 1
+    return (tiles, order) if pieces is None else (tiles, order, pieces)
+
+
+tile_schedule.launches = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -149,6 +252,7 @@ def _library() -> ctypes.CDLL:
     lib.pfh_slab_distances.argtypes = [
         p, i,                      # payload, is_bf16
         p, p, p, p,                # norms, sizes, queries, probe_ids
+        p, p, i,                   # the flat pairs by tile, pieces, blocks
         i, i, i, i,                # nq, max_t, T, d
         p, p,                      # out, stream
     ]
@@ -164,6 +268,8 @@ def _library() -> ctypes.CDLL:
 
 def _check(payload, norms, sizes, queries, probe_ids, dtypes, d_mult,
            affine=(), smem=None) -> None:
+    """Raises ValueError on what the kernel does not take; ``smem(T, d)``
+    gives its shared memory (None: K5's, ``slab_smem_bytes``)."""
     dev = payload.device
     for name, t in (("norms", norms), ("sizes", sizes), ("queries", queries),
                     ("probe_ids", probe_ids), *affine):
@@ -196,7 +302,8 @@ def _check(payload, norms, sizes, queries, probe_ids, dtypes, d_mult,
         if t.dtype != torch.float32 or tuple(t.shape) != (d,) \
                 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous f32 [{d}]")
-    need = 4 * (d + 8 + T) if smem is None else smem(T, d)
+    need = (slab_smem_bytes(T, d, payload.dtype) if smem is None
+            else smem(T, d))
     if need > _MAX_SMEM:
         raise ValueError(f"T={T}, d={d} needs more shared memory than a "
                          f"block may use ({_MAX_SMEM} bytes)")
@@ -208,6 +315,19 @@ def sq8_smem_bytes(T: int, d: int) -> int:
     ⟨vmin, q⟩ and three ints. T does not enter: the lanes finish their own
     rows."""
     return 8 * 4 * 8 * (d + 4) + 4 * SQ8_CHUNK * (d + 2) + 12 * SQ8_CHUNK
+
+
+def slab_smem_bytes(T: int, d: int, dtype: torch.dtype) -> int:
+    """K5's shared memory: each warp's ring of ``SLAB_NST`` stages (bf16:
+    16 rows at a stride of 2d + 16 bytes; f32: 8 rows) with the rows'
+    norms; the piece's query fragments (bf16: three bf16 parts of a 16 x 8
+    block per 16 features) or queries (f32); each pair's ‖q‖² and three
+    ints. T does not enter."""
+    if dtype == torch.bfloat16:
+        stage, extra = 16 * (2 * d + 16) + 64, 8 * 3 * 32 * -(-d // 16)
+    else:
+        stage, extra = 8 * (4 * d + 4), 4 * SLAB_CHUNK * d
+    return SLAB_WARPS * SLAB_NST * stage + extra + 16 * SLAB_CHUNK
 
 
 def slab_distances(
@@ -226,16 +346,25 @@ def slab_distances(
     _check(payload, norms, sizes, queries, probe_ids,
            (torch.bfloat16, torch.float32), 8)
     lib = _library()
-    _, T, d = payload.shape
+    ntp1, T, d = payload.shape
     nq, max_t = probe_ids.shape
+    chunk = lib.pfh_slab_chunk()
     with torch.cuda.device(payload.device):
         q = queries.to(torch.float32).contiguous()
+        if lib.pfh_slab_run_aligned():
+            _, order, pieces = tile_schedule(probe_ids, ntp1, chunk)
+            blocks = piece_bound(nq * max_t, ntp1, chunk)
+        else:
+            (_, order), pieces = tile_schedule(probe_ids, ntp1), None
+            blocks = -(-nq * max_t // chunk)
         out = torch.empty((nq, max_t * T), dtype=torch.float32,
                           device=payload.device)
         err = lib.pfh_slab_distances(
             payload.data_ptr(), int(payload.dtype == torch.bfloat16),
             norms.data_ptr(), sizes.data_ptr(), q.data_ptr(),
-            probe_ids.data_ptr(), nq, max_t, T, d, out.data_ptr(),
+            probe_ids.data_ptr(), order.data_ptr(),
+            None if pieces is None else pieces.data_ptr(), blocks,
+            nq, max_t, T, d, out.data_ptr(),
             torch.cuda.current_stream(payload.device).cuda_stream,
         )
     if err != 0:
@@ -271,7 +400,7 @@ def slab_distances_sq8(
     nq, max_t = probe_ids.shape
     with torch.cuda.device(payload.device):
         q = queries.to(torch.float32).contiguous()
-        _, order = sq8_schedule(probe_ids, payload.shape[0])
+        _, order = tile_schedule(probe_ids, payload.shape[0])
         out = torch.empty((nq, max_t * T), dtype=torch.float32,
                           device=payload.device)
         err = lib.pfh_slab_distances_sq8(

@@ -1,17 +1,18 @@
-"""Where the time of kernels K2 and K4 goes on the card: each source rebuilt
-with one part taken out or one constant changed, timed beside the unchanged
-source on the same inputs.
+"""Where the time of kernels K2, K4 and K5 goes on the card: each source
+rebuilt with one part taken out or one constant changed, timed beside the
+unchanged source on the same inputs.
 
-``python3 chip_smoke.py`` runs it on the main path's own inputs:
-K4 on the first ``quant="sq8"`` batch, K2 on the forward transform at an
-encrypted request's shape. A variant that takes a part out computes wrong
-results on purpose (it drops work); only its device time is read, and the
-gap to the unchanged source is what that part costs where nothing else
-hides it. A variant that changes a constant (K4's chunk of sorted pairs,
-its blocks an SM, its ring depth) stays exact and is held against the plain
-version. The edits are exact strings of the sources: ``apply_edits``
-refuses one that does not match once, and the CPU tests apply every edit to
-the current sources, so an edit of a patched line fails there first.
+``python3 chip_smoke.py`` runs it on the main path's own inputs: K4 on the
+first ``quant="sq8"`` batch, K5 on the first ``scan="slab"`` batch, K2 on
+the forward transform at an encrypted request's shape. A variant that takes
+a part out computes wrong results on purpose (it drops work); only its
+device time is read, and the gap to the unchanged source is what that part
+costs where nothing else hides it. A variant that changes a constant (the
+pairs a block takes, K5's pieces of one tile or fixed chunks, blocks an SM,
+ring depth) stays exact and is held against the plain version. The edits
+are exact strings of the sources: ``apply_edits`` refuses one that does not
+match once, and the CPU tests apply every edit to the current sources, so
+an edit of a patched line fails there first.
 """
 
 from __future__ import annotations
@@ -49,6 +50,31 @@ K4_VARIANTS: Dict[str, Edits] = {
     "ring of 6": [("constexpr int NST = 4;", "constexpr int NST = 6;")],
 }
 
+K5_VARIANTS: Dict[str, Edits] = {
+    "no mma": [(
+        "            mma_16816(c, a, b[ks][sp][0], b[ks][sp][1]);",
+        "            c[0] += __uint_as_float(a[sp] ^ b[ks][sp][1]);")],
+    "no payload loads": [(
+        "        cp_async16(st + row * rs + c * 16, src + (size_t)v * 16);",
+        "        ;")],
+    "no distance stores": [("        if (t < size && j >= j0 && j < j1)\n",
+                            "        if (t < size && j >= j0 && j < 0)\n")],
+    "chunk 2": [("constexpr int SLAB_CHUNK = 8;",
+                 "constexpr int SLAB_CHUNK = 2;")],
+    "chunk 4": [("constexpr int SLAB_CHUNK = 8;",
+                 "constexpr int SLAB_CHUNK = 4;")],
+    "fixed chunks": [("constexpr bool SLAB_RUN_ALIGNED = true;",
+                      "constexpr bool SLAB_RUN_ALIGNED = false;")],
+    "3 blocks an SM": [("constexpr int SLAB_BLOCKS = 2;",
+                        "constexpr int SLAB_BLOCKS = 3;")],
+    "4 warps a block": [("constexpr int SLAB_WARPS = 8;",
+                         "constexpr int SLAB_WARPS = 4;"),
+                        ("constexpr int SLAB_BLOCKS = 2;",
+                         "constexpr int SLAB_BLOCKS = 4;")],
+    "ring of 3": [("constexpr int SLAB_NST = 2;",
+                   "constexpr int SLAB_NST = 3;")],
+}
+
 K2_VARIANTS: Dict[str, Edits] = {
     "no mma": [(
         "          mma_s8(acc[d + e], af[d][ks], bf[e][ks][0], bf[e][ks][1]);",
@@ -63,7 +89,8 @@ K2_VARIANTS: Dict[str, Edits] = {
         "          split4((uint32_t)(col * 977 + grp),")],
 }
 
-SOURCES = {"K4": ("slab_scan", K4_VARIANTS), "K2": ("ntt4_step", K2_VARIANTS)}
+SOURCES = {"K4": ("slab_scan", K4_VARIANTS), "K5": ("slab_scan", K5_VARIANTS),
+           "K2": ("ntt4_step", K2_VARIANTS)}
 
 
 def apply_edits(text: str, edits: Edits, label: str) -> str:
@@ -105,22 +132,33 @@ def build_variants(name: str, edits: Dict[str, Edits]) -> Dict[str, str]:
     return libs
 
 
-def ablate_k4(kargs: tuple, timer: Timer,
-              check: Callable[[str], object]) -> Dict[str, float]:
-    """K4 (``slab_distances_sq8(*kargs)``) under every variant: {variant:
-    ms}. ``check(variant)`` holds an exact variant against the plain
+def ablate_slab(k4args: tuple, k5args: tuple, timer: Timer,
+                check: Callable[[str, str], object]
+                ) -> Tuple[Dict[str, float], Dict[str, float]]:
+    """K4 (``slab_distances_sq8(*k4args)``) and K5 (``slab_distances(
+    *k5args)``) under every variant of their shared source, built at once:
+    ({variant: K4 ms}, {variant: K5 ms}), each with "unchanged".
+    ``check(kernel, variant)`` holds an exact variant against the plain
     version while its library is the one loaded."""
     from prefhetch_tpu_torch.ops import slab_scan
 
-    out = {}
-    for variant, so in build_variants("slab_scan", K4_VARIANTS).items():
+    runs = {"K4": (lambda: slab_scan.slab_distances_sq8(*k4args),
+                   "sq8_tiled_kernel"),
+            "K5": (lambda: slab_scan.slab_distances(*k5args),
+                   "slab_tiled_kernel")}
+    edits = {f"{k} {v}": e for k, variants in (("K4", K4_VARIANTS),
+                                               ("K5", K5_VARIANTS))
+             for v, e in variants.items()}
+    out: Dict[str, Dict[str, float]] = {"K4": {}, "K5": {}}
+    for name, so in build_variants("slab_scan", edits).items():
+        kernels = ("K4", "K5") if name == "unchanged" else (name[:2],)
+        variant = "unchanged" if name == "unchanged" else name[3:]
         with cuda_build.substituted("slab_scan", so):
-            if not variant.startswith("no "):
-                check(variant)
-            out[variant] = timer(
-                lambda: slab_scan.slab_distances_sq8(*kargs),
-                "sq8_tiled_kernel")
-    return out
+            for k in kernels:
+                if not variant.startswith("no "):
+                    check(k, variant)
+                out[k][variant] = timer(*runs[k])
+    return out["K4"], out["K5"]
 
 
 def ablate_k2(tb, nbatch: int, timer: Timer,

@@ -1,8 +1,8 @@
-"""Tests that need the card: kernels K1 to K5 against their plain versions,
-the engine on CUDA against the engine on the CPU, the encrypted re-rank
-service on CUDA against the service on the CPU, and the scan variants of
-query_pipeline on CUDA against the CPU. Without CUDA they skip. On a
-machine with an H100 and nvcc (no JAX needed):
+"""Tests that need the card: kernels K1 to K5 and the tile schedule of K4
+and K5 against their plain versions, the engine on CUDA against the engine
+on the CPU, the encrypted re-rank service on CUDA against the service on
+the CPU, and the scan variants of query_pipeline on CUDA against the CPU.
+Without CUDA they skip. On a machine with an H100 and nvcc (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -334,6 +334,86 @@ def test_slab_distances_sq8_kernel_schedule_cases(cuda, case):
         assert bool((got == PAD).all())
 
 
+@pytest.mark.parametrize("case", ["all queries", "size-0 only", "twice"])
+@pytest.mark.parametrize("T,d,dtype", [
+    (1024, 128, torch.bfloat16), (100, 200, torch.float32),
+])
+def test_slab_distances_kernel_schedule_cases(cuda, case, T, d, dtype):
+    """K5's pieces at the schedule's hard cases: one tile probed by every
+    query (a run of 64 pairs cut into pieces), nothing but size-0 tiles
+    (all PAD, no payload read), a query probing one tile twice; bf16 on the
+    tensor cores, f32 on the FMA body."""
+    payload, sizes, q, probes = _slab_inputs(cuda, T, d, 64, 8, dtype,
+                                             seed=12)
+    norms = (payload.float() ** 2).sum(-1).contiguous()
+    if case == "all queries":
+        probes[:, 0] = 0
+    elif case == "size-0 only":
+        probes[:] = 3
+        probes[:, ::2] = 5
+    else:
+        probes[1, 1:3] = 2
+    before = (k45.slab_distances.launches, k45.tile_schedule.launches)
+    got = k45.slab_distances(payload, norms, sizes, q, probes)
+    torch.cuda.synchronize()
+    assert (k45.slab_distances.launches, k45.tile_schedule.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = k45.slab_distances_plain(payload, norms, sizes, q, probes)
+    _assert_slab_equal(got, want, q, norms)
+    if case == "size-0 only":
+        assert bool((got == PAD).all())
+
+
+@pytest.mark.parametrize("case", [
+    "random", "all queries", "size-0 only", "int32 keys", "one pair",
+    "path batch", "8,192 pairs",
+])
+@pytest.mark.parametrize("chunk", [0, 4])
+def test_tile_schedule_kernel_equals_stable_sort(cuda, case, chunk):
+    """The schedule kernel against torch.sort(stable=True) on the card, bit
+    for bit, and its piece list against the plain one: random ids, a tile
+    probed by every query, a batch of empty tiles only, ids past int16
+    (int32 keys, counts in global scratch), one pair, a batch of the path's
+    shape over a preset view's 1,474 tiles, and more pairs than the kernel
+    stages in shared memory."""
+    rng = np.random.default_rng(len(case) + chunk)
+    n_tiles = 6
+    if case == "random":
+        p = rng.integers(0, n_tiles, (70, 5))
+    elif case == "all queries":
+        p = rng.integers(0, n_tiles, (64, 8))
+        p[:, 0] = 0
+    elif case == "size-0 only":
+        p = np.full((64, 8), 5)
+        p[:, ::2] = 3
+    elif case == "int32 keys":
+        n_tiles = 40000
+        p = rng.integers(0, n_tiles, (64, 48))
+        p[:, :3] = 39999
+    elif case == "one pair":
+        p = np.array([[2]])
+    elif case == "8,192 pairs":                 # past the staged pairs
+        n_tiles = 1474
+        p = rng.integers(0, n_tiles, (128, 64))
+    else:
+        n_tiles = 1474
+        p = rng.zipf(1.3, (64, 48)) % (n_tiles - 1)
+        p[:, 40:] = n_tiles - 1
+    probes = torch.from_numpy(p.astype(np.int32)).to(cuda)
+    before = k45.tile_schedule.launches
+    got = k45.tile_schedule(probes, n_tiles, chunk)
+    torch.cuda.synchronize()
+    assert k45.tile_schedule.launches == before + 1
+    want = k45.tile_schedule_plain(probes, n_tiles, chunk)
+    ref = torch.sort(probes.reshape(-1).to(want[0].dtype), stable=True)
+    assert got[0].dtype == ref.values.dtype
+    assert torch.equal(got[0], ref.values)
+    assert torch.equal(got[1], ref.indices)
+    if chunk:
+        n = int(want[2][0])
+        assert torch.equal(got[2][:1 + 2 * n], want[2][:1 + 2 * n])
+
+
 def test_slab_kernels_reject_what_they_cannot_take(cuda):
     payload, sizes, q, probes = _slab_inputs(cuda, 64, 32, 4, 4,
                                              torch.bfloat16, seed=2)
@@ -347,6 +427,10 @@ def test_slab_kernels_reject_what_they_cannot_take(cuda):
                            q[:, :12].contiguous(), probes)
     with pytest.raises(ValueError, match="is on"):
         k45.slab_distances(payload, norms.cpu(), sizes, q, probes)
+    with pytest.raises(ValueError, match="shared memory"):
+        wide = torch.zeros((6, 64, 440), device=cuda)
+        k45.slab_distances(wide, norms, sizes,
+                           torch.zeros((4, 440), device=cuda), probes)
     codes = torch.zeros((6, 64, 24), dtype=torch.uint8, device=cuda)
     aff = torch.ones(24, device=cuda)
     with pytest.raises(ValueError, match="divisible by 16"):

@@ -54,6 +54,16 @@ reporting on lines of its own; any failure exits non-zero:
               launch counts are read around the requests only; decrypted
               distances must equal the plaintext precise_search scores
               exactly; recall as above; then where one request's time goes;
+   packed   — the packed BFV response (respMod "packed", seedTf queries:
+              the c1 mask regenerated on the card) on the same candidates:
+              HEClient(resp_mod="packed"), K2 against its plain version at
+              the packed program's primes and row counts, the device
+              program bit-equal to its numpy twin on the first batch's
+              first G queries, then N_BATCHES requests of 64 queries (the
+              first carries the Galois keys) with K2's launches counted
+              around each, decrypted distances equal to precise_search,
+              recall equal to the encrypted path's, the stage breakdown of
+              one request with its bytes, and its device time by kernel;
    variants — the quantised and slab scan variants of the triage pipeline
               (pipeline.query_pipeline) on the same index and base:
               quant="pq" (PQ codes, 256-slot tiles, K3 over the probed
@@ -136,35 +146,38 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, kernel=None, iters: int = 20, warmup: int = 3):
+def device_ms(fn, kernel=None, iters: int = 20, warmup: int = 3,
+              tries: int = 3):
     """Device time in ms from torch.profiler over iters calls of fn(): with
     ``kernel``, the mean time of one launch of the kernels whose name holds
     it (the kernel's own time on the card, whatever the host's pace between
-    launches); without, all device work per call. None when the profiler
-    recorded no such device event."""
+    launches); without, all device work per call. The profiler at times
+    drops a window's kernel records, so up to ``tries`` windows are
+    profiled. None when none of them recorded such a device event."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total",
-                     getattr(ev, "self_cuda_time_total", 0))
-        if ev.device_type == DeviceType.CUDA and us > 0 and (
-                kernel is None or kernel in ev.key):
-            total_us += us
-            count += ev.count
-    if count == 0:
-        return None
-    return total_us / 1e3 / (count if kernel is not None else iters)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            if ev.device_type == DeviceType.CUDA and us > 0 and (
+                    kernel is None or kernel in ev.key):
+                total_us += us
+                count += ev.count
+        if count:
+            return total_us / 1e3 / (count if kernel is not None else iters)
+    return None
 
 
 def kernel_ms(fn, kernel: str, events_ms: float) -> float:
@@ -428,7 +441,7 @@ def post_encrypted(disp, client, queries, cand, mode):
     return dists, req_ms, len(raw), len(resp), enc_ms, dec_ms
 
 
-def encrypted_breakdown(disp, client, queries, cand, mode) -> None:
+def encrypted_breakdown(disp, client, queries, cand, mode) -> dict:
     """Where one /encryptedsearch request's time goes: the stages of the
     served path itself (utils/stages.py marks them in the Dispatcher, the
     engine and the service), recorded around one Dispatcher.handle call on
@@ -441,6 +454,8 @@ def encrypted_breakdown(disp, client, queries, cand, mode) -> None:
             "nearestCoarseVectorIndexes": cand.tolist()}
     if mode != "full":
         body["respMod"] = mode
+    if mode == "packed":                  # its keys are registered already
+        body["keyId"] = client.key_id
     raw = json.dumps(body).encode()
     status, _, want = disp.handle("POST", "/encryptedsearch", {}, raw)
     if status != 200:
@@ -457,6 +472,11 @@ def encrypted_breakdown(disp, client, queries, cand, mode) -> None:
                 "ct_from_wire (c1 expansion + host NTT)",
                 "prepare (stack, pad, norms)", "upload", "device program",
                 "download", "pack_i32", "json.dumps"]
+    if mode == "packed":                  # no host expansion of c1
+        expected = ["json parse", "shape and range checks",
+                    "wire decode (c0 + seeds)", "prepare (pad, norms)",
+                    "upload", "device program", "download",
+                    "to_wire (base64)", "json.dumps"]
     if list(times) != expected:
         raise AssertionError(f"stages recorded: {list(times)}, expected "
                              f"{expected}")
@@ -471,6 +491,8 @@ def encrypted_breakdown(disp, client, queries, cand, mode) -> None:
     if not 0.95 * wall <= total <= wall:
         raise AssertionError(f"the stages sum to {total:.1f} ms of a "
                              f"{wall:.1f} ms request")
+    return {"raw": raw, "request_bytes": len(raw), "response_bytes":
+            len(resp), "wall_ms": wall, "stages": times}
 
 
 def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
@@ -525,13 +547,14 @@ def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
 
     reset_counts()
     modes = ["full"] * (N_BATCHES - 1) + ["q1"]
-    enc_ids, enc_rows, coarse_ms = [], [], []
+    enc_ids, enc_rows, coarse_ms, cands = [], [], [], []
     per_request = {"full": [], "q1": []}   # K2 launches of each request
     enc_err = 0.0
     for b, mode in enumerate(modes):
         sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
         cand, ms = post_coarse_topk(disp, queries[sl], probes[sl], cp)
         coarse_ms.append(ms)
+        cands.append(cand)
         before = k2.ntt4_transform.launches
         dists, req, up, down, enc_t, dec_t = post_encrypted(
             disp, clients[mode], queries[sl], cand, mode)
@@ -590,12 +613,217 @@ def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
     profile_device(
         f"one warm /encryptedsearch request (full, {NQ_BATCH} queries)",
         lambda: disp.handle("POST", "/encryptedsearch", {}, raw))
-    return enc_launches, per_request, k2_err
+    return enc_launches, per_request, k2_err, cands, rep_e
 
 
-def time_ntt4_transform(tb, nbatch: int) -> dict:
-    """K2 per transform at the request's shape ([nbatch, N]): the forward
-    transform of int32 residues and the inverse of int64 ones, as the
+def check_k2_packed(svc, nq: int, nb: int, n_out: int) -> int:
+    """K2 against its plain version at the packed program's own transform
+    shapes, on its primes (qs and the special prime): per prime the forward
+    transform of the nq·nb·n_comp key-switch digit rows (values < 2^30,
+    not reduced mod the prime) and the inverse of the 2·nq·nb product rows;
+    per limb the forward of the nq·nb lifted candidate rows (int32), the
+    inverse of 2·nq·nb MAC rows, the forward of the 2·nq·nb pack rows, the
+    inverse of the 2·n_out group sums and the forward of the nq seeded
+    masks. Returns the max |difference| (0)."""
+    import torch
+
+    ext, tabs, _ = svc._packed_tables
+    n, L = svc.params.n, len(svc.params.qs)
+    m = nq * nb
+    gen = torch.Generator(device=svc.device).manual_seed(11)
+
+    def rows(b, hi, dtype=torch.int64):
+        return torch.randint(0, hi, (b, n), generator=gen, device=svc.device,
+                             dtype=dtype)
+
+    err = 0
+    for e, tb in enumerate(tabs):
+        err = max(err,
+                  check_transform(f"packed/digits p{e}",
+                                  rows(m * L, 1 << 30), tb, False),
+                  check_transform(f"packed/key inverse p{e}",
+                                  rows(2 * m, tb.q), tb, True))
+    for i, tb in enumerate(tabs[:L]):
+        shapes = ((m, False, torch.int32), (2 * m, True, torch.int64),
+                  (2 * m, False, torch.int64), (2 * n_out, True, torch.int64),
+                  (nq, False, torch.int64))
+        for b, inverse, dtype in shapes:
+            err = max(err, check_transform(
+                f"packed/limb {i} [{b}] {'inverse' if inverse else 'forward'}",
+                rows(b, tb.q, dtype), tb, inverse))
+    log("kernel", f"ntt4_transform at the packed program's shapes on its "
+        f"primes {list(ext)}: digits [{m * L}, {n}], products [{2 * m}, "
+        f"{n}], MAC [{m}]/[{2 * m}], pack [{2 * m}]/[{2 * n_out}], seeded "
+        f"[{nq}]: ok (max |err| {err})")
+    return err
+
+
+def post_packed(disp, client, queries, cand, gks):
+    """One packed /encryptedsearch request through the Dispatcher and the
+    client's decryption; ``gks``, the client's Galois keys, go with the
+    first request of its keyId (None after). Returns (distances [nq, P]
+    f32, request ms, bytes up/down, client encrypt ms, client decrypt ms,
+    the number of response ciphertexts)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    body = {"encryptedPreciseQuery": client.encrypt_query_batch(queries),
+            "nearestCoarseVectorIndexes": cand.tolist(),
+            "respMod": "packed", "keyId": client.key_id}
+    if gks is not None:
+        body["galoisKeys"] = gks
+    raw = json.dumps(body).encode()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    if b"preciseQuery" in raw or b'"c1"' in raw:
+        raise AssertionError("a plaintext query or a c1 is in the request")
+    t0 = time.perf_counter()
+    status, _, resp = disp.handle("POST", "/encryptedsearch", {}, raw)
+    req_ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"POST /encryptedsearch (packed): {status} "
+                             f"{resp[:300]!r}")
+    t0 = time.perf_counter()
+    out = json.loads(resp)
+    dists = client.decrypt_scores_packed(
+        out["packedScores"], np.asarray(out["candidateNorms"]), queries,
+        out["packGroup"])
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    return (dists, req_ms, len(raw), len(resp), enc_ms, dec_ms,
+            len(out["packedScores"]))
+
+
+def phase_packed(engine, disp, data, queries, cands, rep_full, reset_counts):
+    """The packed BFV response (respMod "packed", seedTf query wires) on the
+    candidates of the encrypted phase: K2 at the program's shapes, the
+    device program against its numpy twin on the first batch's first G
+    queries, then N_BATCHES requests with K2's launches counted around each,
+    exact distances, recall equal to the encrypted path's on the same
+    candidates, where one request's time goes and its device time by
+    kernel. Returns (K2 launches, K2's launches per request, K2's max |err|
+    vs plain)."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.client.he import HEClient
+    from prefhetch_tpu_torch.metrics import benchmark_results
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
+
+    cfg = engine.config
+    k = cfg.protocol.k
+    he = dataclasses.replace(cfg.he, resp_mod="packed")
+    t0 = time.perf_counter()
+    client = HEClient(he)
+    key_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    gks = client.bfv_extraction_keys_wire(D)
+    gal_ms = (time.perf_counter() - t0) * 1e3
+    if client.bfv_extraction_keys_wire(D) is not None:
+        raise AssertionError("the client made its Galois keys twice")
+    svc = engine.he_service
+    L, n = he.n_limbs, he.n
+    cp = cfg.protocol.coarse_probe
+    B = n // D
+    nb = -(-cp // B)
+    G = max(1, D // nb)
+    n_out = -(-NQ_BATCH // G)
+    elts = svc.ctx.extraction_elts(n, D)
+    log("packed", f"HE N={n}, {L} limbs, t=2^{he.t_bits}+1 (odd), "
+        f"{len(elts)} Galois keys {elts} (30-bit digits, special prime "
+        f"{svc.ctx._special_p}): client keys {key_ms:.0f} ms, Galois keys "
+        f"{gal_ms:.0f} ms, {len(json.dumps(gks)) / 1e6:.2f} MB on the wire; "
+        f"B={B}, nb={nb}, G={G}: {n_out} response cts for {NQ_BATCH} "
+        f"queries")
+    k2_err = check_k2_packed(svc, NQ_BATCH, nb, n_out)
+
+    # the device program against its numpy twin on the first G queries
+    g0 = min(G, NQ_BATCH)
+    svc.register_galois_keys(client.key_id, gks)
+    wires = client.encrypt_query_batch(queries[:g0])
+    resolve = svc.encrypted_scores_packed_wire_async(wires, cands[0][:g0],
+                                                     client.key_id)
+    got = resolve.dev_out.cpu().numpy()
+    cts = [svc.ctx.ct_from_wire(w) for w in wires]
+    ctq, pad_idx, _ = svc.prepare(cts, cands[0][:g0])
+    t0 = time.perf_counter()
+    twin = svc._packed_mac_numpy(ctq, pad_idx, svc._galois_bfv[client.key_id])
+    if got.shape != twin.shape or not np.array_equal(got, twin):
+        raise AssertionError("the packed device program differs from its "
+                             "numpy twin")
+    log("packed", f"device program (seedTf entry) = numpy twin (butterfly "
+        f"NTT, host key switch; {(time.perf_counter() - t0):.1f} s) on "
+        f"{g0} queries x {nb} blocks: ok (bit-equal, c0 and c1)")
+
+    reset_counts()
+    per_request, rows, ids = [], [], []
+    err = 0.0
+    for b in range(N_BATCHES):
+        sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
+        before = k2.ntt4_transform.launches
+        dists, req, up, down, enc_t, dec_t, n_cts = post_packed(
+            disp, client, queries[sl], cands[b], gks if b == 0 else None)
+        per_request.append(k2.ntt4_transform.launches - before)
+        plain = engine.precise_search(queries[sl], cands[b])
+        err = max(err, float(np.abs(dists - plain).max()))
+        if not np.array_equal(dists, plain):
+            raise AssertionError(f"packed batch {b}: decrypted distances "
+                                 f"differ from precise_search (max |err| "
+                                 f"{err})")
+        order = np.argsort(dists, axis=1, kind="stable")[:, :k]
+        ids.append(np.take_along_axis(cands[b], order, axis=1))
+        rows.append(f"{req:.1f} ms (request {up / 1e6:.2f} MB"
+                    f"{' with the Galois keys' if b == 0 else ''}, response "
+                    f"{down / 1e6:.3f} MB, {n_cts} cts; client encrypt "
+                    f"{enc_t:.0f} ms, decrypt {dec_t:.0f} ms)")
+    launches = k2.ntt4_transform.launches
+    plain_calls = k2s.ntt4_step_plain.calls
+    # one launch per transform: L for the seeded c1, 2L for the MAC, 2 a
+    # prime (qs and the special prime) in each of log2(d) rounds, 2L for
+    # the pack
+    want = L + 2 * L + 2 * (L + 1) * len(elts) + 2 * L
+    log("packed", f"POST /encryptedsearch (packed) x{N_BATCHES} of "
+        f"{NQ_BATCH} queries (host clock): " + "; ".join(rows))
+    log("packed", f"ntt4_transform launches counted around each request "
+        f"{per_request} (expected {want}), {launches} in all, plain-version "
+        f"calls {plain_calls}; decrypted distances = precise_search, max "
+        f"|err| {err}")
+    if any(c != want for c in per_request) or launches != sum(per_request):
+        raise AssertionError(f"K2 launches per packed request {per_request}, "
+                             f"{launches} in all; expected {want} each")
+    if plain_calls != 0:
+        raise AssertionError("a plain version ran on the packed path")
+    rep = benchmark_results(np.concatenate(ids), data["groundtruth"], k=k)
+    log("packed", f"recall@1 {rep.recall_1} recall@10 {rep.recall_10} "
+        f"recall@100 {rep.recall_100} mrr@10 {rep.mrr_10} (encrypted path: "
+        f"recall@100 {rep_full.recall_100})")
+    if abs(rep.recall_100 - rep_full.recall_100) > 0.005:
+        raise AssertionError("packed recall@100 is not within 0.005 of the "
+                             "encrypted path's")
+
+    bd = encrypted_breakdown(disp, client, queries[:NQ_BATCH], cands[0],
+                             "packed")
+    h2d = NQ_BATCH * (L * n * 4 + 2 * 8 + nb * B * 4)
+    d2h = n_out * 2 * L * n * 4
+    log("packed", f"bytes of that request: body {bd['request_bytes']:,} up, "
+        f"{bd['response_bytes']:,} down; to the card {h2d:,} (c0, the "
+        f"threefry keys, the indices), from the card {d2h:,} ({n_out} "
+        f"ciphertexts); the full wire's result "
+        f"{NQ_BATCH * nb * L * (n + B) * 4:,} bytes from the card")
+    wall, busy, prof = profile_device(
+        f"one warm /encryptedsearch request (packed, {NQ_BATCH} queries)",
+        lambda: disp.handle("POST", "/encryptedsearch", {}, bd["raw"]))
+    k2_ms = sum(us for us, key, _ in prof if "ntt4_kernel" in key) / 1e3
+    if prof:
+        log("profile", f"  K2 (ntt4_kernel) {k2_ms:.4f} ms of the device's "
+            f"busy {busy:.3f} ms ({100 * k2_ms / busy:.1f}%); device busy "
+            f"{100 * busy / wall:.1f}% of the request's {wall:.1f} ms")
+    return launches, per_request, k2_err
+
+
+def time_ntt4_transform(tb, nbatch: int, forward_int64: bool = False) -> dict:
+    """K2 per transform at a request's shape ([nbatch, N]): the forward
+    transform of int32 residues (int64 with ``forward_int64``, as the packed
+    key switch gives it its digits) and the inverse of int64 ones, as the
     request runs them, each beside the plain version and the card's bound.
     Returns the timing keys of K2's entry in the kernels line (means of the
     two directions; each direction's own under "forward"/"inverse")."""
@@ -606,7 +834,8 @@ def time_ntt4_transform(tb, nbatch: int) -> dict:
     dev = torch.device("cuda:0")
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = {}
-    for name, inverse, dtype in (("forward", False, torch.int32),
+    fwd = torch.int64 if forward_int64 else torch.int32
+    for name, inverse, dtype in (("forward", False, fwd),
                                  ("inverse", True, torch.int64)):
         fn = n4.intt4 if inverse else n4.ntt4
         xs = [torch.randint(0, tb.q, (nbatch, tb.n), device=dev, dtype=dtype,
@@ -648,10 +877,11 @@ def time_ntt4_transform(tb, nbatch: int) -> dict:
     return out
 
 
-def profile_device(what: str, run) -> None:
+def profile_device(what: str, run):
     """torch.profiler over run() (warm requests): device time by kernel and
     the device's busy share of the host wall clock; the rest is host work
-    the device waits on."""
+    the device waits on. Returns (wall ms, device busy ms, [(device us,
+    kernel name, count)] largest first)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -679,6 +909,7 @@ def profile_device(what: str, run) -> None:
     log("profile", f"{what}: wall {wall_ms:.3f} ms, {busy}")
     for dev_us, key, count in rows[:10]:
         log("profile", f"  {dev_us / 1e3:9.4f} ms  x{count:<4d} {key[:90]}")
+    return wall_ms, busy_ms, rows
 
 
 def profile_search(disp, queries, probes, k: int) -> None:
@@ -1366,11 +1597,10 @@ def phase_ablation(k4args, k5args, tb, nbatch: int) -> None:
     from prefhetch_tpu_torch.tools import kernel_ablation as ka
 
     def timer(fn, kernel):
-        for _ in range(3):                # the profiler at times drops a
-            ms = device_ms(fn, kernel)    # window's kernel records
-            if ms is not None:
-                return ms
-        raise AssertionError(f"the profiler saw no {kernel} launch")
+        ms = device_ms(fn, kernel)
+        if ms is None:
+            raise AssertionError(f"the profiler saw no {kernel} launch")
+        return ms
 
     kernels = {"K4": (k45.slab_distances_sq8, k45.slab_distances_sq8_plain,
                       k4args),
@@ -1603,8 +1833,11 @@ def main() -> int:
         f"recall@100 {rep.recall_100} mrr@10 {rep.mrr_10}")
 
     # -- 4b. the encrypted re-rank at the same operating point ---------------
-    enc_launches, k2_per_request, k2_err = phase_encrypted(
+    enc_launches, k2_per_request, k2_err, cands, rep_e = phase_encrypted(
         engine, disp, data, queries, probes, reset_counts)
+    packed_launches, k2_per_request["packed"], k2_err_p = phase_packed(
+        engine, disp, data, queries, cands, rep_e, reset_counts)
+    k2_err = max(k2_err, k2_err_p)
 
     # -- 4c. the quantised and slab scan variants of the triage pipeline -----
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
@@ -1653,6 +1886,10 @@ def main() -> int:
     svc = engine.he_service
     nbatch = NQ_BATCH * -(-cfg.protocol.coarse_probe // (svc.params.n // D))
     k2_times = time_ntt4_transform(svc._tables[0], nbatch)
+    # the packed key switch: L digit rows a block row, on the special prime
+    k2_packed = time_ntt4_transform(svc._packed_tables[1][-1],
+                                    nbatch * len(svc.params.qs),
+                                    forward_int64=True)
     profile_search(disp, queries, probes, k)
     phase_ablation(hold.pop("sq8"), hold.pop("slab"), svc._tables[0], nbatch)
     log("done", f"wall {time.perf_counter() - t_start:.1f} s")
@@ -1679,12 +1916,16 @@ def main() -> int:
         "route": "cuda",
         "source": "prefhetch_tpu_torch/csrc/ntt4_step.cu",
         "replaces": "prefhetch_tpu/ops/ntt_pallas.py:246",
-        "launches": enc_launches["ntt4_transform"],
+        "launches": enc_launches["ntt4_transform"] + packed_launches,
         "launches_per_request": k2_per_request,
         "path": f"POST /encryptedsearch x{N_BATCHES} "
-                f"({N_BATCHES - 1} full, 1 q1)",
+                f"({N_BATCHES - 1} full, 1 q1) + x{N_BATCHES} packed "
+                f"(seedTf)",
         "max_abs_err": k2_err,
         **k2_times,
+        "at_packed_key_switch_shape": {
+            key: k2_packed[key] for key in
+            ("ms", "ms_events", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "per": "transform (one launch)",
         "library_call": "none: no single PyTorch call computes an exact "

@@ -2,24 +2,25 @@
 decryption — the port of prefhetch_tpu/client/he.py, BFV subset (host,
 numpy only).
 
-All key material lives here; the server never sees any secret. BFV gives
+All key material lives here; the server never sees any secret (for the
+packed response the client registers *public* Galois keys once). BFV gives
 exact integer inner products via negacyclic coefficient packing
 (crypto/packing.py) and needs no evaluation keys for the "full" and "q1"
 response wires. The same integer seed gives the same keys and the same
-wires as the JAX package's ``HEClient`` (tests/test_torch_bfv.py).
+wires as the JAX package's ``HEClient`` (tests/test_torch_bfv.py,
+tests/test_torch_packed.py).
 
-Not ported yet: the CKKS scheme, and the packed BFV response with its Galois
-keys and threefry-seeded query wire.
+Not ported yet: the CKKS scheme.
 """
 
 from __future__ import annotations
 
 import uuid
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from prefhetch_tpu_torch.crypto.bfv import BFVContext
+from prefhetch_tpu_torch.crypto.bfv import BFVContext, Ciphertext, RelinKey
 from prefhetch_tpu_torch.crypto.ntt import intt, ntt
 from prefhetch_tpu_torch.crypto.packing import (
     distances_from_inner_products,
@@ -40,26 +41,57 @@ class HEClient:
             raise NotImplementedError(
                 f"scheme {he.scheme!r} is not ported yet (BFV only)"
             )
-        if he.resp_mod == "packed":
-            raise NotImplementedError(
-                "resp_mod='packed' is not ported yet (it needs Galois keys "
-                "and the threefry-seeded query wire)"
-            )
         # seed=None (production): OS-entropy CSPRNG. Integer seeds are for
         # tests only — deterministic secret keys are publicly derivable.
         self._rng = secure_rng(seed)
         self.key_id = uuid.uuid4().hex
-        self.params = bfv_params_for(he.n, he.t_bits, he.n_limbs)
+        self._keys_sent = False
+        # packed response mode needs ODD t (the ×d extraction factor must
+        # invert mod t — crypto/params.bfv_params_for)
+        self.params = bfv_params_for(he.n, he.t_bits, he.n_limbs,
+                                     odd_t=he.resp_mod == "packed")
         self.ctx = BFVContext(self.params)
         self.sk, self.pk = self.ctx.keygen(self._rng, sparse_h=he.sparse_h)
+        self._galois_bfv: Dict[int, RelinKey] = {}
+
+    # -- galois keys (packed response) ------------------------------------
+    def bfv_extraction_keys_wire(self, d: int) -> Optional[dict]:
+        """Public Galois keys for the packed single-ct BFV response
+        (resp_mod="packed"): the log2(d) coefficient-extraction elements
+        (crypto/bfv.BFVContext.extraction_elts). Generated once and sent
+        once: None after the first call."""
+        if self._keys_sent:
+            return None
+        elts = self.ctx.extraction_elts(self.params.n, d)
+        missing = [g for g in elts if g not in self._galois_bfv]
+        if missing:
+            # 30-bit digits: one digit per RNS limb — half the server's
+            # per-round digit-NTT rows and half the key wire; the extra
+            # key-switch noise stays orders below the packed wire's Δ/2
+            # budget (RelinKey.digit_bits, exactness asserted in tests)
+            self._galois_bfv.update(
+                self.ctx.galois_keygen(
+                    self.sk, missing, self._rng, digit_bits=30
+                )
+            )
+        self._keys_sent = True
+        return {str(g): self._galois_bfv[g].to_wire() for g in elts}
 
     # -- encrypt ----------------------------------------------------------
     def encrypt_query_batch(self, queries: np.ndarray) -> List[dict]:
         """Encrypt a [nq, d] query batch as seeded SYMMETRIC ciphertexts
-        (the client holds the secret key, so c1 travels as a 32-byte seed —
-        half the upload; crypto/bfv.py encrypt_symmetric_batch_ntt)."""
+        (the client holds the secret key, so c1 travels as a seed — half
+        the upload): a 32-byte SHAKE seed (crypto/bfv.py
+        encrypt_symmetric_batch_ntt), or under resp_mod="packed" an 8-byte
+        threefry key that the server expands inside its device program
+        (encrypt_symmetric_batch_ntt_tf, with its PRG note)."""
         ms = np.stack([encode_query_poly(q, self.params) for q in queries])
-        wires = self.ctx.encrypt_symmetric_batch_ntt(self.sk, ms, self._rng)
+        if self.he.resp_mod == "packed":
+            wires = self.ctx.encrypt_symmetric_batch_ntt_tf(
+                self.sk, ms, self._rng)
+        else:
+            wires = self.ctx.encrypt_symmetric_batch_ntt(
+                self.sk, ms, self._rng)
         for w in wires:
             w["scheme"] = self.scheme
         return wires
@@ -147,3 +179,34 @@ class HEClient:
         v = (cs + c0_ip) % q1
         ips = np.round(t * (v.astype(np.float64) / q1)).astype(np.int64) % t
         return self._distances(ips.reshape(nq, nb * B), norms, queries)
+
+    def decrypt_scores_packed(
+        self,
+        packed_wires: List[dict],      # [ceil(nq/G)] coeff-domain ct wires
+        norms: np.ndarray,             # [nq, P]
+        queries: np.ndarray,           # [nq, d]
+        pack_group: int,               # G = queries per response ct
+    ) -> np.ndarray:
+        """Decrypt the packed single-ct response
+        (engine/hecompute.py encrypted_scores_packed: query qi × candidate
+        b·B + j at coefficient j·d + (qi mod G)·nb + b of ct qi//G, scaled
+        by d) → exact squared-L2 distances [nq, P]."""
+        p = self.params
+        nq, P = norms.shape
+        d = queries.shape[1]
+        B = p.n // d
+        nb = -(-P // B)
+        G = pack_group
+        inv_d = pow(d % p.t, -1, p.t)
+        msgs = self.ctx.decrypt_batch(
+            self.sk,
+            [w if isinstance(w, Ciphertext) else Ciphertext.from_wire(w)
+             for w in packed_wires],
+        )                                              # [n_out, N] mod t
+        # coefficient of (qi, b, j): j·d + (qi mod G)·nb + b of ct qi // G
+        qi = np.arange(nq)[:, None, None]
+        b = np.arange(nb)[None, :, None]
+        j = np.arange(B)[None, None, :]
+        ips = msgs[qi // G, j * d + (qi % G) * nb + b]  # [nq, nb, B]
+        ips = ips.reshape(nq, nb * B) * inv_d % p.t      # undo ×d extraction
+        return self._distances(ips, norms, queries)

@@ -1,18 +1,20 @@
 """RNS-BFV homomorphic encryption, host side (numpy only).
 
 The port of prefhetch_tpu/crypto/bfv.py for the encrypted re-rank with the
-"full" and "q1" response wires: keygen / encrypt / decrypt on the client
-side, the seeded symmetric query wire, and wire ↔ ciphertext conversion on
-the server side. Ciphertexts are (c0, c1) pairs of RNS limb arrays [L, N]
-int64; the server-side hot path (engine/hecompute.py) works in the NTT
-domain, so one candidate block costs one pointwise modular multiply per
-limb. The same integer seed gives the same keys and wires as the JAX
-package (tests/test_torch_bfv.py).
+"full", "q1" and "packed" response wires: keygen / encrypt / decrypt on the
+client side, the seeded symmetric query wires (SHAKE ``seed`` and threefry
+``seedTf``), wire ↔ ciphertext conversion on the server side, and for the
+packed wire the Galois keys, automorphisms and special-modulus key
+switching (the host oracle of engine/hecompute.py's device program).
+Ciphertexts are (c0, c1) pairs of RNS limb arrays [L, N] int64; the
+server-side hot path (engine/hecompute.py) works in the NTT domain, so one
+candidate block costs one pointwise modular multiply per limb. The same
+integer seed gives the same keys and wires as the JAX package
+(tests/test_torch_bfv.py, tests/test_torch_threefry.py).
 
-Not ported yet (they come with the packed response wire): ct×ct ``mul`` with
-relinearization, Galois keys and automorphisms, key switching, and the
-threefry-seeded wire (``tf_uniform_rns``, ``seedTf``): ``ct_from_wire``
-refuses a ``seedTf`` ciphertext.
+Not ported yet (they come with the CKKS and PIR slices): ct×ct ``mul`` with
+relinearization (``relin_keygen``) and the exact mixed-radix (Garner)
+helpers it needs.
 
 Security note: parameters follow the standard HE security tables
 (N=4096, log q ≈ 60 → >128-bit classical security); error σ=3.2 centered
@@ -29,7 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from prefhetch_tpu_torch.crypto.ntt import NTTTables, build_tables, intt, ntt
-from prefhetch_tpu_torch.crypto.params import BFVParams
+from prefhetch_tpu_torch.crypto.params import BFVParams, find_ntt_primes
 
 
 def _b64_u32(x: np.ndarray) -> str:
@@ -54,6 +56,45 @@ class SecretKey:
 class PublicKey:
     b_rns: np.ndarray        # [L, N] — b = -(a·s + e) mod q_i
     a_rns: np.ndarray        # [L, N]
+
+
+@dataclasses.dataclass
+class RelinKey:
+    """Key-switching key (Galois, later relinearization), special-modulus
+    form.
+
+    digit_bits sets the decomposition width the key was generated for:
+    15 (n_digits=2/limb — the conservative default, key-switch noise
+    ~2^15/p below the digit) or 30 (one digit per limb — HALF the digit
+    NTT rows in every switch; noise ~2^15 larger, still orders under the
+    packed wire's Δ/2 = q/2t budget — the packed-response tests decrypt
+    exact distances at N=4096)."""
+
+    special_p: int
+    b: np.ndarray            # [n_comp, L+1, N]
+    a: np.ndarray            # [n_comp, L+1, N]
+    ext: tuple               # basis qs + (special_p,)
+    digit_bits: int = 15
+
+    def to_wire(self) -> dict:
+        return {
+            "specialP": self.special_p,
+            "ext": list(self.ext),
+            "shape": list(self.b.shape),
+            "b": _b64_u32(self.b),
+            "a": _b64_u32(self.a),
+            "digitBits": self.digit_bits,
+        }
+
+    @staticmethod
+    def from_wire(obj: dict) -> "RelinKey":
+        shape = tuple(obj["shape"])
+        return RelinKey(
+            special_p=int(obj["specialP"]),
+            b=_u32_b64(obj["b"], shape), a=_u32_b64(obj["a"], shape),
+            ext=tuple(obj["ext"]),
+            digit_bits=int(obj.get("digitBits", 15)),
+        )
 
 
 @dataclasses.dataclass
@@ -84,6 +125,64 @@ class Ciphertext:
             c0=_u32_b64(obj["c0"], shape), c1=_u32_b64(obj["c1"], shape),
             is_ntt=bool(obj.get("isNtt", False)),
         )
+
+
+_TF_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32_20(k0, k1, x0, x1):
+    """Threefry-2x32, 20 rounds (Salmon et al. 2011) on numpy uint32
+    arrays, wrapping. Written out (not a library PRF) so the counter layout
+    is the frozen wire contract the JAX package and the device form
+    (ops/threefry.py) share."""
+    def rotl(v, r):
+        return (v << np.uint32(r)) | (v >> np.uint32(32 - r))
+
+    ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
+    x0 = x0 + ks[0]
+    x1 = x1 + ks[1]
+    for g in range(5):
+        for r in _TF_ROT[g % 2]:
+            x0 = x0 + x1
+            x1 = rotl(x1, r)
+            x1 = x0 ^ x1
+        x0 = x0 + ks[(g + 1) % 3]
+        x1 = x1 + ks[(g + 2) % 3] + np.uint32(g + 1)
+    return x0, x1
+
+
+def tf_uniform_rns(key_data, qs, n: int) -> np.ndarray:
+    """[L, N] uniform residues mod each q from a threefry2x32 key, numpy.
+
+    Counter layout (frozen wire contract): 2·L·N lanes of
+    Threefry-2x32-20 with counters iota(2·L·N) split in half; draw i of
+    limb l takes hi = out0[l·N + i] (top 30 bits) and lo = out1[l·N + i],
+    folded from 62 bits mod q by the shift reduction (bias < 2^-32 — far
+    below anything that matters for the PUBLIC RLWE mask). The server's
+    device form is ops/threefry.py. key_data: [2] uint32 (the ct wire's
+    "seedTf" field)."""
+    L = len(qs)
+    total = L * n
+    kd = np.asarray(key_data, np.uint32)
+    cnt = np.arange(2 * total, dtype=np.uint32)
+    o0, o1 = _threefry2x32_20(kd[0], kd[1], cnt[:total], cnt[total:])
+    hi = (o0 >> np.uint32(2)).astype(np.int64)
+    lo = o1.astype(np.int64)
+    v = ((hi << 32) | lo).reshape(L, n)            # uniform < 2^62
+    out = np.empty((L, n), np.int64)
+    for i, q in enumerate(qs):
+        q = int(q)
+        delta = (1 << 30) - q
+        x = v[i]
+        b = 62
+        m30 = (1 << 30) - 1
+        dbits = max(1, (delta - 1).bit_length())
+        while b > 31:
+            x = (x & m30) + (x >> 30) * delta
+            b = max(b - 30 + dbits + 1, 31)
+        x = np.where(x >= q, x - q, x)
+        out[i] = np.where(x >= q, x - q, x)
+    return out
 
 
 def _sample_ternary(rng, shape) -> np.ndarray:
@@ -270,19 +369,63 @@ class BFVContext:
             for b in range(B)
         ]
 
+    def encrypt_symmetric_batch_ntt_tf(
+        self, sk: SecretKey, ms: np.ndarray, rng
+    ) -> List[dict]:
+        """Seeded symmetric encryption with DEVICE-expandable seeds.
+
+        Same construction as encrypt_symmetric_batch_ntt, but the public
+        mask a is drawn with the threefry2x32 counter PRF (tf_uniform_rns)
+        instead of the SHAKE stream: the server regenerates a inside its
+        device program from the 8-byte key (ops/threefry.py), so the c1
+        half of the query upload (host expansion, wire and h2d) disappears.
+
+        Security note: this trades the mask PRG from SHAKE-256 to
+        Threefry-2x32-20 (a counter PRF without a cryptographic security
+        proof — strong statistically, used here only to derive the PUBLIC
+        uniform RLWE mask). Deployments wanting a standard-assumption PRG
+        keep the SHAKE wire (encrypt_symmetric_batch_ntt)."""
+        p = self.params
+        B = ms.shape[0]
+        qs = np.array(p.qs, np.int64)[:, None, None]
+        e = _sample_error(rng, (B, p.n))
+        e_rns = np.mod(e[None], qs)                           # [L, B, N]
+        dm = self._delta[:, None, None] * np.mod(
+            ms[None].astype(np.int64), p.t
+        ) % qs
+        keys = rng.integers(0, 1 << 32, size=(B, 2), dtype=np.uint32)
+        a_rns = np.stack(
+            [tf_uniform_rns(keys[b], p.qs, p.n) for b in range(B)]
+        )                                                     # [B, L, N]
+        c0 = np.empty((B, len(p.qs), p.n), np.int64)
+        for i, tb in enumerate(self.tables):
+            qi = tb.q
+            s_ntt = ntt(sk.s_rns[i], tb)
+            a_ntt = ntt(a_rns[:, i], tb)                      # [B, N]
+            body = np.mod(dm[i] - e_rns[i], qi)
+            c0[:, i] = (qi - a_ntt * s_ntt % qi + ntt(body, tb)) % qi
+        return [
+            {
+                "c0": _b64_u32(c0[b]),
+                "seedTf": [int(keys[b, 0]), int(keys[b, 1])],
+                "shape": [len(p.qs), p.n],
+                "isNtt": True,
+            }
+            for b in range(B)
+        ]
+
     def ct_from_wire(self, obj: dict) -> Ciphertext:
-        """Wire → Ciphertext, expanding the seeded symmetric form (the c1
-        component is regenerated from the public seed; NTT'd when the wire
-        is NTT-domain)."""
-        if "seedTf" in obj:
-            raise NotImplementedError(
-                "threefry-seeded ciphertexts (seedTf) belong to the packed "
-                "response wire, which is not ported yet"
-            )
-        if "seed" not in obj:
+        """Wire → Ciphertext, expanding the seeded symmetric forms (the c1
+        component is regenerated from the public SHAKE seed or threefry
+        key; NTT'd when the wire is NTT-domain)."""
+        if "seed" not in obj and "seedTf" not in obj:
             return Ciphertext.from_wire(obj)
         c0 = _u32_b64(obj["c0"], tuple(obj["shape"]))
-        a_rns = self.expand_a(base64.b64decode(obj["seed"]))
+        if "seedTf" in obj:
+            a_rns = tf_uniform_rns(np.asarray(obj["seedTf"], np.uint32),
+                                   self.params.qs, self.params.n)
+        else:
+            a_rns = self.expand_a(base64.b64decode(obj["seed"]))
         is_ntt = bool(obj.get("isNtt", False))
         c1 = self.ntt_fwd(a_rns) if is_ntt else a_rns
         return Ciphertext(c0=c0, c1=c1, is_ntt=is_ntt)
@@ -346,6 +489,238 @@ class BFVContext:
                 acc += qhat * ((int(v[i, j]) * inv) % qi)
             out.append(acc % q)
         return out
+
+    # -- generic special-modulus key switching ----------------------------
+    @property
+    def _ext_basis(self):
+        """qs plus the auxiliary primes that cover N·q² (the exact basis of
+        ct×ct tensoring); the special prime is drawn from outside it."""
+        if not hasattr(self, "_ext_cached"):
+            L = len(self.params.qs)
+            need_bits = (
+                self.params.q.bit_length() * 2
+                + self.params.n.bit_length() + 2
+            )
+            n_extra = -(-max(0, need_bits - 30 * L) // 29)
+            allp = find_ntt_primes(self.params.n, 30, L + n_extra + 1)
+            aux = tuple(pp for pp in allp if pp not in self.params.qs)[
+                : n_extra + 1
+            ]
+            self._ext_cached = tuple(self.params.qs) + aux
+        return self._ext_cached
+
+    @property
+    def _special_p(self) -> int:
+        if not hasattr(self, "_sp_cached"):
+            p = self.params
+            self._sp_cached = [
+                q for q in find_ntt_primes(p.n, 30, len(self._ext_basis) + 2)
+                if q not in self._ext_basis
+            ][0]
+        return self._sp_cached
+
+    def _s_signed(self, sk: SecretKey) -> np.ndarray:
+        """Recover the small signed secret from its first-limb residues."""
+        q0 = self.params.qs[0]
+        return np.where(
+            sk.s_rns[0] > q0 // 2, sk.s_rns[0] - q0, sk.s_rns[0]
+        )
+
+    def _make_switch_key(
+        self, sk: SecretKey, target_small: np.ndarray, rng,
+        digit_bits: int = 15,
+    ) -> RelinKey:
+        """Key-switching key encrypting P·W_d·target under s over qs+[p]
+        (digit_bits-wide decomposition — see RelinKey). `target_small` is
+        a small signed polynomial (s(X^g), …)."""
+        if 30 % digit_bits:
+            raise ValueError(
+                "digit_bits must divide the 30-bit limb width — consumers "
+                "derive the ladder from the key shape (n_digits = 30/bits)")
+        p = self.params
+        sp = self._special_p
+        ext = tuple(p.qs) + (sp,)
+        ext_tables = [build_tables(q, p.n) for q in ext]
+        qs_ext = np.array(ext, np.int64)[:, None]
+
+        def polymul_ext(a, b):
+            out = np.empty((len(ext), p.n), np.int64)
+            for i, tb in enumerate(ext_tables):
+                out[i] = intt(ntt(a[i], tb) * ntt(b[i], tb) % tb.q, tb)
+            return out
+
+        def to_ext_rns(small):
+            return np.mod(small[None, :].astype(np.int64), qs_ext)
+
+        s_ext = to_ext_rns(self._s_signed(sk))
+        target_ext = to_ext_rns(np.asarray(target_small, np.int64))
+
+        n_digits = -(-30 // digit_bits)
+        big_q = p.q
+        comps_b, comps_a = [], []
+        for i, qi in enumerate(p.qs):
+            qhat = big_q // qi
+            Pi = qhat * pow(qhat % qi, -1, qi) % big_q
+            for d in range(n_digits):
+                W = 1 << (d * digit_bits)
+                factor = Pi * W * sp % (big_q * sp)
+                fac = np.array([factor % q for q in ext], np.int64)[:, None]
+                # one ring element mod q·p: draws < 2^62 fit int64, so the
+                # residues are exact
+                a_rns = np.mod(rng.integers(0, 1 << 62, size=p.n)[None],
+                               qs_ext)
+                e_rns = to_ext_rns(_sample_error(rng, p.n))
+                b_rns = np.mod(
+                    -(polymul_ext(a_rns, s_ext) + e_rns)
+                    + fac * target_ext % qs_ext,
+                    qs_ext,
+                )
+                comps_b.append(b_rns)
+                comps_a.append(a_rns)
+        return RelinKey(
+            special_p=sp, b=np.stack(comps_b), a=np.stack(comps_a),
+            ext=ext, digit_bits=digit_bits,
+        )
+
+    # -- Galois automorphisms (X → X^g) -------------------------------------
+    @staticmethod
+    def extraction_elts(n: int, d: int) -> List[int]:
+        """Galois elements g_r = N/2^(r-1) + 1, r = 1..log2(d): after
+        ct += σ_{g_r}(ct) for each r, every plaintext coefficient whose
+        index is not ≡ 0 mod d is zeroed and the survivors are scaled by
+        2^log2(d) (invert mod ODD t on the consumer side). The standard
+        SealPIR oblivious-expansion automorphisms, run in the killing
+        direction — the basis of the packed single-ct response."""
+        rounds = (d - 1).bit_length()
+        if 1 << rounds != d:
+            raise ValueError("extraction needs a power-of-two stride d")
+        return [n // (1 << r) + 1 for r in range(rounds)]
+
+    def _automorphism_map(self, g: int):
+        """Permutation/sign arrays: out[(k·g) mod N] = ± in[k]."""
+        if not hasattr(self, "_auto_cache"):
+            self._auto_cache = {}
+        if g in self._auto_cache:
+            return self._auto_cache[g]
+        n = self.params.n
+        k = np.arange(n)
+        kg = (k * g) % (2 * n)
+        dest = kg % n
+        perm = np.empty(n, np.int64)
+        sgn = np.empty(n, np.int64)
+        perm[dest] = k
+        sgn[dest] = np.where(kg < n, 1, -1)
+        self._auto_cache[g] = (perm, sgn)
+        return perm, sgn
+
+    def _apply_auto_poly(self, poly: np.ndarray, g: int) -> np.ndarray:
+        perm, sgn = self._automorphism_map(g)
+        qs = np.array(self.params.qs, np.int64)[:, None]
+        return np.mod(poly[:, perm] * sgn[None, :], qs)
+
+    def galois_keygen(
+        self, sk: SecretKey, elts, rng, digit_bits: int = 15
+    ) -> dict:
+        """Key-switching keys for Galois elements g (odd, mod 2N)."""
+        out = {}
+        s_signed = self._s_signed(sk)
+        n = self.params.n
+        for g in elts:
+            k = np.arange(n)
+            kg = (k * g) % (2 * n)
+            s_rot = np.zeros(n, np.int64)
+            s_rot[kg % n] = s_signed * np.where(kg < n, 1, -1)
+            out[int(g)] = self._make_switch_key(
+                sk, s_rot, rng, digit_bits=digit_bits
+            )
+        return out
+
+    def apply_galois(self, ct: Ciphertext, g: int, gk: RelinKey) -> Ciphertext:
+        """Substitution X → X^g on a ciphertext (plus key switch back to s)."""
+        ct = self.from_ntt(ct) if ct.is_ntt else ct
+        c0g = self._apply_auto_poly(ct.c0, g)
+        c1g = self._apply_auto_poly(ct.c1, g)
+        ks0, ks1 = self._key_switch(c1g, gk)
+        qs = np.array(self.params.qs, np.int64)[:, None]
+        return Ciphertext(c0=np.mod(c0g + ks0, qs), c1=ks1)
+
+    def mul_monomial(self, ct: Ciphertext, e: int) -> Ciphertext:
+        """ct × X^e (e may be negative) — a signed negacyclic coefficient
+        rotation of both components; no keys needed."""
+        ct = self.from_ntt(ct) if ct.is_ntt else ct
+        n = self.params.n
+        e = e % (2 * n)
+        qs = np.array(self.params.qs, np.int64)[:, None]
+        dest = (np.arange(n) + e) % (2 * n)
+        sign = np.where(dest < n, 1, -1)
+
+        def rot(poly):
+            out = np.zeros_like(poly)
+            out[:, dest % n] = poly * sign[None, :]
+            return np.mod(out, qs)
+
+        return Ciphertext(c0=rot(ct.c0), c1=rot(ct.c1))
+
+    def _key_switch(self, poly: np.ndarray, rk: RelinKey):
+        """Σ digits(poly) · rk over qs+[p], then exact division by p:
+        ``_key_switch_batch`` of one polynomial."""
+        out0, out1 = self._key_switch_batch(poly[None], rk)
+        return out0[0], out1[0]
+
+    def _key_switch_batch(self, polys: np.ndarray, rk: RelinKey):
+        """[M, L, N] coefficient-domain polys → (ks0, ks1) [M, L, N].
+
+        One forward-NTT batch over all (poly, digit) rows and one inverse
+        per ext prime; each product is reduced mod q before the sum
+        (n_comp products of ~2^60 would overflow int64 for 3+ limbs if
+        summed raw); the special prime's residue is centred before the
+        exact division by p."""
+        p = self.params
+        ext = rk.ext
+        ext_tables = [build_tables(q, p.n) for q in ext]
+        digit_bits = rk.digit_bits
+        n_digits = -(-30 // digit_bits)
+        mask = (1 << digit_bits) - 1
+        M = polys.shape[0]
+        L = len(p.qs)
+        n_comp = L * n_digits
+        digits = np.empty((M, n_comp, p.n), np.int64)
+        for i in range(L):
+            limb = polys[:, i]
+            for d in range(n_digits):
+                digits[:, i * n_digits + d] = (limb >> (d * digit_bits)) & mask
+        acc0 = np.empty((M, len(ext), p.n), np.int64)
+        acc1 = np.empty((M, len(ext), p.n), np.int64)
+        flat = digits.reshape(M * n_comp, p.n)
+        for e, q in enumerate(ext):
+            tb = ext_tables[e]
+            D = ntt(flat % q, tb).reshape(M, n_comp, p.n)
+            Kb = ntt(rk.b[:, e] % q, tb)                 # [n_comp, N]
+            Ka = ntt(rk.a[:, e] % q, tb)
+            acc0[:, e] = intt((D * Kb[None] % q).sum(axis=1) % q, tb)
+            acc1[:, e] = intt((D * Ka[None] % q).sum(axis=1) % q, tb)
+        sp = rk.special_p
+        half = sp // 2
+        cp0 = np.where(acc0[:, -1] > half, acc0[:, -1] - sp, acc0[:, -1])
+        cp1 = np.where(acc1[:, -1] > half, acc1[:, -1] - sp, acc1[:, -1])
+        out0 = np.empty((M, L, p.n), np.int64)
+        out1 = np.empty_like(out0)
+        for i, qi in enumerate(p.qs):
+            inv_p = pow(sp, -1, qi)
+            out0[:, i] = (acc0[:, i] - cp0) % qi * inv_p % qi
+            out1[:, i] = (acc1[:, i] - cp1) % qi * inv_p % qi
+        return out0, out1
+
+    def apply_galois_batch(
+        self, c0s: np.ndarray, c1s: np.ndarray, g: int, gk: RelinKey
+    ):
+        """Batched apply_galois on coeff-domain ct arrays [M, L, N]."""
+        perm, sgn = self._automorphism_map(g)
+        qs = np.array(self.params.qs, np.int64)[None, :, None]
+        c0g = np.mod(c0s[:, :, perm] * sgn[None, None, :], qs)
+        c1g = np.mod(c1s[:, :, perm] * sgn[None, None, :], qs)
+        ks0, ks1 = self._key_switch_batch(c1g, gk)
+        return np.mod(c0g + ks0, qs), ks1
 
     # -- domain changes ---------------------------------------------------
     def to_ntt(self, ct: Ciphertext) -> Ciphertext:

@@ -10,38 +10,46 @@ is unconditional on the server side.
 
 Ported: the two response wires that need only ct×pt arithmetic,
 ``encrypted_scores_trunc`` ("full") and ``encrypted_scores_trunc_q1``
-("q1"). Each is one gather, one forward four-step NTT, pointwise modmuls and
-inverse NTTs; every transform is one launch of kernel K2
-(ops/ntt4_fused.py). The device program is eager PyTorch on int32/int64
-tensors: CUDA has native 64-bit integer multiply and remainder, so every
-step is exact and the result is bit-equal to the JAX program's.
+("q1"), each one gather, one forward four-step NTT, pointwise modmuls and
+inverse NTTs; and the packed single-ct response
+(``encrypted_scores_packed``, ``encrypted_scores_packed_wire``), which
+coefficient-extracts the inner products with client-registered Galois keys
+(log2(d) automorphism + key-switch rounds) and sums d/nb queries' blocks
+into one 2-limb ciphertext; its threefry-seeded wire has the c1 mask
+regenerated on the device (ops/threefry.py). Every transform is one launch
+of kernel K2 (ops/ntt4_fused.py). The device program is eager PyTorch on
+int32/int64 tensors: CUDA has native 64-bit integer multiply and
+remainder, so every step is exact and the result is bit-equal to the JAX
+program's.
 
 ``device`` takes the place of the JAX service's ``backend``: on a card the
 program runs there with K2; with ``device="cpu"`` the same program runs on
 CPU tensors, where K2's wrapper takes its plain version. The numpy host
-twins (``_trunc_mac_numpy``, ``_trunc_mac_q1_numpy``: butterfly NTT, natural
-order) are the independent oracle the tests hold the program against; no
-served path falls back to them.
+twins (``_trunc_mac_numpy``, ``_trunc_mac_q1_numpy``, ``_packed_mac_numpy``:
+butterfly NTT, natural order) are the independent oracle the tests hold the
+program against; no served path falls back to them.
 
-Not ported yet: the packed single-ct response (Galois keys, key switching),
-``encrypted_scores``/``encrypted_scores_batch`` (whole result ciphertexts)
-and ``CKKSComputeService``.
+Not ported yet: ``encrypted_scores``/``encrypted_scores_batch`` (whole
+result ciphertexts) and ``CKKSComputeService``.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+import base64
+import functools
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
-from prefhetch_tpu_torch.crypto.bfv import BFVContext, Ciphertext
-from prefhetch_tpu_torch.crypto.ntt import intt, ntt
+from prefhetch_tpu_torch.crypto.bfv import BFVContext, Ciphertext, RelinKey
+from prefhetch_tpu_torch.crypto.ntt import build_tables, intt, ntt
 from prefhetch_tpu_torch.crypto.params import BFVParams
 from prefhetch_tpu_torch.device import resolve_device
 from prefhetch_tpu_torch.ops.ntt4 import (
     build_ntt4_tables, fourstep_perm, intt4, modmul, ntt4,
 )
+from prefhetch_tpu_torch.ops.threefry import tf_uniform_rns
 from prefhetch_tpu_torch.utils.stages import stage
 
 
@@ -59,6 +67,9 @@ class HEComputeService:
         self._inv_perm = torch.from_numpy(inv_perm).to(self.device)
         self._base_host: np.ndarray | None = None
         self._base_dev: torch.Tensor | None = None
+        self._galois_bfv: Dict[str, Dict[int, RelinKey]] = {}
+        self._packed_keys_dev: Dict[str, tuple] = {}
+        self._packed_shift_cache: Dict[tuple, tuple] = {}
 
     # -- truncated-response device pipeline ------------------------------
     def set_base(self, base) -> None:
@@ -224,21 +235,24 @@ class HEComputeService:
             return self._prepare(cts, cand_idx)
 
     def _prepare(self, cts: List[Ciphertext], cand_idx: np.ndarray):
-        p = self.params
-        nq, P = cand_idx.shape
-        d = self._base_host.shape[1]
-        B = p.n // d
-        nb = -(-P // B)
-        pad_idx = np.full((nq, nb * B), self._base_host.shape[0] - 1, np.int32)
-        pad_idx[:, :P] = cand_idx
         cts = [self.ctx.to_ntt(c) if not c.is_ntt else c for c in cts]
         ctq = np.stack(
             [np.stack([c.c0 for c in cts]), np.stack([c.c1 for c in cts])],
             axis=1,
         ).astype(np.int32)                                # [nq, 2, L, N]
+        return (ctq,) + self._pad_and_norms(cand_idx)
+
+    def _pad_and_norms(self, cand_idx: np.ndarray):
+        """(pad_idx [nq, nb·B] i32 padded with the zero row, candidate
+        squared norms [nq, P] i64)."""
+        nq, P = cand_idx.shape
+        d = self._base_host.shape[1]
+        B = self.params.n // d
+        nb = -(-P // B)
+        pad_idx = np.full((nq, nb * B), self._base_host.shape[0] - 1, np.int32)
+        pad_idx[:, :P] = cand_idx
         gathered = self._base_host[cand_idx.astype(np.int64)].astype(np.int64)
-        norms = (gathered ** 2).sum(-1)                   # [nq, P]
-        return ctq, pad_idx, norms
+        return pad_idx, (gathered ** 2).sum(-1)
 
     def upload(self, ctq: np.ndarray, pad_idx: np.ndarray):
         with stage("upload"):
@@ -303,3 +317,393 @@ class HEComputeService:
         """[nq, nb, N+B] → (c1_q1 [nq,nb,N], c0_ip [nq,nb,B], norms)."""
         n = self.params.n
         return bundled[..., :n], bundled[..., n:], norms
+
+    # -- packed single-ct response ----------------------------------------
+    # The q1 wire still ships one full c1 poly per (query, block). This mode
+    # extracts the inner-product coefficients with the SealPIR automorphisms
+    # run in the killing direction (BFVContext.extraction_elts), then
+    # monomial-shifts every (query, block) result to a distinct coefficient
+    # offset and SUMS d/nb queries' worth of blocks into ONE 2-limb
+    # ciphertext. Needs client-registered Galois keys (public) and an ODD
+    # plaintext modulus on the client (bfv_params_for odd_t) so the ×d
+    # extraction factor inverts there; t never enters the server's ring
+    # operations. Fills the same reference slot as the other response modes
+    # (include/client/client_lib.h:28-30).
+
+    def register_galois_keys(self, key_id: str, gks_wire: dict) -> None:
+        """Register client-generated extraction keys {g: RelinKey wire}."""
+        keys = {int(g): RelinKey.from_wire(w) for g, w in gks_wire.items()}
+        L = len(self.params.qs)
+        ext = tuple(self.params.qs) + (self.ctx._special_p,)
+        for g, rk in keys.items():
+            # the device key switch derives the digit ladder from the key
+            # SHAPE (n_digits = n_comp/L, digit_bits = 30/n_digits) — a
+            # wire whose declared width disagrees would silently corrupt
+            if 30 % rk.digit_bits or (
+                rk.b.shape[0] != L * (30 // rk.digit_bits)
+            ):
+                raise ValueError(
+                    f"galois key {g}: digitBits {rk.digit_bits} / shape "
+                    f"{rk.b.shape} inconsistent with {L} limbs"
+                )
+            if tuple(rk.ext) != ext or rk.b.shape[1:] != (
+                    L + 1, self.params.n) or rk.a.shape != rk.b.shape:
+                raise ValueError(
+                    f"galois key {g}: basis {tuple(rk.ext)} / shape "
+                    f"{rk.b.shape} does not match the service's {ext}"
+                )
+        self._galois_bfv[key_id] = keys
+        self._packed_keys_dev.pop(key_id, None)
+
+    def has_galois_keys(self, key_id: str) -> bool:
+        return key_id in self._galois_bfv
+
+    def _packed_layout(self, key_id: str, nq: int, cand_idx: np.ndarray):
+        """The packed layout of a request of nq queries with P candidates
+        each: (nb blocks, G queries per output ct), after the refusals: no
+        base, nq against the candidate rows, an unknown keyId, a layout
+        that does not fit the coefficient stride, a missing extraction
+        element."""
+        cand_rows, P = cand_idx.shape
+        if self._base_host is None:
+            raise RuntimeError("call set_base() first")
+        if nq != cand_rows:
+            raise ValueError(f"{nq} query ciphertexts for {cand_rows} "
+                             f"candidate rows")
+        gks = self._galois_bfv.get(key_id)
+        if gks is None:
+            raise ValueError("unknown BFV keyId — register Galois keys first")
+        n = self.params.n
+        d = self._base_host.shape[1]
+        B = n // d
+        nb = -(-P // B)
+        G = max(1, d // nb)
+        if G * nb > d:
+            raise ValueError(
+                "packed response needs ceil(P/B) <= d blocks "
+                f"(P={P}, B={B}, d={d})"
+            )
+        for g in self.ctx.extraction_elts(n, d):
+            if g not in gks:
+                raise ValueError(f"missing Galois key for element {g}")
+        return nb, G
+
+    def encrypted_scores_packed(
+        self,
+        cts: List[Ciphertext],        # [nq] NTT-domain encrypted queries
+        cand_idx: np.ndarray,         # [nq, P] int candidate row indices
+        key_id: str,
+    ) -> Tuple[List[Ciphertext], np.ndarray, int]:
+        """Batched MAC + coefficient extraction + shift-pack.
+
+        Returns ([n_out] coeff-domain 2-limb Ciphertexts, norms [nq, P],
+        G = queries per output ct). Query qi's inner product with candidate
+        b·B + j sits at plaintext coefficient j·d + (qi mod G)·nb + b of
+        output ct qi//G, scaled by d (client multiplies by d⁻¹ mod t —
+        HEClient.decrypt_scores_packed)."""
+        return self.encrypted_scores_packed_async(cts, cand_idx, key_id)()
+
+    def encrypted_scores_packed_async(
+        self, cts: List[Ciphertext], cand_idx: np.ndarray, key_id: str
+    ):
+        """Enqueue the packed program on host-expanded ciphertexts; returns
+        a zero-arg resolver → (packed cts, norms, G) that downloads the
+        result, so callers can overlap the download with the next batch's
+        host work. ``resolver.dev_out`` is the device result
+        [n_out, 2, L, N] int32."""
+        nb, G = self._packed_layout(key_id, len(cts), cand_idx)
+        ctq, pad_idx, norms = self.prepare(cts, cand_idx)
+        ctq_d, idx_d = self.upload(ctq, pad_idx)
+        args = self._packed_args(key_id, nb, G)
+        with stage("device program"):
+            out = self._packed_program(ctq_d[:, 0][..., self._perm],
+                                       ctq_d[:, 1][..., self._perm],
+                                       idx_d, *args)
+        return self._packed_resolver(out, norms, G)
+
+    def encrypted_scores_packed_wire(
+        self, wires: List[dict], cand_idx: np.ndarray, key_id: str
+    ):
+        return self.encrypted_scores_packed_wire_async(
+            wires, cand_idx, key_id)()
+
+    def encrypted_scores_packed_wire_async(
+        self, wires: List[dict], cand_idx: np.ndarray, key_id: str
+    ):
+        """Packed response straight from ct WIRES. For ``seedTf`` wires
+        only c0, the 8-byte threefry keys and the indices are uploaded: the
+        c1 mask is regenerated inside the device program
+        (ops/threefry.py), so no host expansion or NTT of c1 happens.
+        Other wire forms are expanded on the host (ct_from_wire)."""
+        if not all("seedTf" in w for w in wires):
+            with stage("ct_from_wire (c1 expansion + host NTT)"):
+                cts = [self.ctx.ct_from_wire(w) for w in wires]
+            return self.encrypted_scores_packed_async(cts, cand_idx, key_id)
+        nb, G = self._packed_layout(key_id, len(wires), cand_idx)
+        L, n = len(self.params.qs), self.params.n
+        with stage("wire decode (c0 + seeds)"):
+            c0s = np.stack([
+                np.frombuffer(base64.b64decode(w["c0"]), "<u4").reshape(L, n)
+                for w in wires]).astype(np.int32)
+            seeds = [w["seedTf"] for w in wires]
+            if not all(isinstance(s, (list, tuple)) and len(s) == 2
+                       and all(type(v) is int and 0 <= v < 1 << 32
+                               for v in s) for s in seeds):
+                raise ValueError("seedTf must be two uint32 words a query")
+            seeds = np.array(seeds, np.int64)
+        with stage("prepare (pad, norms)"):
+            pad_idx, norms = self._pad_and_norms(cand_idx)
+        with stage("upload"):
+            c0_d, seeds_d, idx_d = (torch.from_numpy(x).to(self.device)
+                                    for x in (c0s, seeds, pad_idx))
+        args = self._packed_args(key_id, nb, G)
+        with stage("device program"):
+            out = self._packed_seeded(c0_d, seeds_d, idx_d, *args)
+        return self._packed_resolver(out, norms, G)
+
+    @staticmethod
+    def _packed_resolver(dev_out: torch.Tensor, norms: np.ndarray, G: int):
+        def resolve():
+            with stage("download"):
+                packed = dev_out.cpu().numpy().astype(np.int64)
+            return ([Ciphertext(c0=c[0], c1=c[1], is_ntt=False)
+                     for c in packed], norms, G)
+
+        resolve.dev_out = dev_out
+        return resolve
+
+    # -- packed response: host oracle --------------------------------------
+    def _packed_mac_numpy(
+        self, ctq: np.ndarray, pad_idx: np.ndarray, gks: dict
+    ) -> np.ndarray:
+        """Host twin of the packed program (butterfly NTT, natural order;
+        ctq [nq, 2, L, N] natural-order NTT domain) → [n_out, 2, L, N]
+        int64 coeff-domain residues."""
+        p = self.params
+        n = p.n
+        qs = np.array(p.qs, np.int64)[None, :, None]
+        nq, npad = pad_idx.shape
+        d = self._base_host.shape[1]
+        B = n // d
+        nb = npad // B
+        G = max(1, d // nb)
+        M = nq * nb
+        rows = self._base_host[pad_idx].astype(np.int64)
+        polys = rows[:, :, ::-1].reshape(M, n)
+        # X^{-(d-1)} pre-shift folded into the MAC: IPs land at coeffs j·d
+        e0 = (2 * n - (d - 1)) % (2 * n)
+        mono = np.zeros(n, np.int64)
+        mono[e0 % n] = 1 if e0 < n else -1
+        c0p = np.empty((M, len(p.qs), n), np.int64)
+        c1p = np.empty_like(c0p)
+        for i, tb in enumerate(self.ctx.tables):
+            q = tb.q
+            pt = ntt(polys % q, tb).reshape(nq, nb, n)
+            mono_ntt = ntt(mono % q, tb)
+            o1 = ctq[:, None, 1, i].astype(np.int64) * pt % q * mono_ntt % q
+            o0 = ctq[:, None, 0, i].astype(np.int64) * pt % q * mono_ntt % q
+            c0p[:, i] = intt(o0.reshape(M, n), tb)
+            c1p[:, i] = intt(o1.reshape(M, n), tb)
+        # kill every coefficient except the j·d inner products (×d factor)
+        for g in self.ctx.extraction_elts(n, d):
+            c0g, c1g = self.ctx.apply_galois_batch(c0p, c1p, g, gks[g])
+            c0p = np.mod(c0p + c0g, qs)
+            c1p = np.mod(c1p + c1g, qs)
+        # shift row (qi, b) by X^{(qi mod G)·nb + b}, sum groups of G queries
+        k = np.arange(n)
+        out = np.zeros((-(-nq // G), 2, len(p.qs), n), np.int64)
+        for qi in range(nq):
+            for b in range(nb):
+                dest = (k + (qi % G) * nb + b) % (2 * n)
+                sign = np.where(dest < n, 1, -1)
+                m = qi * nb + b
+                for comp, arr in ((0, c0p), (1, c1p)):
+                    shifted = np.zeros((len(p.qs), n), np.int64)
+                    shifted[:, dest % n] = arr[m] * sign[None, :]
+                    out[qi // G, comp] = np.mod(
+                        out[qi // G, comp] + shifted, qs[0])
+        return out
+
+    # -- packed response: the device program -------------------------------
+    @functools.cached_property
+    def _packed_tables(self):
+        """(ext basis qs + (special p,), its four-step NTT tables, the
+        natural → four-step permutation as numpy)."""
+        ext = tuple(self.params.qs) + (self.ctx._special_p,)
+        tabs = [build_ntt4_tables(q, self.params.n) for q in ext]
+        return ext, tabs, fourstep_perm(tabs[0])[0]
+
+    def _packed_args(self, key_id: str, nb: int, G: int):
+        """The device arguments of the packed program after the queries and
+        indices: the key tables and the monomial tables."""
+        return (*self._packed_dev_keys(key_id),
+                *self._packed_shift_tables(nb, G))
+
+    def _packed_shift_tables(self, nb: int, G: int):
+        """(mono_pre [L, N] = NTT(X^{-(d-1)}), shift_tabs [L, G·nb, N] =
+        NTT(X^{g·nb+b})), int64 on the device, in FOUR-STEP order (the
+        order of K2's forward output): a natural-order table would multiply
+        the wrong slots and still give valid ciphertexts. Cached per
+        layout."""
+        d = self._base_host.shape[1]
+        key = (d, nb, G)
+        if key not in self._packed_shift_cache:
+            n = self.params.n
+            four_perm = self._packed_tables[2]
+            pre_e = (2 * n - (d - 1)) % (2 * n)
+            shifts = [g * nb + b for g in range(G) for b in range(nb)]
+
+            def mono_rows(es, q, tb):
+                rows = np.zeros((len(es), n), np.int64)
+                for r, e in enumerate(es):
+                    rows[r, e % n] = 1 if e < n else q - 1
+                return ntt(rows, tb)[:, four_perm]
+
+            pre, sh = [], []
+            for q, tb in zip(self.params.qs, self.ctx.tables):
+                pre.append(mono_rows([pre_e], q, tb)[0])
+                sh.append(mono_rows(shifts, q, tb))
+            self._packed_shift_cache[key] = (
+                torch.from_numpy(np.stack(pre)).to(self.device),
+                torch.from_numpy(np.stack(sh)).to(self.device))
+        return self._packed_shift_cache[key]
+
+    def _packed_dev_keys(self, key_id: str):
+        """(kb, ka [n_elts, n_comp, n_ext, N] int32 NTT domain in four-step
+        order, perms [n_elts, N] int64, negs [n_elts, N] bool: the
+        automorphism maps), on the device, cached per key_id."""
+        if key_id not in self._packed_keys_dev:
+            with stage("galois key tables (host NTT, once per key)"):
+                self._packed_keys_dev[key_id] = self._dev_keys(key_id)
+        return self._packed_keys_dev[key_id]
+
+    def _dev_keys(self, key_id: str):
+        n = self.params.n
+        d = self._base_host.shape[1]
+        ext, _, four_perm = self._packed_tables
+        ext_tables = [build_tables(q, n) for q in ext]
+        gks = self._galois_bfv[key_id]
+        kbs, kas, perms, negs = [], [], [], []
+        for g in self.ctx.extraction_elts(n, d):
+            rk = gks[g]
+            kb = np.empty(rk.b.shape, np.int32)
+            ka = np.empty(rk.a.shape, np.int32)
+            for e, (q, tb) in enumerate(zip(ext, ext_tables)):
+                kb[:, e] = ntt(rk.b[:, e] % q, tb)[:, four_perm]
+                ka[:, e] = ntt(rk.a[:, e] % q, tb)[:, four_perm]
+            kbs.append(kb)
+            kas.append(ka)
+            pm, sg = self.ctx._automorphism_map(g)
+            perms.append(pm)
+            negs.append(sg < 0)
+        return tuple(torch.from_numpy(np.stack(x)).to(self.device)
+                     for x in (kbs, kas, perms, negs))
+
+    def _key_switch(self, c1g: torch.Tensor, kb: torch.Tensor,
+                    ka: torch.Tensor):
+        """Hybrid key switch on the device: c1g [M, L, N] coefficient
+        domain, canonical → (ks0, ks1) [M, L, N] int64 canonical.
+
+        The digit ladder comes from the KEY's shape: n_comp = L·n_digits
+        rows, digit_bits = 30/n_digits (30-bit keys: n_comp = L). Per
+        extension prime: one forward K2 over all (row, digit) polys, Σ of
+        n_comp reduced products (< 2^32, far inside int64), one inverse K2
+        of both halves; then the special prime's residue, centred, is
+        divided out exactly."""
+        ext, tabs, _ = self._packed_tables
+        M, L, n = c1g.shape
+        n_comp = kb.shape[0]
+        n_digits = n_comp // L
+        digit_bits = 30 // n_digits
+        dmask = (1 << digit_bits) - 1
+        digits = torch.stack(
+            [(c1g[:, i] >> (dd * digit_bits)) & dmask
+             for i in range(L) for dd in range(n_digits)], dim=1)
+        flat = digits.reshape(M * n_comp, n)
+        acc0, acc1 = [], []
+        for e, tb in enumerate(tabs):
+            D = ntt4(flat, tb).reshape(M, n_comp, n)
+            s0 = modmul(D, kb[:, e], tb.q).sum(1) % tb.q
+            s1 = modmul(D, ka[:, e], tb.q).sum(1) % tb.q
+            i01 = intt4(torch.cat([s0, s1]), tb).to(torch.int64)
+            acc0.append(i01[:M])
+            acc1.append(i01[M:])
+        sp = ext[-1]
+        cp0 = torch.where(acc0[-1] > sp // 2, acc0[-1] - sp, acc0[-1])
+        cp1 = torch.where(acc1[-1] > sp // 2, acc1[-1] - sp, acc1[-1])
+        out0, out1 = [], []
+        for i, q in enumerate(self.params.qs):
+            inv_p = pow(sp, -1, q)
+            out0.append((acc0[i] - cp0) % q * inv_p % q)
+            out1.append((acc1[i] - cp1) % q * inv_p % q)
+        return torch.stack(out0, 1), torch.stack(out1, 1)
+
+    def _packed_program(self, c0q, c1q, idx, kb, ka, perms, negs,
+                        mono_pre, shift_tabs) -> torch.Tensor:
+        """The packed program: (c0q, c1q [nq, L, N] FOUR-STEP NTT domain,
+        idx [nq, nb·B] i32, the key and monomial tables) → [n_out, 2, L, N]
+        int32 coeff-domain packed response ciphertexts.
+
+        1. MAC with the X^{-(d-1)} pre-shift, per limb: one forward K2 of
+           the gathered, reversed, lifted rows, NTT-domain multiplies by
+           mono_pre and by c0/c1, one inverse K2 of both halves;
+        2. log2(d) extraction rounds ct += σ_g(ct): an automorphism gather
+           with its sign and a key switch (``_key_switch``);
+        3. the shift-pack, per limb: one forward K2 of both halves, a
+           multiply by each row's monomial NTT(X^{(qi mod G)·nb + b}), the
+           sum over groups of G·nb rows (< 2^37, exact), one inverse K2.
+
+        Only the nq·nb real rows are computed: absent queries of the last
+        group contribute nothing, as the zero ciphertexts they stand for
+        would (the JAX program pads the batch to a multiple of G)."""
+        p = self.params
+        n, L = p.n, len(p.qs)
+        tabs = self._packed_tables[1]
+        nq, npad = idx.shape
+        d = self._base_dev.shape[1]
+        nb = npad * d // n
+        gnb = shift_tabs.shape[1]                    # G·nb
+        M = nq * nb
+        n_out = -(-M // gnb)
+        qs = torch.tensor(p.qs, dtype=torch.int64, device=idx.device)[:, None]
+        polys = self._base_dev[idx.long()].flip(-1).reshape(M, n)
+        c0, c1 = [], []
+        for i in range(L):
+            tb = tabs[i]
+            lifted = torch.where(polys < 0, polys + tb.q, polys)
+            pt = modmul(ntt4(lifted, tb), mono_pre[i], tb.q).reshape(nq, nb, n)
+            o0 = modmul(c0q[:, None, i], pt, tb.q).reshape(M, n)
+            o1 = modmul(c1q[:, None, i], pt, tb.q).reshape(M, n)
+            i01 = intt4(torch.cat([o0, o1]), tb).to(torch.int64)
+            c0.append(i01[:M])
+            c1.append(i01[M:])
+        c0 = torch.stack(c0, 1)                       # [M, L, N] coeff
+        c1 = torch.stack(c1, 1)
+        for r in range(perms.shape[0]):
+            perm, neg = perms[r], negs[r]
+            v0, v1 = c0[:, :, perm], c1[:, :, perm]
+            c0g = torch.where(neg & (v0 != 0), qs - v0, v0)
+            c1g = torch.where(neg & (v1 != 0), qs - v1, v1)
+            ks0, ks1 = self._key_switch(c1g, kb[r], ka[r])
+            c0 = (c0 + c0g + ks0) % qs
+            c1 = (c1 + ks1) % qs
+        outs = []
+        for i in range(L):
+            tb = tabs[i]
+            nt = ntt4(torch.cat([c0[:, i], c1[:, i]]), tb).reshape(2, M, n)
+            sh = modmul(nt, shift_tabs[i].repeat(n_out, 1)[None, :M], tb.q)
+            sh = torch.nn.functional.pad(sh, (0, 0, 0, n_out * gnb - M))
+            s01 = sh.reshape(2 * n_out, gnb, n).sum(1) % tb.q
+            outs.append(intt4(s01, tb).reshape(2, n_out, n).transpose(0, 1))
+        return torch.stack(outs, 2)                   # [n_out, 2, L, N] i32
+
+    def _packed_seeded(self, c0_nat, seeds, idx, *args) -> torch.Tensor:
+        """The seedTf entry: c0 [nq, L, N] natural-order NTT domain, seeds
+        [nq, 2]. The c1 mask a is regenerated from the 8-byte threefry keys
+        (ops/threefry.py, plain PyTorch) and forward-transformed by one K2
+        per limb; then the packed program."""
+        tabs = self._packed_tables[1]
+        a = tf_uniform_rns(seeds, self.params.qs, self.params.n)
+        c1q = torch.stack([ntt4(a[:, i], tabs[i])
+                           for i in range(len(self.params.qs))], 1)
+        return self._packed_program(c0_nat[..., self._perm], c1q, idx, *args)

@@ -15,9 +15,9 @@ Subset of the JAX ``QueryEngine`` ported so far:
 - coarse_search_topk (binary /coarsesearch top-k kind): the unpruned f32
   union scan → top-k → id resolve, for clients that go on to the encrypted
   re-rank;
-- encrypted_precise_search (POST /encryptedsearch), BFV with the "full" and
-  "q1" response wires: Enc(⟨q, x⟩) for the candidates the client names,
-  through engine/hecompute.py and kernel K2. The packed wire and CKKS raise
+- encrypted_precise_search (POST /encryptedsearch), BFV with the "full",
+  "q1" and "packed" response wires: Enc(⟨q, x⟩) for the candidates the
+  client names, through engine/hecompute.py and kernel K2. CKKS raises
   NotImplementedError.
 
 What the port drops: the row pinning (``rows_pin``/``_rows_pad``) and the
@@ -316,8 +316,10 @@ class QueryEngine:
     # -- POST /encryptedsearch ----------------------------------------------
     @property
     def he_service(self):
-        """Lazily-built BFV homomorphic compute service (no keys held), on
-        the engine's device, with the integer base matrix parked there."""
+        """Lazily-built BFV homomorphic compute service (no secret keys
+        held), on the engine's device, with the integer base matrix parked
+        there. Its parameters are the client's: ODD t under
+        resp_mod="packed", as the JAX engine builds them."""
         if self._he_service is None:
             from prefhetch_tpu_torch.crypto.params import bfv_params_for
             from prefhetch_tpu_torch.engine.hecompute import HEComputeService
@@ -326,7 +328,8 @@ class QueryEngine:
             with self._lock:
                 if self._he_service is None:
                     svc = HEComputeService(
-                        bfv_params_for(he.n, he.t_bits, he.n_limbs),
+                        bfv_params_for(he.n, he.t_bits, he.n_limbs,
+                                       odd_t=he.resp_mod == "packed"),
                         device=self.device,
                     )
                     svc.set_base(self.base)
@@ -350,10 +353,12 @@ class QueryEngine:
         (include/client/client_lib.h:28-36).
 
         Returns the truncated-response wire dict {"c1Ntt", "c0Ip",
-        "candidateNorms"} ("full") or {"c1Q1", "c0Ip", "candidateNorms"}
+        "candidateNorms"} ("full"), {"c1Q1", "c0Ip", "candidateNorms"}
         ("q1": single-limb modulus-switched wire, ~2× smaller; the client
-        must hold a sparse secret). ``key_id`` and ``galois_keys`` belong to
-        the response forms that are not ported yet."""
+        must hold a sparse secret) or {"packedScores", "candidateNorms",
+        "packGroup"} ("packed": G = packGroup queries per 2-limb response
+        ct; needs the client's Galois keys, sent once as ``galois_keys``
+        under ``key_id``)."""
         from prefhetch_tpu_torch.utils.stages import stage
         from prefhetch_tpu_torch.utils.wire import pack_i32
 
@@ -364,15 +369,27 @@ class QueryEngine:
             )
         if scheme != "bfv":
             raise ValueError(f"unknown scheme {scheme!r}")
-        if resp_mod == "packed":
-            raise NotImplementedError(
-                "respMod='packed' is not ported yet (it comes with the "
-                "packed BFV wire slice: Galois keys and key switching)"
-            )
-        if resp_mod not in ("full", "q1"):
+        if resp_mod not in ("full", "q1", "packed"):
             raise ValueError(f"unknown respMod {resp_mod!r}")
         svc = self.he_service
         cand = np.asarray(nearest_coarse_vector_idx, np.int64)
+        if resp_mod == "packed":
+            if galois_keys:
+                with stage("register galois keys"):
+                    svc.register_galois_keys(key_id, galois_keys)
+            if not svc.has_galois_keys(key_id):
+                raise ValueError(
+                    "unknown BFV keyId — register Galois keys first")
+            # wire-direct: seedTf cts upload only c0 + an 8-byte key (c1
+            # regenerates inside the device program)
+            packed, norms, grp = svc.encrypted_scores_packed_wire(
+                encrypted_queries, cand, key_id)
+            with stage("to_wire (base64)"):
+                return {
+                    "packedScores": [c.to_wire() for c in packed],
+                    "candidateNorms": norms.tolist(),
+                    "packGroup": grp,
+                }
         with stage("ct_from_wire (c1 expansion + host NTT)"):
             cts_in = [svc.ctx.ct_from_wire(w) for w in encrypted_queries]
         if resp_mod == "q1":

@@ -14,8 +14,10 @@ Query.cc:10-127). Routes ported so far:
 - ``POST /coarsesearch`` — binary wire, server-side top-k kind only
   (kind 9 request → kind 10 response)
 - ``POST /encryptedsearch`` — the BFV encrypted re-rank, JSON; ``respMod``
-  "full" (default) or "q1". A request for a part that is not ported yet
-  (``scheme="ckks"``, ``respMod="packed"``) answers 501 with the reason.
+  "full" (default), "q1" or "packed" (with ``keyId`` and, once per key,
+  ``galoisKeys``; ``seedTf`` query wires have their c1 mask regenerated on
+  the device). A request for the part that is not ported yet
+  (``scheme="ckks"``) answers 501 with the reason.
 """
 
 from __future__ import annotations

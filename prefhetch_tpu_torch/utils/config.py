@@ -91,7 +91,7 @@ class IndexParams:
 class HEParams:
     """Homomorphic-encryption layer parameters (the reference's SEAL slot,
         CMakeLists.txt:33-38, realized in crypto/ and engine/hecompute.py; the
-    port has BFV with the "full" and "q1" responses so far).
+    port has BFV with the "full", "q1" and "packed" responses so far).
 
     scheme: "bfv" (exact integer) or "ckks" (approximate, slot-packed).
     n / t_bits / n_limbs follow BASELINE.json config 2 defaults
@@ -113,7 +113,9 @@ class HEParams:
     sparse_h: Optional[int] = None
     # Encrypted-rerank response form: "full" = 2-limb truncated wire (BFV)
     # / per-block result cts (CKKS); "q1" = single-limb modulus-switched
-    # BFV wire (~2× smaller download, needs sparse_h); "combined" = CKKS
+    # BFV wire (~2× smaller download, needs sparse_h); "packed" = BFV
+    # single-ct coefficient-extracted response (the client's Galois keys,
+    # odd t: bfv_params_for(odd_t=True)); "combined" = CKKS
     # single-ct tree-combined response (~16× smaller download, needs the
     # −2^k combine-tree Galois keys). See engine/hecompute.py.
     resp_mod: str = "full"

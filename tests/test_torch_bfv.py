@@ -131,8 +131,20 @@ def test_wire_expansion_and_cross_decrypt():
         np.concatenate([v, np.zeros((2, N - 5), np.int64)], 1)
     )[:5] == jc.ctx._crt_compose(
         np.concatenate([v, np.zeros((2, N - 5), np.int64)], 1))[:5]
-    with pytest.raises(NotImplementedError, match="seedTf"):
-        tc.ctx.ct_from_wire({"c0": "", "seedTf": [1, 2], "shape": [2, N]})
+    # threefry-seeded wires (the packed client's): the same wires from one
+    # seed, expanded to the same ciphertext, decrypting to the query
+    pj, pt = _clients(8, resp_mod="packed")
+    tf_wires = pt.encrypt_query_batch(q)
+    assert tf_wires == pj.encrypt_query_batch(q)
+    assert set(tf_wires[0]) == {"c0", "seedTf", "shape", "isNtt", "scheme"}
+    for w, row in zip(tf_wires, q):
+        ct_t, ct_j = pt.ctx.ct_from_wire(w), pj.ctx.ct_from_wire(w)
+        assert ct_t.is_ntt and ct_j.is_ntt
+        np.testing.assert_array_equal(ct_t.c0, ct_j.c0)
+        np.testing.assert_array_equal(ct_t.c1, ct_j.c1)
+        np.testing.assert_array_equal(
+            pt.ctx.decrypt(pt.sk, ct_t),
+            t_packing.encode_query_poly(row, pt.params))
 
 
 @pytest.mark.parametrize("mode", ["full", "q1"])
@@ -169,5 +181,12 @@ def test_each_client_decrypts_the_other_services_response(mode):
 def test_client_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ckks"):
         TClient(THEParams(scheme="ckks"))
-    with pytest.raises(NotImplementedError, match="packed"):
-        TClient(THEParams(resp_mod="packed"))
+    # the packed response is ported: an odd t, the JAX client's keys, and
+    # its Galois keys once
+    jc, tc = _clients(2, resp_mod="packed")
+    assert (tc.params.n, tc.params.t, tc.params.qs) == \
+        (jc.params.n, jc.params.t, jc.params.qs)
+    assert tc.params.t == (1 << 24) + 1
+    np.testing.assert_array_equal(tc.sk.s_rns, jc.sk.s_rns)
+    assert tc.bfv_extraction_keys_wire(D) == jc.bfv_extraction_keys_wire(D)
+    assert tc.bfv_extraction_keys_wire(D) is None

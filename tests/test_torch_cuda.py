@@ -1,7 +1,8 @@
 """Tests that need the card: kernels K1 to K5 and the tile schedule of K4
 and K5 against their plain versions, the engine on CUDA against the engine
 on the CPU, the encrypted re-rank service on CUDA against the service on
-the CPU, and the scan variants of query_pipeline on CUDA against the CPU.
+the CPU (the packed response and its threefry expansion too), and the
+scan variants of query_pipeline on CUDA against the CPU.
 Without CUDA they skip. On a machine with an H100 and nvcc (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -16,6 +17,7 @@ from prefhetch_tpu_torch.data.synthetic import make_clustered_dataset
 from prefhetch_tpu_torch.engine.server import QueryEngine
 from prefhetch_tpu_torch.index.build import build_ivf_index, index_from_numpy
 from prefhetch_tpu_torch.client.he import HEClient
+from prefhetch_tpu_torch.crypto import bfv as t_bfv
 from prefhetch_tpu_torch.crypto import ntt as hostntt
 from prefhetch_tpu_torch.crypto.params import find_ntt_primes
 from prefhetch_tpu_torch.engine.hecompute import HEComputeService
@@ -23,6 +25,7 @@ from prefhetch_tpu_torch.ops import ntt4_fused as k2
 from prefhetch_tpu_torch.ops import pq_onehot as k3
 from prefhetch_tpu_torch.ops import slab_scan as k45
 from prefhetch_tpu_torch.ops import union_scan_min as usm
+from prefhetch_tpu_torch.ops.threefry import tf_uniform_rns
 from prefhetch_tpu_torch.ops.ntt4 import (
     build_ntt4_tables, fourstep_perm, intt4, ntt4, transform_plain,
 )
@@ -229,6 +232,61 @@ def test_he_service_on_cuda_matches_cpu(cuda, mode):
     assert k2.ntt4_transform.launches == before + 2 * per_limb
     for a, b in zip(rg, rc):
         np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(
+        got, ((base[cand] - q[:, None]) ** 2).sum(-1))
+
+
+def test_threefry_on_cuda_matches_numpy(cuda):
+    """The device form of tf_uniform_rns (int64 arithmetic on the card)
+    bit-equal to the host numpy form, all-zero and all-ones keys among 64."""
+    qs = find_ntt_primes(4096, 30, 2)
+    keys = np.random.default_rng(3).integers(0, 1 << 32, (64, 2),
+                                             dtype=np.uint32)
+    keys[0], keys[1] = 0, (1 << 32) - 1
+    got = tf_uniform_rns(torch.from_numpy(keys.astype(np.int64)).to(cuda),
+                         qs, 4096).cpu().numpy()
+    for i, k in enumerate(keys):
+        np.testing.assert_array_equal(got[i], t_bfv.tf_uniform_rns(k, qs,
+                                                                   4096))
+
+
+@pytest.mark.parametrize("entry", ["host", "seedTf"])
+def test_packed_service_on_cuda_matches_cpu(cuda, entry):
+    """The packed program on the card (every transform one K2 launch)
+    against the same program on the CPU and the numpy twin, bit for bit, at
+    the operating point (N=4096, 2 limbs, t = 2^24 + 1, d=128, P=256, G=16)
+    with nq = 17: two response cts, the second holding one query."""
+    client = HEClient(HEParams(resp_mod="packed"), seed=6)
+    rng = np.random.default_rng(9)
+    base = rng.integers(0, 256, (900, 128)).astype(np.float32)
+    q = rng.integers(0, 256, (17, 128)).astype(np.float32)
+    cand = np.stack([rng.permutation(900)[:256] for _ in range(17)])
+    gks = client.bfv_extraction_keys_wire(128)
+    gpu = HEComputeService(client.params, device=cuda)
+    cpu = HEComputeService(client.params, device="cpu")
+    for s in (gpu, cpu):
+        s.set_base(base)
+        s.register_galois_keys("k", gks)
+    wires = client.encrypt_query_batch(q)
+    cts = [cpu.ctx.ct_from_wire(w) for w in wires]
+    before = k2.ntt4_transform.launches
+    if entry == "host":
+        rg = gpu.encrypted_scores_packed(cts, cand, "k")
+        want = 50
+    else:
+        rg = gpu.encrypted_scores_packed_wire(wires, cand, "k")
+        want = 52
+    assert k2.ntt4_transform.launches == before + want
+    rc = cpu.encrypted_scores_packed(cts, cand, "k")
+    assert rg[2] == rc[2] == 16 and len(rg[0]) == len(rc[0]) == 2
+    ctq, pad_idx, _ = cpu.prepare(cts, cand)
+    twin = cpu._packed_mac_numpy(ctq, pad_idx, cpu._galois_bfv["k"])
+    for i, (a, b) in enumerate(zip(rg[0], rc[0])):
+        for comp, x, y in ((0, a.c0, b.c0), (1, a.c1, b.c1)):
+            np.testing.assert_array_equal(x, y)
+            np.testing.assert_array_equal(x, twin[i, comp])
+    got = client.decrypt_scores_packed([c.to_wire() for c in rg[0]], rg[1],
+                                       q, rg[2])
     np.testing.assert_array_equal(
         got, ((base[cand] - q[:, None]) ** 2).sum(-1))
 

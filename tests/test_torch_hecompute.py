@@ -7,12 +7,14 @@ All integer: tolerance zero. The JAX service runs its jitted device program
 the port runs its torch program on CPU tensors, where kernel K2's wrapper
 takes the plain version. The numpy twins are the independent oracle."""
 
+import dataclasses
 import json
 
 import numpy as np
 import pytest
 import torch
 
+from prefhetch_tpu.client.he import HEClient as JClient
 from prefhetch_tpu.data.synthetic import make_clustered_dataset
 from prefhetch_tpu.engine.hecompute import HEComputeService as JService
 from prefhetch_tpu.engine.server import QueryEngine as JEngine
@@ -163,6 +165,30 @@ def engines():
 BIN = {"content-type": wire_bin.CONTENT_TYPE}
 
 
+def _he_mode(monkeypatch, je, te, resp_mod):
+    """Both engines configured for ``resp_mod``, their HE services built
+    anew from that configuration on first use."""
+    for e in (je, te):
+        monkeypatch.setattr(e, "config", dataclasses.replace(
+            e.config, he=dataclasses.replace(e.config.he, resp_mod=resp_mod)))
+    if hasattr(je, "_he_service"):
+        del je._he_service
+    te._he_service = None
+
+
+@pytest.mark.parametrize("resp_mod", ["full", "packed"])
+def test_he_service_params_follow_the_response_mode(engines, monkeypatch,
+                                                    resp_mod):
+    """The port's engine builds its BFV service with the JAX engine's
+    parameters: an odd t under respMod="packed", 2^24 otherwise."""
+    je, te, q, probes, base = engines
+    _he_mode(monkeypatch, je, te, resp_mod)
+    pj, pt = je.he_service.params, te.he_service.params
+    assert (pt.n, pt.t, pt.qs) == (pj.n, pj.t, pj.qs)
+    assert pt.t == (1 << 24) + (resp_mod == "packed")
+    te._he_service = None
+
+
 def _coarse_topk(disp, q, probes, k):
     req = wire_bin.encode(wire_bin.KIND_COARSE_TOPK_REQ, [
         q, probes.astype(np.int64), np.array([k], np.uint32)])
@@ -201,26 +227,32 @@ def test_coarse_topk_matches_jax(engines):
 
 @pytest.mark.parametrize("mode,jax_backend", [
     ("full", "tpu"), ("full", "numpy"), ("q1", "tpu"),
+    ("packed", "tpu"), ("packed", "numpy"),
 ])
 def test_encrypted_search_same_json_as_jax_and_exact(engines, monkeypatch,
                                                      mode, jax_backend):
     """/coarsesearch top-k → /encryptedsearch → decrypt. The port's JSON
-    equals the JAX Dispatcher's for the same body (its jitted device program
-    and its host path), and the decrypted distances equal precise_search on
-    the same candidates exactly."""
+    equals the JAX Dispatcher's byte for byte for the same body (its jitted
+    device program and its host path), and the decrypted distances equal
+    precise_search on the same candidates exactly. Packed: 4 queries with
+    G = 6 a response ct (not a multiple), Galois keys sent once per keyId,
+    and each package's client decrypts the other's server's answer."""
     je, te, q, probes, base = engines
     monkeypatch.setenv("PFH_HE_BACKEND", jax_backend)
-    if hasattr(je, "_he_service"):
-        del je._he_service
+    _he_mode(monkeypatch, je, te, mode)
     td, jd = TDispatcher(te), JDispatcher(je)
     cand = _coarse_topk(td, q, probes, 40)[0]
-    client = HEClient(_he(sparse_h=32 if mode == "q1" else None), seed=17)
+    client = HEClient(_he(sparse_h=32 if mode == "q1" else None,
+                          resp_mod=mode), seed=17)
     body = {
         "encryptedPreciseQuery": client.encrypt_query_batch(q),
         "nearestCoarseVectorIndexes": cand.tolist(),
     }
     if mode != "full":
         body["respMod"] = mode
+    if mode == "packed":
+        body["keyId"] = client.key_id
+        body["galoisKeys"] = client.bfv_extraction_keys_wire(D)
     raw = json.dumps(body)
     # privacy contract: no plaintext query in the request
     assert "preciseQuery" not in raw and '"c0"' in raw
@@ -229,16 +261,39 @@ def test_encrypted_search_same_json_as_jax_and_exact(engines, monkeypatch,
     ra = td.handle("POST", "/encryptedsearch", {}, raw.encode())
     rb = jd.handle("POST", "/encryptedsearch", {}, raw.encode())
     assert ra[0] == rb[0] == 200 and ra[1] == rb[1] == "application/json"
+    assert ra[2] == rb[2]                       # every field, bit for bit
     out_t, out_j = json.loads(ra[2]), json.loads(rb[2])
-    c1_key = "c1Ntt" if mode == "full" else "c1Q1"
-    assert set(out_t) == {c1_key, "c0Ip", "candidateNorms"}
-    assert out_t == out_j                       # every field, bit for bit
+    assert out_t == out_j
     norms = np.asarray(out_t["candidateNorms"])
-    c1, c0 = unpack_i32(out_t[c1_key]), unpack_i32(out_t["c0Ip"])
-    if mode == "full":
-        got = client.decrypt_scores_trunc(c1, c0, norms, q)
+    if mode == "packed":
+        assert set(out_t) == {"packedScores", "candidateNorms", "packGroup"}
+        assert out_t["packGroup"] == 6 and len(out_t["packedScores"]) == 1
+        got = client.decrypt_scores_packed(out_t["packedScores"], norms, q,
+                                           out_t["packGroup"])
+        jclient = JClient(HEParams(n=N, resp_mod="packed"), seed=17)
+        np.testing.assert_array_equal(jclient.decrypt_scores_packed(
+            out_t["packedScores"], norms, q, out_t["packGroup"]), got)
+        # the keys went once: a second request names the keyId only
+        assert client.bfv_extraction_keys_wire(D) is None
+        body2 = {**body, "encryptedPreciseQuery":
+                 client.encrypt_query_batch(q[::-1])}
+        del body2["galoisKeys"]
+        raw2 = json.dumps(body2).encode()
+        ra2 = td.handle("POST", "/encryptedsearch", {}, raw2)
+        assert ra2 == jd.handle("POST", "/encryptedsearch", {}, raw2)
+        out2 = json.loads(ra2[2])
+        np.testing.assert_array_equal(
+            client.decrypt_scores_packed(out2["packedScores"], norms, q[::-1],
+                                         out2["packGroup"]),
+            ((base[cand] - q[::-1, None]) ** 2).sum(-1))
     else:
-        got = client.decrypt_scores_trunc_q1(c1, c0, norms, q)
+        c1_key = "c1Ntt" if mode == "full" else "c1Q1"
+        assert set(out_t) == {c1_key, "c0Ip", "candidateNorms"}
+        c1, c0 = unpack_i32(out_t[c1_key]), unpack_i32(out_t["c0Ip"])
+        if mode == "full":
+            got = client.decrypt_scores_trunc(c1, c0, norms, q)
+        else:
+            got = client.decrypt_scores_trunc_q1(c1, c0, norms, q)
     np.testing.assert_array_equal(got, te.precise_search(q, cand))
     np.testing.assert_array_equal(
         got, ((base[cand] - q[:, None]) ** 2).sum(-1))
@@ -261,13 +316,26 @@ def test_encrypted_search_errors(engines):
         assert td.handle("POST", "/encryptedsearch", {}, raw)[0] == \
             jd.handle("POST", "/encryptedsearch", {}, raw)[0] == 400
     assert td.handle("POST", "/encryptedsearch", {}, b"{nope")[0] == 400
-    # parts of later slices: a clear refusal, never a wrong answer
-    for extra, word in (({"respMod": "packed"}, "packed"),
-                        ({"scheme": "ckks"}, "ckks")):
-        status, _, msg = td.handle("POST", "/encryptedsearch", {},
-                                   json.dumps({**ok, **extra}).encode())
-        assert status == 501 and word in json.loads(msg)["error"]
-    with pytest.raises(NotImplementedError, match="packed"):
+    # the part of a later slice: a clear refusal, never a wrong answer
+    status, _, msg = td.handle("POST", "/encryptedsearch", {},
+                               json.dumps({**ok, "scheme": "ckks"}).encode())
+    assert status == 501 and "ckks" in json.loads(msg)["error"]
+    # respMod="packed" is served, and refused as the JAX package refuses it
+    # without Galois keys for its keyId, with a wrong keyId, and with keys
+    # whose digitBits disagree with their shape
+    gks = HEClient(_he(resp_mod="packed"), seed=1).bfv_extraction_keys_wire(D)
+    for extra, word in (
+            ({}, "keyId"), ({"keyId": "nope"}, "keyId"),
+            ({"keyId": "k", "galoisKeys": {
+                g: dict(w, digitBits=15) for g, w in gks.items()}},
+             "digitBits")):
+        raw = json.dumps({**ok, "respMod": "packed", **extra}).encode()
+        st_t, _, msg_t = td.handle("POST", "/encryptedsearch", {}, raw)
+        st_j, _, msg_j = jd.handle("POST", "/encryptedsearch", {}, raw)
+        assert st_t == st_j == 400
+        assert json.loads(msg_t) == json.loads(msg_j)
+        assert word in json.loads(msg_t)["error"]
+    with pytest.raises(ValueError, match="keyId"):
         te.encrypted_precise_search(wires, np.asarray(cand),
                                     resp_mod="packed")
     with pytest.raises(NotImplementedError, match="ckks"):
@@ -282,7 +350,7 @@ def test_encrypted_search_errors(engines):
         stats["POST /encryptedsearch"]["count"]
 
 
-@pytest.mark.parametrize("mode", ["full", "q1"])
+@pytest.mark.parametrize("mode", ["full", "q1", "packed"])
 def test_stage_recording_times_the_served_path(engines, mode):
     """record_stages collects the stages of the request Dispatcher.handle
     really serves, in order, and changes nothing of the answer; outside it
@@ -292,20 +360,39 @@ def test_stage_recording_times_the_served_path(engines, mode):
     je, te, q, probes, base = engines
     td = TDispatcher(te)
     cand = _coarse_topk(td, q, probes, 40)[0]
-    client = HEClient(_he(sparse_h=32 if mode == "q1" else None), seed=3)
-    raw = json.dumps({
+    client = HEClient(_he(sparse_h=32 if mode == "q1" else None,
+                          resp_mod=mode), seed=3)
+    body = {
         "encryptedPreciseQuery": client.encrypt_query_batch(q),
         "nearestCoarseVectorIndexes": cand.tolist(), "respMod": mode,
-    }).encode()
-    want = td.handle("POST", "/encryptedsearch", {}, raw)
-    with record_stages() as times:
-        got = td.handle("POST", "/encryptedsearch", {}, raw)
-    assert got == want and got[0] == 200
-    assert list(times) == [
+    }
+    stages = [
         "json parse", "shape and range checks",
         "ct_from_wire (c1 expansion + host NTT)",
         "prepare (stack, pad, norms)", "upload", "device program",
         "download", "pack_i32", "json.dumps"]
+    if mode == "packed":
+        # the keys go with the first request of a keyId, which also builds
+        # their device tables; the request recorded after it names the
+        # keyId only, and the c1 mask never leaves the device program
+        body["keyId"] = client.key_id
+        with record_stages() as first:
+            want = td.handle("POST", "/encryptedsearch", {}, json.dumps(
+                {**body, "galoisKeys": client.bfv_extraction_keys_wire(D)}
+            ).encode())
+        assert list(first)[2] == "register galois keys"
+        assert "galois key tables (host NTT, once per key)" in first
+        stages = [
+            "json parse", "shape and range checks",
+            "wire decode (c0 + seeds)", "prepare (pad, norms)", "upload",
+            "device program", "download", "to_wire (base64)", "json.dumps"]
+    raw = json.dumps(body).encode()
+    if mode != "packed":
+        want = td.handle("POST", "/encryptedsearch", {}, raw)
+    with record_stages() as times:
+        got = td.handle("POST", "/encryptedsearch", {}, raw)
+    assert got == want and got[0] == 200
+    assert list(times) == stages
     assert all(ms >= 0 for ms in times.values())
     n = len(times)
     with stage("not recorded"):

@@ -120,6 +120,44 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+    # the packed BFV wire's modules are among them
+    assert {"prefhetch_tpu_torch.ops.threefry",
+            "prefhetch_tpu_torch.crypto.bfv",
+            "prefhetch_tpu_torch.engine.hecompute"} <= set(mods)
+
+
+def test_packed_path_runs_without_jax():
+    """The packed response end to end on the CPU with jax, flax, ml_dtypes
+    and the JAX package blocked: Galois keys, the threefry-seeded wire, the
+    seeded device program (plain K2) and the client's exact decryption.
+    Imports made only when a function runs would fail here."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'prefhetch_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from prefhetch_tpu_torch.client.he import HEClient\n"
+        "from prefhetch_tpu_torch.engine.hecompute import HEComputeService\n"
+        "from prefhetch_tpu_torch.utils.config import HEParams\n"
+        "c = HEClient(HEParams(n=256, resp_mod='packed'), seed=1)\n"
+        "s = HEComputeService(c.params, device='cpu')\n"
+        "rng = np.random.default_rng(2)\n"
+        "base = rng.integers(0, 256, (100, 32)).astype(np.float32)\n"
+        "s.set_base(base)\n"
+        "s.register_galois_keys('k', c.bfv_extraction_keys_wire(32))\n"
+        "q = rng.integers(0, 256, (3, 32)).astype(np.float64)\n"
+        "cand = rng.integers(0, 100, (3, 20))\n"
+        "cts, norms, g = s.encrypted_scores_packed_wire(\n"
+        "    c.encrypt_query_batch(q), cand, 'k')\n"
+        "w = [x.to_wire() for x in cts]\n"
+        "d = c.decrypt_scores_packed(w, norms, q, g)\n"
+        "assert (d == ((base[cand] - q[:, None]) ** 2).sum(-1)).all()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_port_sources_name_no_jax():

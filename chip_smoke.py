@@ -8,7 +8,9 @@ CUDA toolkit. It imports nothing of JAX or of the JAX package. Phases, each
 reporting on lines of its own; any failure exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi) and torch's name;
-2. build    — compiles every kernel of the port from csrc/ with nvcc, and
+2. build    — compiles every kernel of the port from csrc/ with nvcc (and
+              the host C++ libraries of the HTTP phase, native/*.cpp, with
+              g++ beside them), and
               checks that K1's and K2's machine code multiply on the tensor
               cores (HMMA or HGMMA for K1's bf16, IMMA for K2's int8 digit
               products, in cuobjdump -sass);
@@ -64,6 +66,29 @@ reporting on lines of its own; any failure exits non-zero:
               around each, decrypted distances equal to precise_search,
               recall equal to the encrypted path's, the stage breakdown of
               one request with its bytes, and its device time by kernel;
+   http     — the reference's protocol served over HTTP on the same engine
+              by the native epoll frontend, in-process (max_batch 256,
+              grace 1.5 ms, 3 resolvers; /stats must report it): the port's
+              ClientPipeline runs stages 2-8 on 64 queries (GET /query, JSON
+              /coarsesearch of every candidate in the probed lists,
+              /precisesearch, /precise-vector-pir), its final ids equal to
+              the same stages run in-process, precise distances the float64
+              ones, vectors base[ids] bit for bit, recall above the limits;
+              the binary wire (GET /tiletable, the tiled q16 coarse kind,
+              client selection, binary /precisesearch) on the same queries;
+              64 threads x 20 one-query binary /search requests, every
+              answer equal to the single-request answer, K1 launched once
+              per engine call of the waves, q/s, p50 and p99 on one line
+              with the card's name and power limit; one "full" and one
+              "packed" /encryptedsearch request of stage 6 over HTTP,
+              decrypted to precise_search exactly with 4 and 52 K2
+              launches; then the port's server (python -m
+              prefhetch_tpu_torch.serve.main --frontend native, its index
+              built on the card) and driver (python -m
+              prefhetch_tpu_torch.client.driver) as two processes on a 100K
+              SIFT-style dataset at the preset's widths, the client
+              driver's timing line and recall/MRR block required, the
+              server killed by PID;
    variants — the quantised and slab scan variants of the triage pipeline
               (pipeline.query_pipeline) on the same index and base:
               quant="pq" (PQ codes, 256-slot tiles, K3 over the probed
@@ -1629,6 +1654,464 @@ def phase_ablation(k4args, k5args, tb, nbatch: int) -> None:
         f"ms a launch: " + ", ".join(f"{v} {t:.4f}" for v, t in k2.items()))
 
 
+HTTP_THREADS, HTTP_PER_THREAD = 64, 20
+HTTP_PROC_NBASE, HTTP_PROC_NTRAIN = 100_000, 50_000
+
+
+def in_process(cfg, disp):
+    """The same client with in-process Dispatcher calls for its transport:
+    the reference run of the same stages."""
+    from prefhetch_tpu_torch.client.pipeline import ClientPipeline
+
+    def send(method, route, body):
+        status, _, out = disp.handle(method, "/" + route, {}, body)
+        if status != 200:
+            raise AssertionError(f"in-process {method} /{route}: "
+                                 f"{status} {out[:300]!r}")
+        return out
+
+    return ClientPipeline(cfg, send=send)
+
+
+def run_stages(client, queries):
+    """Stages 2-8 of the reference's client on ``queries``. Returns (final
+    ids [nq, K], their vectors, precise scores [nq, CP], the candidates
+    they score, the sorted coarse candidates, list sizes, stage ms)."""
+    ms = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    cents = timed("2 GET /query", client.get_centroids)
+    _, order = timed("3 sort centroids", client.sort_nearest_centroids,
+                     queries, cents)
+    cs, ci, sizes = timed("4 POST /coarsesearch", client.get_coarse_scores,
+                          order, queries)
+    sorted_coarse = timed("5 sort candidates",
+                          client.compute_nearest_coarse_vectors, cs, ci,
+                          sizes)
+    ps, cand = timed("6 POST /precisesearch", client.get_precise_scores,
+                     sorted_coarse, queries)
+    _, sorted_ids = timed("7 sort precise",
+                          client.compute_nearest_precise_vectors, ps, cand)
+    vecs, top = timed("8 POST /precise-vector-pir",
+                      client.get_precise_vectors_pir, sorted_ids)
+    return top, vecs, ps, cand, sorted_coarse, order, sizes, ms
+
+
+def http_recall(tag, ids, groundtruth, k):
+    from prefhetch_tpu_torch.metrics import benchmark_results
+
+    rep = benchmark_results(ids, groundtruth[: len(ids)], k=k)
+    log("http", f"{tag}: recall@1 {rep.recall_1} recall@10 {rep.recall_10} "
+        f"recall@100 {rep.recall_100} mrr@10 {rep.mrr_10}")
+    if rep.recall_10 < RECALL10_MIN or rep.recall_100 < RECALL100_MIN:
+        raise AssertionError(
+            f"{tag}: recall@10 {rep.recall_10} / recall@100 "
+            f"{rep.recall_100} below {RECALL10_MIN} / {RECALL100_MIN}")
+    return rep
+
+
+def http_json_protocol(cfg, addr, disp, engine, data, queries):
+    """Step 2: the reference's protocol over JSON, against the same stages
+    run in-process. Returns the HTTP run's sorted coarse candidates and
+    probes for the steps after it."""
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.client.pipeline import ClientPipeline
+
+    client = ClientPipeline(cfg, addr)     # records bytes and wire ms a route
+    top, vecs, ps, cand, sorted_coarse, order, sizes, ms = run_stages(
+        client, queries)
+    top_r, _, ps_r, cand_r, *_ = run_stages(in_process(cfg, disp), queries)
+    if not (np.array_equal(top, top_r) and np.array_equal(cand, cand_r)):
+        raise AssertionError("the stages over HTTP chose other ids than "
+                             "the same stages in-process")
+    np.testing.assert_array_equal(ps, ps_r)
+    dev = engine.device
+    base64 = torch.from_numpy(data["base"]).to(dev, torch.float64)
+    q64 = torch.from_numpy(queries).to(dev, torch.float64)
+    exact = ((base64[torch.from_numpy(cand).to(dev)] - q64[:, None]) ** 2
+             ).sum(-1).cpu().numpy()
+    np.testing.assert_allclose(ps, exact, rtol=1e-6)
+    if not np.array_equal(vecs, data["base"][top]):
+        raise AssertionError("/precise-vector-pir vectors differ from "
+                             "base[ids]")
+    log("http", f"JSON protocol, {len(queries)} queries over HTTP (stages "
+        f"2-8, host clock): " + ", ".join(
+            f"{k} {v:.1f} ms" for k, v in ms.items()))
+    with urllib.request.urlopen(addr + "stats", timeout=60) as r:
+        served = json.loads(r.read())
+    log("http", "  per route: response bytes, wire ms (request to response "
+        "read), server ms (Dispatcher, /stats mean): " + "; ".join(
+            f"{k} {client.bytes[k]:,} B, {client.wire_ms[k]:.1f}, "
+            f"{served[('GET /' if k == 'query' else 'POST /') + k]['mean_ms']}"
+            for k in client.bytes))
+    log("http", f"  {sizes.mean():.0f} candidates a query (min "
+        f"{sizes.min()}); "
+        f"final ids = in-process, precise = float64 (rtol 1e-6), vectors = "
+        f"base[ids] bit for bit")
+    http_recall("JSON protocol", top, data["groundtruth"], cfg.protocol.k)
+    return sorted_coarse, order[:, :cfg.protocol.nprobe], sizes
+
+
+def http_binary(cfg, addr, engine, data, queries, probes, sizes):
+    """Step 3: the binary wire — tile table, the tiled q16 coarse kind with
+    ids resolved from the cached table, client selection, binary
+    /precisesearch."""
+    import numpy as np
+
+    from prefhetch_tpu_torch.client.binwire import BinWireClient
+    from prefhetch_tpu_torch.utils import wire_bin
+
+    cp, k = cfg.protocol.coarse_probe, cfg.protocol.k
+    client = BinWireClient(addr)
+    try:
+        t0 = time.perf_counter()
+        client.fetch_tiletable()
+        t1 = time.perf_counter()
+        ids, qd, _, _ = client.coarse_round(queries, probes)
+        t2 = time.perf_counter()
+        valid = qd != wire_bin.Q16_PAD
+        if not np.array_equal(valid.sum(1), sizes):
+            raise AssertionError("the tiled kind's valid lanes differ from "
+                                 "listSizesPerQuery")
+        list_ids = engine.index.list_ids.cpu().numpy()
+        for r in range(len(queries)):
+            if not np.isin(ids[r][valid[r]], list_ids[probes[r]]).all():
+                raise AssertionError(f"query {r}: a tile-table id is not "
+                                     f"in a probed list")
+        t3 = time.perf_counter()
+        cand = client.coarse_topk(queries, probes, cp)
+        t4 = time.perf_counter()
+        scores = client.precise(queries, cand)
+        t5 = time.perf_counter()
+    finally:
+        client.close()
+    order = np.argsort(scores, axis=1, kind="stable")[:, :k]
+    final = np.take_along_axis(cand, order, axis=1)
+    log("http", f"binary wire (host clock): GET /tiletable "
+        f"{(t1 - t0) * 1e3:.1f} ms ({client.tile_ids.nbytes:,} B of ids), "
+        f"tiled /coarsesearch (q16) {(t2 - t1) * 1e3:.1f} ms "
+        f"({qd.nbytes:,} B of q16 lanes), the same + client top-{cp} "
+        f"{(t4 - t3) * 1e3:.1f} ms, binary /precisesearch "
+        f"{(t5 - t4) * 1e3:.1f} ms; every valid lane's id is in a probed "
+        f"list")
+    http_recall("binary wire", final, data["groundtruth"], k)
+
+
+def http_concurrency(cfg, srv, disp, queries, probes, smi):
+    """Step 4: HTTP_THREADS threads, each sending HTTP_PER_THREAD one-query
+    binary /search requests on a keep-alive connection. Returns (q/s, p50
+    ms, p99 ms, fused engine calls, waves, rows a wave, K1 launches)."""
+    import http.client
+    import threading
+
+    import numpy as np
+
+    from prefhetch_tpu_torch.ops import union_scan_min as usm
+    from prefhetch_tpu_torch.utils import wire_bin
+
+    k = cfg.protocol.k
+    nq = len(queries)
+    reqs = [wire_bin.encode(wire_bin.KIND_SEARCH_REQ, [
+        queries[i:i + 1], probes[i:i + 1], np.array([k], np.uint32)])
+        for i in range(nq)]
+    hdr = {"content-type": wire_bin.CONTENT_TYPE}
+    single = [wire_bin.decode(disp.handle("POST", "/search", hdr, r)[2])[1]
+              for r in reqs]
+    n_req = HTTP_THREADS * HTTP_PER_THREAD
+    results = [None] * n_req
+    start = threading.Barrier(HTTP_THREADS)
+
+    def client(t):
+        c = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+        try:
+            start.wait(timeout=120)
+            for j in range(HTTP_PER_THREAD):
+                slot = t * HTTP_PER_THREAD + j
+                t0 = time.perf_counter()
+                c.request("POST", "/search", body=reqs[slot % nq],
+                          headers={"Content-Type": wire_bin.CONTENT_TYPE})
+                r = c.getresponse()
+                body = r.read()
+                results[slot] = (r.status, body,
+                                 (time.perf_counter() - t0) * 1e3)
+        finally:
+            c.close()
+
+    wrappers, plains = kernel_counters()
+    for w in wrappers.values():
+        w.launches = 0
+    for p in plains:
+        p.calls = 0
+    calls0 = srv.group_calls["fused"]
+    tm0 = srv.snapshot()
+    def burst():
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(HTTP_THREADS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        return threads
+
+    t0 = time.perf_counter()
+    threads = burst()
+    wall = time.perf_counter() - t0
+    k1 = usm.union_scan_min.launches
+    fused = srv.group_calls["fused"] - calls0
+    tm1 = srv.snapshot()
+    tm = {key: tm1[key] - tm0[key] for key in (
+        "waves", "rows", "decode_s", "dispatch_s", "queue_s", "resolve_s",
+        "encode_s", "poll_s")}
+    waves, rows = tm["waves"], tm["rows"]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a /search client thread did not finish")
+    failed = [r for r in results if r is None or r[0] != 200]
+    if failed:
+        raise AssertionError(f"{len(failed)} of {n_req} /search requests "
+                             f"failed")
+    differ = 0
+    for slot, (_, body, _) in enumerate(results):
+        ids, dists = wire_bin.decode(body)[1]
+        want_ids, want_d = single[slot % nq]
+        differ += not (np.array_equal(ids, want_ids)
+                       and np.array_equal(dists, want_d))
+    if differ:
+        raise AssertionError(f"{differ} of {n_req} answers differ from the "
+                             f"single-request answers")
+    if k1 != fused or fused < 1:
+        raise AssertionError(f"K1 launched {k1} times for {fused} engine "
+                             f"calls of the waves")
+    if sum(p.calls for p in plains) != 0:
+        raise AssertionError("a plain version ran on the HTTP path")
+    lat = np.array([r[2] for r in results])
+    qps = n_req / wall
+    p50, p99 = (float(np.percentile(lat, p)) for p in (50, 99))
+    log("http", f"POST /search x{n_req} ({HTTP_THREADS} threads x "
+        f"{HTTP_PER_THREAD}, one query, k={k}, keep-alive) on the native "
+        f"frontend: {qps:.1f} q/s, p50 {p50:.2f} ms, p99 {p99:.2f} ms "
+        f"(host clock, {wall:.2f} s), {waves} waves, "
+        f"{rows / max(waves, 1):.1f} rows a wave, K1 launches {k1} = "
+        f"engine calls {fused}; answers = single-request answers; {smi}")
+    # K1 against its plain version at the shapes this path gave it: the
+    # engine does not pad, so a wave runs K1 at its own row count (these
+    # launches come after the counts were read)
+    engine = srv.engine
+    view = engine._tiled_view
+    for rows_k1 in sorted({1, max(1, round(rows / max(waves, 1))),
+                           srv.snapshot()["max_batch"]}):
+        sel = np.arange(rows_k1) % nq
+        _, q_w, union_w, _, _ = engine._tiled_batch_prep(probes[sel],
+                                                         queries[sel])
+        check_union_scan_min(f"http/wave nq={rows_k1}", view.payload,
+                             view.norms, view.sizes, q_w, union_w,
+                             min_atol=4.0)
+    per = {key: 1e3 * tm[key] / max(waves, 1) for key in (
+        "decode_s", "dispatch_s", "queue_s", "resolve_s", "encode_s",
+        "poll_s")}
+    log("http", f"  a wave, mean ms (thread seconds; the 3 resolvers' add "
+        f"up): " + ", ".join(f"{key[:-2]} {v:.2f}" for key, v in
+                             per.items())
+        + f"; at most {tm1['resolving_max']} resolvers inside a "
+        f"resolver at once; wall per wave {1e3 * wall / max(waves, 1):.2f}")
+    wall_p, busy_p, prof = profile_device(
+        f"the same {n_req} /search requests again under the profiler",
+        burst)
+    k1_ms = sum(us for us, key, _ in prof if "union_scan_min" in key) / 1e3
+    if prof:
+        log("profile", f"  K1 {k1_ms:.4f} ms of the device's busy "
+            f"{busy_p:.3f} ms; device busy {100 * busy_p / wall_p:.1f}% of "
+            f"the burst's {wall_p:.1f} ms")
+    return {"qps": qps, "p50_ms": p50, "p99_ms": p99, "waves": waves,
+            "fused_calls": fused, "rows_per_wave": rows / max(waves, 1),
+            "k1_launches": k1, "requests": n_req}
+
+
+def http_encrypted(cfg, addr, engine, queries, sorted_coarse):
+    """Step 5: one "full" and one "packed" /encryptedsearch request of the
+    reference client's stage 6 over HTTP, decrypted by the client. Returns
+    K2's launches per request by wire."""
+    import numpy as np
+
+    from prefhetch_tpu_torch.client.he import HEClient
+    from prefhetch_tpu_torch.client.pipeline import ClientPipeline
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
+
+    L = cfg.he.n_limbs
+    n_elts = len(engine.he_service.ctx.extraction_elts(cfg.he.n, D))
+    want = {"full": 2 * L,
+            "packed": L + 2 * L + 2 * (L + 1) * n_elts + 2 * L}
+    per_request, rows = {}, []
+    k2s.ntt4_step_plain.calls = 0
+    for mode in ("full", "packed"):
+        he = dataclasses.replace(cfg.he, resp_mod=mode)
+        client = ClientPipeline(dataclasses.replace(cfg, he=he), addr)
+        hec = HEClient(he)
+        before = k2.ntt4_transform.launches
+        t0 = time.perf_counter()
+        dists, cand = client.get_encrypted_precise_scores(
+            sorted_coarse, queries, he_client=hec)
+        ms = (time.perf_counter() - t0) * 1e3
+        per_request[mode] = k2.ntt4_transform.launches - before
+        plain = engine.precise_search(queries, cand)
+        if not np.array_equal(dists, plain):
+            raise AssertionError(f"{mode} over HTTP: decrypted distances "
+                                 f"differ from precise_search")
+        rows.append(f"{mode} {ms:.1f} ms (wire "
+                    f"{client.wire_ms['encryptedsearch']:.1f} ms, "
+                    f"{client.bytes['encryptedsearch']:,} B down), K2 "
+                    f"launches {per_request[mode]}")
+    log("http", f"POST /encryptedsearch over HTTP, {len(queries)} queries "
+        f"(client encrypt + request + decrypt, host clock; wire = request "
+        f"sent to response read): "
+        + "; ".join(rows) + f" (expected {want}); decrypted distances = "
+        f"precise_search")
+    if per_request != want:
+        raise AssertionError(f"K2 launches per HTTP request {per_request}, "
+                             f"expected {want}")
+    if k2s.ntt4_step_plain.calls:
+        raise AssertionError("K2's plain version ran on the HTTP path")
+    return per_request
+
+
+def http_two_processes(cfg, device: str):
+    """Step 6: the port's server and driver as two processes on a 100K
+    SIFT-style dataset at the preset's widths; the server builds its index
+    on ``device`` (the card)."""
+    import re
+    import socket
+    import urllib.request
+
+    from prefhetch_tpu_torch.data.synthetic import write_sift_style_dataset
+
+    work = os.path.join(ROOT, "prefhetch_tpu_torch", "build", "smoke_http")
+    shutil.rmtree(work, ignore_errors=True)
+    t0 = time.perf_counter()
+    paths = write_sift_style_dataset(
+        work, prefix="sift100k", nbase=HTTP_PROC_NBASE,
+        ntrain=HTTP_PROC_NTRAIN, nquery=NQ_BATCH, d=D, n_clusters=600,
+        gt_k=100, seed=21)
+    pcfg = dataclasses.replace(
+        cfg, nbase=HTTP_PROC_NBASE, train_path=paths["train"],
+        base_path=paths["base"], query_path=paths["query"],
+        groundtruth_path=paths["groundtruth"])
+    cfg_path = os.path.join(work, "cfg.json")
+    with open(cfg_path, "w") as f:
+        f.write(pcfg.to_json())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    log_path = os.path.join(work, "server.log")
+    t_data = time.perf_counter() - t0
+    with open(log_path, "wb") as logf:
+        srv = subprocess.Popen(
+            [sys.executable, "-m", "prefhetch_tpu_torch.serve.main",
+             "--config", cfg_path, "--port", str(port), "--index-dir", work,
+             "--frontend", "native", "--device", device],
+            stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+    ok = False
+    try:
+        t0 = time.perf_counter()
+        deadline = t0 + 300
+        while True:
+            if srv.poll() is not None:
+                raise AssertionError(f"the server exited with "
+                                     f"{srv.returncode}")
+            if time.perf_counter() > deadline:
+                raise AssertionError("the server did not answer /healthz "
+                                     "in 300 s")
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=2) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                time.sleep(0.25)
+        t_up = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        drv = subprocess.run(
+            [sys.executable, "-m", "prefhetch_tpu_torch.client.driver",
+             "--config", cfg_path, "--server",
+             f"http://127.0.0.1:{port}/"],
+            capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
+        t_drv = time.perf_counter() - t0
+        out = drv.stdout + drv.stderr
+        if drv.returncode != 0:
+            raise AssertionError(f"the client driver exited with "
+                                 f"{drv.returncode}:\n{out[-3000:]}")
+        taken = re.search(r"Time taken for client queries = (\d+) us "
+                          r"\((\d+) ms\)", out)
+        rec = re.search(r"Recall@1 = \S+, Recall@10 = \S+, Recall@100 = "
+                        r"\S+", out)
+        mrr = re.search(r"MRR@1 = \S+, MRR@10 = \S+, MRR@100 = \S+", out)
+        if not (taken and rec and mrr):
+            raise AssertionError(f"no timing or recall/MRR block in the "
+                                 f"driver's output:\n{out[-3000:]}")
+        log("http", f"two processes, {HTTP_PROC_NBASE:,} x {D} SIFT-style "
+            f"(data {t_data:.1f} s): server up (index built on the card) "
+            f"in {t_up:.1f} s, driver {t_drv:.1f} s: {taken.group(0)}; "
+            f"{rec.group(0)}; {mrr.group(0)}")
+        for line in out.splitlines():
+            if "stage " in line:
+                log("http", "  driver " + line.split("] ")[-1])
+        ok = True
+    finally:
+        srv.kill()
+        srv.wait(timeout=30)
+        if not ok:
+            with open(log_path, "rb") as f:
+                print(f.read()[-3000:].decode(errors="replace"),
+                      file=sys.stderr)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_http(engine, disp, data, queries, probes, smi) -> dict:
+    """The reference's protocol served over HTTP by the in-process native
+    frontend (the JAX bench's serving settings), then the port's server
+    and driver as two processes. Returns the numbers of the kernels line."""
+    import urllib.request
+
+    from prefhetch_tpu_torch.serve.native_server import serve_forever_native
+
+    t_phase = time.perf_counter()
+    # every request of this phase goes to 127.0.0.1: no proxy, whatever
+    # the environment names
+    os.environ["NO_PROXY"] = os.environ["no_proxy"] = "*"
+    cfg = engine.config
+    srv = serve_forever_native(engine, port=0, background=True,
+                               max_batch=256, grace_ms=1.5, n_resolvers=3)
+    addr = f"http://127.0.0.1:{srv.port}/"
+    try:
+        with urllib.request.urlopen(addr + "stats", timeout=60) as r:
+            frontend = json.loads(r.read()).get("frontend", {})
+        if frontend.get("name") != "native":
+            raise AssertionError(f"/stats reports frontend {frontend}")
+        log("http", f"native frontend on :{srv.port} (max_batch 256, grace "
+            f"1.5 ms, 3 resolvers); /stats reports it")
+        q = queries[:NQ_BATCH]
+        sorted_coarse, probes_c, sizes = http_json_protocol(
+            cfg, addr, disp, engine, data, q)
+        http_binary(cfg, addr, engine, data, q, probes_c, sizes)
+        conc = http_concurrency(cfg, srv, disp, queries, probes, smi)
+        conc["k2_per_request"] = http_encrypted(cfg, addr, engine, q,
+                                                sorted_coarse)
+    finally:
+        srv.shutdown()
+    http_two_processes(cfg, engine.device.type)
+    log("http", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return conc
+
+
 def main() -> int:
     try:
         import torch
@@ -1653,6 +2136,9 @@ def main() -> int:
 
     import numpy as np
 
+    from concurrent.futures import ThreadPoolExecutor
+
+    from prefhetch_tpu_torch import native
     from prefhetch_tpu_torch.data.io import write_fvecs
     from prefhetch_tpu_torch.data.synthetic import make_clustered_dataset
     from prefhetch_tpu_torch.engine.server import QueryEngine
@@ -1686,7 +2172,18 @@ def main() -> int:
                "tile_schedule"]
     for name in kernels:                  # always compile from the sources
         cuda_build.library_path(name).unlink(missing_ok=True)
-    built = cuda_build.build(kernels)
+    # the host C++ libraries of the HTTP phase, built beside nvcc
+    for name in (native.CODEC, native.HTTP):
+        native.library_path(name).unlink(missing_ok=True)
+    with ThreadPoolExecutor(2) as pool:
+        t0 = time.perf_counter()
+        host_libs = [pool.submit(native.build, n)
+                     for n in (native.CODEC, native.HTTP)]
+        built = cuda_build.build(kernels)
+        for f in host_libs:
+            f.result()
+        log("build", f"host libraries {native.CODEC}, {native.HTTP} (g++): "
+            f"{time.perf_counter() - t0:.2f} s with nvcc beside them")
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -1839,7 +2336,10 @@ def main() -> int:
         engine, disp, data, queries, cands, rep_e, reset_counts)
     k2_err = max(k2_err, k2_err_p)
 
-    # -- 4c. the quantised and slab scan variants of the triage pipeline -----
+    # -- 4c. the reference's protocol served over HTTP ------------------------
+    http = phase_http(engine, disp, data, queries, probes, smi)
+
+    # -- 4d. the quantised and slab scan variants of the triage pipeline -----
     sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     hold = {}
     variant_rows = phase_variants(engine, data, queries, reset_counts, sm_mhz,
@@ -1911,6 +2411,10 @@ def main() -> int:
         "library_ms": library_ms,
         "library_call": "torch.matmul bf16 [nq,d]x[d,U_real*T], the cross "
                         "term only (a partial function)",
+        "launches_http": http["k1_launches"],
+        "path_http": f"POST /search x{http['requests']} over HTTP, native "
+                     f"frontend, {http['fused_calls']} engine calls in "
+                     f"{http['waves']} waves",
     }, {
         "name": "ntt4_transform",
         "route": "cuda",
@@ -1928,6 +2432,7 @@ def main() -> int:
             ("ms", "ms_events", "plain_ms", "bound_ms", "bound_by")},
         "library_ms": None,
         "per": "transform (one launch)",
+        "launches_http_per_request": http["k2_per_request"],
         "library_call": "none: no single PyTorch call computes an exact "
                         "modular matrix product",
     }, {

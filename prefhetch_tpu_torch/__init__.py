@@ -6,24 +6,29 @@ reader finds each pair, and the tests hold each against the other on the same
 inputs. Plain tensor code is PyTorch; every Pallas kernel of the JAX package
 becomes a kernel written by hand for Hopper under ``csrc/``.
 
-Ported so far (the fused triage search and the BFV encrypted re-rank, each
-end to end):
+Ported so far (the fused triage search, the BFV encrypted re-rank with its
+packed wire, the scan variants, and serving over HTTP, each end to end):
 
 - ``data``     — fvecs/ivecs IO and the synthetic SIFT-style generator (copies)
 - ``index``    — ``IVFIndex`` dataclass, k-means/PQ build, npz save/load,
-                 the tiled serving view
+                 the tiled serving views
 - ``ops``      — distances, top-k, the union scan with its CUDA kernel
                  (``ops/union_scan_min.py``), exact re-rank, k-means; the
                  four-step NTT (``ops/ntt4.py``) with its CUDA kernel, one
-                 launch per transform (``ops/ntt4_fused.py``)
+                 launch per transform (``ops/ntt4_fused.py``); the PQ, SQ8
+                 and slab scans with theirs
 - ``crypto``   — host-side RNS-BFV, the butterfly NTT, packing, RNG (numpy)
-- ``client``   — ``HEClient``: keygen, query encryption, score decryption
-- ``engine``   — ``QueryEngine`` (fused search, coarse top-k, encrypted
-                 re-rank) and ``HEComputeService``
-- ``serve``    — ``Dispatcher`` subset (``/query``, ``/healthz``, ``/stats``,
-                 binary ``/search`` and ``/coarsesearch``,
-                 ``/encryptedsearch``)
-- ``utils``    — config presets, wire codecs, the nvcc build helper
+- ``client``   — ``HEClient``; the reference's client stages
+                 (``client/pipeline.py``), the binary-wire client and the CLI
+- ``engine``   — ``QueryEngine`` (the reference's four services, the tiled
+                 and top-k coarse wires, fused search, encrypted re-rank)
+                 and ``HEComputeService``
+- ``serve``    — ``Dispatcher`` (every route but ``/pir-fetch``), the
+                 batcher, the threaded, asyncio and native epoll frontends,
+                 and ``python -m prefhetch_tpu_torch.serve.main``
+- ``native``   — the host C++ libraries (JSON codec, epoll frontend), built
+                 with g++ at first use
+- ``utils``    — config presets, wire codecs, timers, the nvcc build helper
 
 Importing this package has no side effects: it imports no JAX, touches no
 device and builds nothing. Entry points take ``device=`` (default

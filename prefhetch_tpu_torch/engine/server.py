@@ -2,23 +2,33 @@
 
 (reference: include/server/server_lib.h:12-50, src/server/server_lib.cpp)
 
-Subset of the JAX ``QueryEngine`` ported so far:
-
 - index lifecycle: cold build (train + add + save) vs warm load of the
   parameter-encoding npz (init_index, server_lib.cpp:55-99); either package
-  reads the other's file;
-- raw base vectors resident on the device for the exact re-rank;
-- services: retrieve_centroids (GET /query), precise_search, and the fused
-  triage round search_fused (POST /search): tiles → union scan with tile
-  pruning (kernel K1) → two-level top-COARSE_PROBE → id resolve → exact
-  re-rank → final top-k, one chain of device work with one host sync;
-- coarse_search_topk (binary /coarsesearch top-k kind): the unpruned f32
-  union scan → top-k → id resolve, for clients that go on to the encrypted
-  re-rank;
+  reads the other's file; the process-wide instance of the reference's
+  singleton (get_instance / reset_instance), which serve/main.py uses;
+- raw base vectors resident on the device for the exact re-rank and the
+  vector fetch;
+- the reference's four services: retrieve_centroids (GET /query),
+  coarse_search (POST /coarsesearch, the ragged wire), precise_search
+  (POST /precisesearch) and precise_vector_pir (POST /precise-vector-pir);
+- the binary wire's services: tile_table (GET /tiletable) and
+  coarse_search_tiled (the tiled q16 coarse kind), coarse_search_topk (the
+  server-side top-k kind, the unpruned f32 union scan → top-k → id
+  resolve), and the fused triage round search_fused (POST /search): tiles →
+  union scan with tile pruning (kernel K1) → two-level top-COARSE_PROBE →
+  id resolve → exact re-rank → final top-k, one chain of device work with
+  one host sync. The serving frontends call the ``*_async`` forms, which
+  enqueue the device work and return a resolver;
 - encrypted_precise_search (POST /encryptedsearch), BFV with the "full",
   "q1" and "packed" response wires: Enc(⟨q, x⟩) for the candidates the
   client names, through engine/hecompute.py and kernel K2. CKKS raises
-  NotImplementedError.
+  NotImplementedError, as does enable_sharding (one device).
+
+The coarse scans of the JSON and tiled wires are plain PyTorch: the JAX
+package computes them in XLA, outside its Pallas kernels. coarse_search
+takes the tiled branch whenever the index has a tiled view, on every
+device (the branch the JAX engine runs on its accelerator and under
+``force_tiled``), and the dense scans of ops/scan.py otherwise.
 
 What the port drops: the row pinning (``rows_pin``/``_rows_pad``) and the
 power-of-two union padding of the JAX engine existed only to pin XLA
@@ -45,11 +55,16 @@ from prefhetch_tpu_torch.index.build import (
 )
 from prefhetch_tpu_torch.index.tiling import TILE, TiledView, build_tiled_view
 from prefhetch_tpu_torch.index.types import IVFIndex
-from prefhetch_tpu_torch.ops.rerank import exact_rerank, final_topk
+from prefhetch_tpu_torch.ops.rerank import (
+    exact_rerank, fetch_vectors, final_topk,
+)
+from prefhetch_tpu_torch.ops.scan import (
+    coarse_scan_flat, coarse_scan_pq, coarse_scan_sq8,
+)
 from prefhetch_tpu_torch.ops.topk import topk_select, topk_select_segmented
 from prefhetch_tpu_torch.ops.union_scan import (
     resolve_topk_ids, union_probe_tiles, union_scan_distances,
-    union_scan_pruned_fused,
+    union_scan_distances_q16, union_scan_pruned_fused,
 )
 from prefhetch_tpu_torch.utils.config import PipelineConfig
 
@@ -64,6 +79,9 @@ class QueryEngine:
     # exercise multi-tile compositions (e.g. segment pruning).
     serve_tile: Optional[int] = None
 
+    _instance: Optional["QueryEngine"] = None
+    _instance_lock = threading.Lock()
+
     def __init__(self, config: PipelineConfig, index_dir: str = ".",
                  device: "str | torch.device" = "cuda"):
         config.validate()
@@ -76,6 +94,32 @@ class QueryEngine:
         self._tiled: Optional[TiledView] = None
         self._serve_mt: dict = {}
         self._he_service = None
+
+    # Reference singleton accessor (include/server/server_lib.h:20-23).
+    @classmethod
+    def get_instance(
+        cls, config: Optional[PipelineConfig] = None, index_dir: str = ".",
+        device: "str | torch.device" = "cuda",
+    ) -> "QueryEngine":
+        with cls._instance_lock:
+            if cls._instance is None:
+                if config is None:
+                    raise ValueError("the first get_instance needs a config")
+                cls._instance = cls(config, index_dir, device=device)
+            return cls._instance
+
+    @classmethod
+    def reset_instance(cls) -> None:
+        """Drop the singleton (test isolation); a handle kept across a reset
+        must be re-acquired through get_instance."""
+        with cls._instance_lock:
+            cls._instance = None
+
+    def enable_sharding(self, n_devices: Optional[int] = None) -> None:
+        raise NotImplementedError(
+            "sharding is not ported yet (it comes with the torch.distributed "
+            "slice: parallel/mesh.py, parallel/sharded.py)"
+        )
 
     # ------------------------------------------------------------------
     def init_index(self) -> None:
@@ -187,6 +231,128 @@ class QueryEngine:
             return 0
         return j
 
+    # -- binary wire: GET /tiletable, tiled POST /coarsesearch -------------
+    def tile_table(self) -> Tuple[np.ndarray, np.ndarray, int]:
+        """The static tile→(sizes, global ids) tables a binary-wire client
+        caches once (GET /tiletable): (sizes i32 [ntiles+1],
+        ids i32 [ntiles+1, T], T). Public information — derived from the
+        same index layout the centroid export already reveals."""
+        v = self._tiled_view
+        if v is None:
+            raise ValueError("tiled wire requires a dense-payload index")
+        return v.tile_sizes_np, v.tile_ids_np, v.tile
+
+    def coarse_search_tiled(
+        self,
+        precise_query: np.ndarray,        # [nq, d]
+        nearest_centroid_idx: np.ndarray,  # [nq, nprobe]
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        return self.coarse_search_tiled_async(
+            precise_query, nearest_centroid_idx
+        )()
+
+    def coarse_search_tiled_async(
+        self,
+        precise_query: np.ndarray,        # [nq, d]
+        nearest_centroid_idx: np.ndarray,  # [nq, nprobe]
+    ):
+        """All-candidate coarse scan, tiled binary wire form; enqueues the
+        device work and returns a zero-arg resolver.
+
+        Same privacy semantics as coarse_search (EVERY candidate distance in
+        the probed lists goes back to the client, which keeps its selection
+        to itself, server_lib.cpp:111-138), but the response stays in the
+        padded tile layout:
+
+            (tile_idx i32 [nq, mt], qdist u16 [nq, mt·T],
+             dmin f32 [nq], dstep f32 [nq], counts i64 [nq])
+
+        The client resolves ids and validity from its cached tile table
+        (tile_table), so the server does no per-candidate host work."""
+        view = self._tiled_view
+        if view is None:
+            raise ValueError("tiled wire requires a dense-payload index")
+        tile_idx, q, union, pos, counts = self._tiled_batch_prep(
+            np.asarray(nearest_centroid_idx, np.int64),
+            np.asarray(precise_query, np.float32),
+        )
+        qd, dmin, dstep = union_scan_distances_q16(
+            view.payload, view.norms, view.sizes, q, union, pos
+        )
+
+        def resolve():
+            return (tile_idx, qd.cpu().numpy(), dmin.cpu().numpy(),
+                    dstep.cpu().numpy(), counts)
+
+        return resolve
+
+    # -- service 2: POST /coarsesearch ----------------------------------
+    def coarse_search(
+        self,
+        precise_query: np.ndarray,        # [nq, d]
+        nearest_centroid_idx: np.ndarray,  # [nq, nprobe]
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """All-candidate coarse scan of the client-chosen inverted lists.
+
+        Returns the reference's ragged wire layout
+        (server_lib.cpp:111-138): candidates concatenated query-after-query
+        (probe order, storage order within a list), as
+        (coarse_distance_scores [Σsizes] f32,
+         coarse_vector_indexes [Σsizes] i64,
+         list_sizes_per_query [nq] i64).
+
+        With a tiled view (any dense payload) the logical probes expand to
+        tiles, the f32 union scan scores them and ids and validity resolve
+        on the host from the static tile tables; without one, the dense
+        scans of ops/scan.py run over the padded lists, in the JAX engine's
+        order."""
+        view = self._tiled_view
+        if view is not None:
+            tile_idx, q, union, pos, counts = self._tiled_batch_prep(
+                np.asarray(nearest_centroid_idx, np.int64),
+                np.asarray(precise_query, np.float32),
+            )
+            dist = union_scan_distances(
+                view.payload, view.norms, view.sizes, q, union, pos
+            ).cpu().numpy()
+            lane = np.arange(view.tile)
+            tsz = view.tile_sizes_np[tile_idx]               # [nq, mt]
+            mask = (lane[None, None, :] < tsz[:, :, None]).reshape(-1)
+            scores = dist.reshape(-1)[mask].astype(np.float32)
+            ids = view.tile_ids_np[tile_idx].reshape(-1)[mask]
+            return scores, ids.astype(np.int64), counts
+        idx = self.index
+        q = torch.tensor(precise_query, dtype=torch.float32,
+                         device=self.device)
+        p = torch.tensor(nearest_centroid_idx, dtype=torch.int64,
+                         device=self.device)
+        if idx.list_sq is not None:
+            res = coarse_scan_sq8(
+                idx.list_sq, idx.sq_vmin, idx.sq_scale,
+                idx.list_ids, idx.list_sizes, q, p,
+            )
+        elif idx.uses_pq and idx.list_recon is not None:
+            res = coarse_scan_flat(
+                idx.list_recon, idx.list_ids, idx.list_sizes, q, p,
+                idx.list_norms,
+            )
+        elif idx.uses_pq:
+            res = coarse_scan_pq(
+                idx.centroids, idx.list_codes, idx.list_ids, idx.list_sizes,
+                idx.codebooks, q, p, by_residual=idx.params.by_residual,
+            )
+        else:
+            res = coarse_scan_flat(
+                idx.list_vectors, idx.list_ids, idx.list_sizes, q, p,
+                idx.list_norms,
+            )
+        # padded → ragged at the host/wire boundary
+        mask = res.mask.cpu().numpy().reshape(-1)
+        scores = res.distances.cpu().numpy().reshape(-1)[mask]
+        ids = res.ids.cpu().numpy().reshape(-1)[mask]
+        return (scores.astype(np.float32), ids.astype(np.int64),
+                res.counts.cpu().numpy().astype(np.int64))
+
     # -- service 3: POST /precisesearch ----------------------------------
     def precise_search(
         self,
@@ -195,11 +361,31 @@ class QueryEngine:
     ) -> np.ndarray:
         """Exact L2 of the named candidates (reference:
         server_lib.cpp:140-167)."""
+        return self.precise_search_async(
+            precise_query, nearest_coarse_vector_idx
+        )()
+
+    def precise_search_async(
+        self,
+        precise_query: np.ndarray,             # [nq, d]
+        nearest_coarse_vector_idx: np.ndarray,  # [nq, coarse_probe]
+    ):
+        """Enqueue-only form of precise_search; the resolver waits for the
+        scores [nq, coarse_probe] f32 and copies them to the host."""
         q = torch.tensor(precise_query, dtype=torch.float32,
                          device=self.device)
         cand = torch.tensor(nearest_coarse_vector_idx, dtype=torch.int64,
                             device=self.device)
-        return exact_rerank(self.base, q, cand).cpu().numpy()
+        scores = exact_rerank(self.base, q, cand)
+        return lambda: scores.cpu().numpy()
+
+    # -- service 4: POST /precise-vector-pir ------------------------------
+    def precise_vector_pir(self, ids: np.ndarray) -> np.ndarray:
+        """Gather the K named vectors per query (reference:
+        server_lib.cpp:169-196 — a PIR placeholder: ids arrive in cleartext
+        at this protocol revision)."""
+        t = torch.tensor(ids, dtype=torch.int64, device=self.device)
+        return fetch_vectors(self.base, t).cpu().numpy()
 
     # -- POST /search ------------------------------------------------------
     def search_fused(

@@ -1,0 +1,261 @@
+"""ctypes bindings to the port's host C++ libraries — the port of
+prefhetch_tpu/native/__init__.py (the parts the served path needs).
+
+Two libraries, each built from a source in this directory:
+
+- ``json_codec.cpp``: the JSON number-array codec (a copy of section 2 of
+  native/prefhetch_native.cpp), which writes the ragged ``/coarsesearch``
+  response (~10^4-10^5 numbers a query) and the other number arrays of the
+  JSON wire, and decodes them on the client;
+- ``pfh_http.cpp``: the epoll HTTP/1.1 frontend (a copy of
+  native/pfh_http.cpp) that serve/native_server.py drives.
+
+Each is compiled with g++ at first use into the package's gitignored
+``build/`` as ``lib<name>-<hash>.so``, as utils/cuda_build.py names the
+CUDA kernels. The flags are the JAX loader's, ``-march=native`` included
+(the codec's float formatting must round as the JAX package's build does),
+so the hash covers the source, the flags and this host's CPU: a library
+built on one machine is never loaded on another. Two differences from the
+JAX loader, both on purpose:
+
+- a build holds an exclusive ``fcntl.flock`` on ``build/<name>.lock``,
+  compiles to a temporary name and ``os.replace``s the result into place, so
+  processes that build at once (test workers) never load a half-written
+  file;
+- a failed build raises with the compiler's output; nothing returns None and
+  nothing on the served path carries on without the library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import platform
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Optional
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parent
+BUILD = SRC.parent / "build"
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
+             "-pthread"]
+CODEC, HTTP = "json_codec", "pfh_http"
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _cpu_id() -> str:
+    """The CPU's model and feature flags (what -march=native compiles
+    for), or the machine type where /proc/cpuinfo is absent."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if key in ("model name", "flags") and key not in info:
+                    info[key] = value.strip()
+    except OSError:
+        pass
+    return platform.machine() + "|" + "|".join(sorted(info.values()))
+
+
+def library_path(name: str, build_dir: Path = BUILD) -> Path:
+    h = hashlib.sha256((SRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(CXX_FLAGS + [_cpu_id()]).encode())
+    return Path(build_dir) / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str, build_dir: Path = BUILD) -> Path:
+    """Compile ``name``.cpp unless this source was built already with these
+    flags for this CPU; returns the library's path. Raises RuntimeError
+    with g++'s output when the build fails."""
+    path = library_path(name, build_dir)
+    if path.exists():
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path.parent / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():                 # another process built it
+            return path
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        cmd = ["g++", *CXX_FLAGS, str(SRC / f"{name}.cpp"), "-o", str(tmp)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+        except (OSError, subprocess.SubprocessError) as e:
+            raise RuntimeError(f"cannot build {name}: {e}") from e
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"g++ failed to build {name}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, path)
+    return path
+
+
+def _load(name: str, bind) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(name)))
+            bind(lib)
+            _libs[name] = lib
+        return lib
+
+
+# ---------------------------------------------------------------------------
+# JSON number-array codec
+# ---------------------------------------------------------------------------
+def _bind_codec(lib: ctypes.CDLL) -> None:
+    i64, vp = ctypes.c_int64, ctypes.c_void_p
+    for fn in (lib.pfh_json_encode_f32, lib.pfh_json_encode_i64):
+        fn.argtypes = [vp, i64, ctypes.c_char_p, i64]
+        fn.restype = i64
+    lib.pfh_json_decode_f64.argtypes = [ctypes.c_char_p, i64, vp, i64]
+    lib.pfh_json_decode_f64.restype = i64
+
+
+def codec_lib() -> ctypes.CDLL:
+    """The codec library, built on first use."""
+    return _load(CODEC, _bind_codec)
+
+
+def _encode(fn_name: str, x: np.ndarray) -> bytes:
+    cap = x.size * 26 + 32
+    buf = ctypes.create_string_buffer(cap)
+    n = getattr(codec_lib(), fn_name)(
+        x.ctypes.data_as(ctypes.c_void_p), x.size, buf, cap)
+    if n < 0:
+        raise RuntimeError(f"{fn_name}: output overran {cap} bytes")
+    return buf.raw[:n]
+
+
+def json_encode_f32(x: np.ndarray) -> bytes:
+    """Flat float array → JSON array bytes (f32 round-trip precision)."""
+    return _encode("pfh_json_encode_f32", np.ascontiguousarray(x, np.float32))
+
+
+def json_encode_i64(x: np.ndarray) -> bytes:
+    return _encode("pfh_json_encode_i64", np.ascontiguousarray(x, np.int64))
+
+
+def json_encode_f32_nested(x: np.ndarray) -> bytes:
+    """N-D float array → nested JSON array bytes, the JAX loader's bytes
+    (each trailing-axis row as the codec writes it, outer axes as JSON
+    nesting). The whole array is encoded in one codec call and the commas
+    at row boundaries become the brackets, where the JAX loader makes one
+    call, and one ctypes round trip, a row."""
+    x = np.ascontiguousarray(x, np.float32)
+    if x.ndim == 1:
+        return json_encode_f32(x)
+    if x.size == 0:
+        return b"[" + b",".join(json_encode_f32_nested(r) for r in x) + b"]"
+    flat = json_encode_f32(x.reshape(-1))          # "[v0,v1,...]"
+    m = x.shape[-1]
+    rows = x.size // m
+    # comma i follows element i; a row ends at element k·m − 1
+    commas = np.flatnonzero(np.frombuffer(flat, np.uint8) == ord(","))
+    k = np.arange(1, rows)
+    cuts = commas[k * m - 1]
+    depth = np.ones(rows - 1, np.int64)            # axes that close there
+    span = 1
+    for n in reversed(x.shape[1:-1]):
+        span *= n
+        depth += k % span == 0
+    seps = {d: b"]" * d + b"," + b"[" * d for d in range(1, x.ndim + 1)}
+    out = [b"[" * (x.ndim - 1)]
+    prev = 0
+    for c, d in zip(cuts.tolist(), depth.tolist()):
+        out.append(flat[prev:c])
+        out.append(seps[d])
+        prev = c + 1
+    out.append(flat[prev:])
+    out.append(b"]" * (x.ndim - 1))
+    return b"".join(out)
+
+
+def json_decode_array(buf: bytes, start: int = 0) -> Optional[np.ndarray]:
+    """Decode the JSON number array beginning at buf[start] ('[...]') into
+    float64; None if the input is malformed."""
+    seg = buf[start:]
+    # every element costs ≥2 bytes (digit + separator) → safe count bound
+    cap = len(seg) // 2 + 2
+    out = np.empty(cap, np.float64)
+    n = codec_lib().pfh_json_decode_f64(
+        seg, len(seg), out.ctypes.data_as(ctypes.c_void_p), cap)
+    if n < 0:
+        return None
+    return out[:n]
+
+
+def json_decode_field(body: bytes, key: str) -> Optional[np.ndarray]:
+    """Decode the flat JSON number array at `"key": [...]` inside a JSON
+    object body, without parsing the rest of the object. None when the key
+    is absent or the structure is unexpected (callers parse with json)."""
+    marker = b'"' + key.encode() + b'"'
+    pos = body.find(marker)
+    if pos < 0:
+        return None
+    pos = body.find(b":", pos + len(marker))
+    if pos < 0:
+        return None
+    pos += 1
+    while pos < len(body) and body[pos : pos + 1] in b" \t\r\n":
+        pos += 1
+    if pos >= len(body) or body[pos : pos + 1] != b"[":
+        return None
+    return json_decode_array(body, pos)
+
+
+# ---------------------------------------------------------------------------
+# epoll HTTP frontend
+# ---------------------------------------------------------------------------
+_PATH_MAX = 120   # keep in sync with pfh_http.cpp kPathMax
+
+
+class ReqDesc(ctypes.Structure):
+    """Mirror of pfh_http.cpp ReqDesc."""
+
+    _fields_ = [
+        ("req_id", ctypes.c_uint64),
+        ("body", ctypes.POINTER(ctypes.c_uint8)),
+        ("body_len", ctypes.c_uint64),
+        ("method", ctypes.c_char * 8),
+        ("path", ctypes.c_char * _PATH_MAX),
+        ("flags", ctypes.c_uint8),
+    ]
+
+
+def _bind_http(lib: ctypes.CDLL) -> None:
+    vp = ctypes.c_void_p
+    lib.pfh_http_start.argtypes = [ctypes.c_uint16, ctypes.c_int]
+    lib.pfh_http_start.restype = vp
+    lib.pfh_http_poll.argtypes = [
+        vp, ctypes.POINTER(ReqDesc), ctypes.c_int, ctypes.c_int64,
+        ctypes.c_int64,
+    ]
+    lib.pfh_http_poll.restype = ctypes.c_int
+    lib.pfh_http_respond.argtypes = [
+        vp, ctypes.c_uint64, ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
+        ctypes.c_uint64,
+    ]
+    lib.pfh_http_respond.restype = None
+    lib.pfh_http_respond_multi.argtypes = [
+        vp, ctypes.c_int, vp, vp, ctypes.c_int, vp, vp,
+    ]
+    lib.pfh_http_respond_multi.restype = None
+    lib.pfh_http_port.argtypes = [vp]
+    lib.pfh_http_port.restype = ctypes.c_uint16
+    lib.pfh_http_stop.argtypes = [vp]
+    lib.pfh_http_stop.restype = None
+
+
+def http_lib() -> ctypes.CDLL:
+    """The epoll-frontend library, built on first use."""
+    return _load(HTTP, _bind_http)

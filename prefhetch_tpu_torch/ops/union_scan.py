@@ -12,7 +12,8 @@ its epilogue, then each query keeps only its j_keep tiles with the smallest
 minimum (the minimum bounds every candidate of the tile from below) before
 the wide top-k. ``union_scan_distances`` and ``union_scan_pruned`` are the
 f32 formulations the JAX package runs through XLA; they stay plain PyTorch
-(the unpruned route and the test oracle).
+(the unpruned route, the JSON coarse wire and the test oracle), as does
+``union_scan_distances_q16``, the tiled binary coarse wire's scan.
 
 The memory-tight configuration scans the raw PQ codes (M bytes per vector)
 instead of a dense payload: ``union_pq_scan_distances`` is the exact f32 ADC
@@ -36,10 +37,11 @@ import torch
 from prefhetch_tpu_torch.ops.pq_onehot import (
     adc_lookup_sum, pq_finish, pq_probed_distances,
 )
-from prefhetch_tpu_torch.ops.topk import topk_smallest
+from prefhetch_tpu_torch.ops.topk import PAD_DISTANCE, topk_smallest
 from prefhetch_tpu_torch.ops.union_scan_min import (
     union_distances, union_scan_min,
 )
+from prefhetch_tpu_torch.utils.wire_bin import Q16_PAD
 
 U_BUCKET = 128
 
@@ -86,6 +88,35 @@ def union_scan_distances(
     d2m = union_distances(payload, norms, sizes, queries, union)
     d2m = d2m.permute(2, 0, 1)                              # [nq, U, T]
     return _extract(d2m, pos).reshape(nq, -1)
+
+
+def union_scan_distances_q16(
+    payload: torch.Tensor,   # [ntiles+1, T, d] f32/bf16
+    norms: torch.Tensor,     # [ntiles+1, T] f32
+    sizes: torch.Tensor,     # [ntiles+1] int32
+    queries: torch.Tensor,   # [nq, d] f32
+    union: torch.Tensor,     # [U] int32 tile ids
+    pos: torch.Tensor,       # [nq, max_t] int32 positions into union
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The union scan with each query's u16 range quantization — the device
+    side of the tiled binary coarse wire (utils/wire_bin.py).
+
+    Returns (qdist u16 [nq, max_t·T], dmin f32 [nq], dstep f32 [nq]):
+    valid lanes hold round((d − dmin)/dstep) ∈ [0, 65534], invalid lanes
+    Q16_PAD. Selection-grade (error ≤ the query's distance spread/65534) at
+    2 B a lane; the client rebuilds the mask from its cached tile table."""
+    out = union_scan_distances(payload, norms, sizes, queries, union, pos)
+    # PAD sorts above any real distance, so the min is safe; the max needs
+    # the mask
+    vmask = out < PAD_DISTANCE
+    dmin = torch.amin(out, dim=1)
+    dmax = torch.amax(torch.where(vmask, out, -torch.inf), dim=1)
+    dstep = torch.clamp(dmax - dmin, min=1e-20) / 65534.0
+    qd = torch.clamp(
+        torch.round((out - dmin[:, None]) / dstep[:, None]), 0, 65534
+    ).to(torch.int32)
+    qd = torch.where(vmask, qd, int(Q16_PAD)).to(torch.uint16)
+    return qd, dmin, dstep
 
 
 def pq_luts(centroids, codebooks, queries, by_residual: bool):

@@ -603,3 +603,105 @@ def test_query_pipeline_on_cuda_matches_cpu(cuda, quant, scan, kernel):
     np.testing.assert_array_equal(out["cud"][0], out["cpu"][0])
     for r in range(8):
         assert set(out["cud"][1][r]) == set(out["cpu"][1][r])
+
+
+def test_native_frontend_on_cuda(cuda, monkeypatch):
+    """The native epoll frontend over an engine on the card: concurrent
+    one-query /search requests go through K1 once per wave's engine call
+    and equal the in-process Dispatcher's answers; JSON /coarsesearch and
+    /precisesearch over HTTP equal the in-process Dispatcher's."""
+    import http.client
+    import json
+    from concurrent.futures import ThreadPoolExecutor
+
+    from prefhetch_tpu_torch.serve.handlers import Dispatcher
+    from prefhetch_tpu_torch.serve.native_server import serve_forever_native
+    from prefhetch_tpu_torch.utils import wire_bin
+
+    monkeypatch.setenv("PFH_SERVE_PRUNE_J", "4")
+    data = make_clustered_dataset(nbase=4096, ntrain=4000, nquery=32, d=32,
+                                  n_clusters=40, gt_k=50, seed=9)
+    cfg = PipelineConfig(
+        index=IndexParams(d=32, nlist=16, pq_m=8, pq_nbits=8,
+                          kmeans_iters=8, pq_kmeans_iters=8),
+        protocol=ProtocolParams(nprobe=6, coarse_probe=40, k=10, nquery=4),
+        nbase=4096,
+    )
+    engine = QueryEngine(cfg, device=cuda)
+    engine.serve_tile = 64
+    engine.set_index(build_ivf_index(data["train"], data["base"], cfg.index,
+                                     device=cuda), data["base"])
+    q = data["query"].astype(np.float32)
+    cents = engine.retrieve_centroids()
+    probes = np.argsort(((q[:, None] - cents[None]) ** 2).sum(-1), axis=1,
+                        kind="stable")[:, :6].astype(np.int64)
+    disp = Dispatcher(engine)
+    bin_hdr = {"content-type": wire_bin.CONTENT_TYPE}
+    reqs = [wire_bin.encode(wire_bin.KIND_SEARCH_REQ, [
+        q[i:i + 1], probes[i:i + 1], np.array([10], np.uint32)])
+        for i in range(len(q))]
+    single = [wire_bin.decode(disp.handle("POST", "/search", bin_hdr, r)[2])
+              for r in reqs]
+    srv = serve_forever_native(engine, port=0, background=True,
+                               max_batch=256, grace_ms=1.5, n_resolvers=3)
+
+    def post(path, body, ctype):
+        c = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=120)
+        try:
+            c.request("POST", path, body=body,
+                      headers={"Content-Type": ctype})
+            r = c.getresponse()
+            return r.status, r.read()
+        finally:
+            c.close()
+
+    try:
+        k1 = usm.union_scan_min.launches
+        calls = srv.group_calls["fused"]
+        order = list(range(len(q))) * 4
+        with ThreadPoolExecutor(32) as ex:
+            outs = list(ex.map(
+                lambda i: post("/search", reqs[i], wire_bin.CONTENT_TYPE),
+                order))
+        for i, (status, body) in zip(order, outs):
+            assert status == 200
+            _, (ids, dists) = wire_bin.decode(body)
+            np.testing.assert_allclose(dists, single[i][1][1], rtol=1e-5)
+            assert set(ids[0]) == set(single[i][1][0][0])
+        fused = srv.group_calls["fused"] - calls
+        assert 1 <= fused <= len(order)
+        assert usm.union_scan_min.launches - k1 == fused
+        for path, body in (
+            ("/coarsesearch", {"preciseQuery": q[:4].tolist(),
+                               "nearestCentroidIndexes":
+                                   probes[:4].tolist()}),
+            ("/precisesearch", {"preciseQuery": q[:4].tolist(),
+                                "nearestCoarseVectorIndexes":
+                                    np.arange(160).reshape(4, 40).tolist()}),
+        ):
+            raw = json.dumps(body).encode()
+            status, got = post(path, raw, "application/json")
+            assert status == 200
+            want = disp.handle("POST", path, {}, raw)[2]
+            gj, wj = json.loads(got), json.loads(want)
+            for key in wj:
+                np.testing.assert_allclose(gj[key], wj[key], rtol=1e-6)
+    finally:
+        srv.shutdown()
+
+
+def test_server_refuses_when_cuda_is_hidden(cuda):
+    """Asked for the card on a machine where CUDA is not visible, the
+    server exits with the reason instead of serving on the CPU."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=root)
+    run = subprocess.run(
+        [sys.executable, "-m", "prefhetch_tpu_torch.serve.main", "--port",
+         "0", "--frontend", "threaded"],
+        capture_output=True, env=env, cwd=root, timeout=120)
+    assert run.returncode == 2
+    assert b"torch.cuda.is_available() is False" in run.stderr

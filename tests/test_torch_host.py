@@ -120,10 +120,72 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
-    # the packed BFV wire's modules are among them
+    # the packed BFV wire's modules are among them, and the HTTP layers
     assert {"prefhetch_tpu_torch.ops.threefry",
             "prefhetch_tpu_torch.crypto.bfv",
-            "prefhetch_tpu_torch.engine.hecompute"} <= set(mods)
+            "prefhetch_tpu_torch.engine.hecompute",
+            "prefhetch_tpu_torch.serve.http_server",
+            "prefhetch_tpu_torch.serve.aio_server",
+            "prefhetch_tpu_torch.serve.native_server",
+            "prefhetch_tpu_torch.serve.batcher",
+            "prefhetch_tpu_torch.serve.main",
+            "prefhetch_tpu_torch.client.pipeline",
+            "prefhetch_tpu_torch.client.binwire",
+            "prefhetch_tpu_torch.client.driver",
+            "prefhetch_tpu_torch.utils.timer",
+            "prefhetch_tpu_torch.utils.logging"} <= set(mods)
+
+
+def test_http_routes_serve_without_jax(tmp_path):
+    """One JSON /coarsesearch and one /precisesearch through a threaded
+    server and the port's client, with jax, flax, ml_dtypes and the JAX
+    package blocked: the codec's build and every import on the served path
+    happen without them."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'prefhetch_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from prefhetch_tpu_torch.client.pipeline import ClientPipeline\n"
+        "from prefhetch_tpu_torch.data.synthetic import "
+        "write_sift_style_dataset\n"
+        "from prefhetch_tpu_torch.engine.server import QueryEngine\n"
+        "from prefhetch_tpu_torch.serve.http_server import serve_forever\n"
+        "from prefhetch_tpu_torch.utils.config import (\n"
+        "    IndexParams, PipelineConfig, ProtocolParams)\n"
+        f"p = write_sift_style_dataset({str(tmp_path)!r}, prefix='s', "
+        "nbase=600, ntrain=800, nquery=4, d=8, n_clusters=6, gt_k=10,\n"
+        "    seed=1)\n"
+        "cfg = PipelineConfig(\n"
+        "    index=IndexParams(d=8, nlist=4, pq_m=2, kmeans_iters=3,\n"
+        "                      pq_kmeans_iters=3),\n"
+        "    protocol=ProtocolParams(nprobe=2, coarse_probe=20, k=10,\n"
+        "                            nquery=3),\n"
+        "    nbase=600, train_path=p['train'], base_path=p['base'],\n"
+        "    query_path=p['query'], groundtruth_path=p['groundtruth'])\n"
+        f"e = QueryEngine(cfg, index_dir={str(tmp_path)!r}, device='cpu')\n"
+        "e.init_index()\n"
+        "srv = serve_forever(e, '127.0.0.1', 0, background=True)\n"
+        "try:\n"
+        "    c = ClientPipeline(\n"
+        "        cfg, f'http://127.0.0.1:{srv.server_address[1]}/')\n"
+        "    q = c.get_query()\n"
+        "    _, order = c.sort_nearest_centroids(q, c.get_centroids())\n"
+        "    cs, ci, sizes = c.get_coarse_scores(order, q)\n"
+        "    assert len(cs) == len(ci) == sizes.sum() and (sizes >= 20).all()\n"
+        "    ps, cand = c.get_precise_scores(\n"
+        "        c.compute_nearest_coarse_vectors(cs, ci, sizes), q)\n"
+        "    want = ((e.base.numpy()[cand] - q[:, None]) ** 2).sum(-1)\n"
+        "    assert np.allclose(ps, want, rtol=1e-4, atol=1e-2)\n"
+        "finally:\n"
+        "    srv.shutdown()\n"
+        "    srv.server_close()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_packed_path_runs_without_jax():

@@ -66,6 +66,25 @@ reporting on lines of its own; any failure exits non-zero:
               around each, decrypted distances equal to precise_search,
               recall equal to the encrypted path's, the stage breakdown of
               one request with its bytes, and its device time by kernel;
+   ckks     — CKKS slot-packed encrypted scoring at BASELINE.json config 3
+              (N=8192, 3 limbs, scale 2^26) on the same engine, index, base
+              and candidates, the engine's CKKS service built from those
+              parameters: K2 against its plain version at the program's
+              four primes and at [2048, 8192] and [128, 8192]; the device
+              program (host encode) bit-equal to its numpy twin
+              (CKKSComputeService) on the first query, the served gather
+              form bit-equal to the row-upload device encode on the first
+              batch, and its error the size of the host encode's; then
+              N_BATCHES combined requests of 64 seedTf queries (the first
+              carrying the 10 Galois keys) and one per-block request of 8
+              queries, with K2's launches counted around each (56 and 48);
+              the per-block distances within 0.01 of the largest distance
+              (bench.py's ckks_max_rel_err) and at the recall limits; the
+              combined ones within their own precision (2^17 absolute),
+              their relative error on the coarse candidates and on
+              bench.py's workload and their recall reported; the stage
+              breakdown of one request with its bytes, and its device time
+              by kernel;
    http     — the reference's protocol served over HTTP on the same engine
               by the native epoll frontend, in-process (max_batch 256,
               grace 1.5 ms, 3 resolvers; /stats must report it): the port's
@@ -79,10 +98,11 @@ reporting on lines of its own; any failure exits non-zero:
               64 threads x 20 one-query binary /search requests, every
               answer equal to the single-request answer, K1 launched once
               per engine call of the waves, q/s, p50 and p99 on one line
-              with the card's name and power limit; one "full" and one
-              "packed" /encryptedsearch request of stage 6 over HTTP,
-              decrypted to precise_search exactly with 4 and 52 K2
-              launches; then the port's server (python -m
+              with the card's name and power limit; one "full", one
+              "packed" and one CKKS combined /encryptedsearch request of
+              stage 6 over HTTP, decrypted (BFV exactly, CKKS within its
+              precision) with 4, 52 and 56 K2 launches; then the port's
+              server (python -m
               prefhetch_tpu_torch.serve.main --frontend native, its index
               built on the card) and driver (python -m
               prefhetch_tpu_torch.client.driver) as two processes on a 100K
@@ -147,6 +167,15 @@ INT8_MACS_PER_MODMAC = 16
 NBASE, NTRAIN, D = 1_000_000, 100_000, 128
 NQ_BATCH, N_BATCHES = 64, 4
 RECALL10_MIN, RECALL100_MIN = 0.95, 0.85
+CKKS_MAX_REL = 0.01             # bench.py's ckks_max_rel_err, config 3
+# the combined CKKS response's own precision at config 3 (the reference
+# arithmetic, bit-equal to the JAX package's): a rescale at scale 2^22 of
+# messages of ~1, read at a final scale of 2^5, leaves distance errors of
+# a few thousand whatever the distances, their spread set by the client's
+# keys (tools/ckks_noise.py: over 8 keys on SIFT-style candidates, std
+# 1.7e3-4.1e3, the largest of 64 x 256 errors 6.7e3-2.6e4). A wrong slot,
+# key or rotation errs by the order of the inner products (~1e6).
+CKKS_COMBINED_MAX_ABS = 2.0 ** 17
 Q1_SPARSE_H = 32                # sparse secret for the "q1" response wire
 
 
@@ -479,8 +508,10 @@ def encrypted_breakdown(disp, client, queries, cand, mode) -> dict:
             "nearestCoarseVectorIndexes": cand.tolist()}
     if mode != "full":
         body["respMod"] = mode
-    if mode == "packed":                  # its keys are registered already
+    if mode in ("packed", "combined"):    # its keys are registered already
         body["keyId"] = client.key_id
+    if mode == "combined":
+        body["scheme"] = "ckks"
     raw = json.dumps(body).encode()
     status, _, want = disp.handle("POST", "/encryptedsearch", {}, raw)
     if status != 200:
@@ -502,16 +533,22 @@ def encrypted_breakdown(disp, client, queries, cand, mode) -> dict:
                     "wire decode (c0 + seeds)", "prepare (pad, norms)",
                     "upload", "device program", "download",
                     "to_wire (base64)", "json.dumps"]
+    if mode == "combined":                # CKKS: gather + encode on the card
+        expected = ["json parse", "shape and range checks",
+                    "wire decode (c0 + seeds)", "upload",
+                    "gather and encode", "device program", "download",
+                    "to_wire (base64)", "json.dumps"]
     if list(times) != expected:
         raise AssertionError(f"stages recorded: {list(times)}, expected "
                              f"{expected}")
     total = sum(times.values())
-    log("encrypted", f"one {len(queries)}-query request, respMod={mode}, "
+    tag = "ckks" if mode == "combined" else "encrypted"
+    log(tag, f"one {len(queries)}-query request, respMod={mode}, "
         f"stage by stage on the served path: wall {wall:.1f} ms, stages "
         f"{total:.1f} ms; request {len(raw) / 1e6:.2f} MB, response "
         f"{len(resp) / 1e6:.2f} MB")
     for name, ms in times.items():
-        log("encrypted", f"  {ms:9.3f} ms  {100 * ms / wall:5.1f}%  {name}")
+        log(tag, f"  {ms:9.3f} ms  {100 * ms / wall:5.1f}%  {name}")
     # what no stage covers is routing and the stats record: a few percent
     if not 0.95 * wall <= total <= wall:
         raise AssertionError(f"the stages sum to {total:.1f} ms of a "
@@ -843,6 +880,363 @@ def phase_packed(engine, disp, data, queries, cands, rep_full, reset_counts):
             f"busy {busy:.3f} ms ({100 * k2_ms / busy:.1f}%); device busy "
             f"{100 * busy / wall:.1f}% of the request's {wall:.1f} ms")
     return launches, per_request, k2_err
+
+
+def ckks_he():
+    """BASELINE.json config 3's HE parameters: CKKS N=8192, 3 limbs of ~30
+    bits (and the special prime), scale 2^26, the combined response."""
+    from prefhetch_tpu_torch.utils.config import HEParams
+
+    return HEParams(scheme="ckks", n=8192, n_limbs=3, scale_bits=26,
+                    resp_mod="combined")
+
+
+def ckks_errors(dists, rows, queries):
+    """(bench.py's ckks_max_rel_err: per query the largest |error| of the
+    decrypted distances over the largest float64 distance, the worst
+    query's; the largest |error|). rows [nq, P, d] are the candidates'
+    base rows."""
+    import numpy as np
+
+    ref = ((rows.astype(np.float64)
+            - queries[:, None].astype(np.float64)) ** 2).sum(-1)
+    err = np.abs(dists.astype(np.float64) - ref).max(-1)
+    return (float((err / np.maximum(ref.max(-1), 1.0)).max()),
+            float(err.max()))
+
+
+def bench_ckks_candidates(top_ids, p: int, nbase: int):
+    """bench.py's CKKS workload (``_pad_candidates``, :2017-2027): each
+    query's final top-k ids padded to p with the consecutive base rows
+    after its last id (mod nbase)."""
+    import numpy as np
+
+    k = top_ids.shape[1]
+    extra = (top_ids[:, -1:] + 1 + np.arange(p - k)[None, :]) % nbase
+    return np.concatenate([top_ids, extra], axis=1)
+
+
+def check_k2_ckks(svc) -> int:
+    """K2 against its plain version at the CKKS program's shapes on its
+    four primes (the chain and the special prime): at the largest row count
+    the combined program gives it ([2,048, 8,192]: the pre-combine key
+    switch's 512 rows x 4 digit components) and at [128, 8,192]; forward
+    of 15-bit digits and of residues, inverse of residues, int64 as the
+    program gives them. Returns the max |difference| (0)."""
+    import torch
+
+    n = svc.params.n
+    gen = torch.Generator(device=svc.device).manual_seed(13)
+    err = 0
+    for e, tb in enumerate(svc._tables):
+        for rows in (2048, 128):
+            for what, hi, inverse in (("digits", 1 << 15, False),
+                                      ("residues", tb.q, False),
+                                      ("residues", tb.q, True)):
+                x = torch.randint(0, hi, (rows, n), generator=gen,
+                                  device=svc.device, dtype=torch.int64)
+                err = max(err, check_transform(
+                    f"ckks/p{e} [{rows}] {what} "
+                    f"{'inverse' if inverse else 'forward'}", x, tb,
+                    inverse))
+    log("kernel", f"ntt4_transform at the CKKS program's shapes on its "
+        f"primes {list(svc.ext)}: [2048, {n}] and [128, {n}], digits and "
+        f"residues forward, residues inverse: ok (max |err| {err})")
+    return err
+
+
+def post_ckks(disp, client, queries, cand, gks, combined: bool):
+    """One CKKS /encryptedsearch request through the Dispatcher and the
+    client's decryption; ``gks`` go with the first request of the client's
+    keyId. Returns (distances [nq, P] f32, request ms, bytes up/down,
+    client encrypt ms, client decrypt ms, the number of response cts)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    body = {"scheme": "ckks", "keyId": client.key_id,
+            "encryptedPreciseQuery": client.encrypt_query_batch(queries),
+            "nearestCoarseVectorIndexes": cand.tolist()}
+    if combined:
+        body["respMod"] = "combined"
+    if gks is not None:
+        body["galoisKeys"] = gks
+    raw = json.dumps(body).encode()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    if b"preciseQuery" in raw:
+        raise AssertionError("the plaintext query is in the request")
+    t0 = time.perf_counter()
+    status, _, resp = disp.handle("POST", "/encryptedsearch", {}, raw)
+    req_ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"POST /encryptedsearch (ckks): {status} "
+                             f"{resp[:300]!r}")
+    t0 = time.perf_counter()
+    out = json.loads(resp)
+    norms = np.asarray(out["candidateNorms"])
+    if combined:
+        cts = out["encryptedScoresCombined"]
+        if len(cts) != len(queries) or any(c["level"] != 1 for c in cts):
+            raise AssertionError("not one level-1 ct a query")
+        dists = client.decrypt_scores_combined(cts, norms, queries)
+        n_cts = len(cts)
+    else:
+        dists = client.decrypt_scores_batch(out["encryptedScores"], norms,
+                                            queries)
+        n_cts = sum(len(c) for c in out["encryptedScores"])
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    return dists, req_ms, len(raw), len(resp), enc_ms, dec_ms, n_cts
+
+
+def phase_ckks(engine, disp, data, queries, cands, reset_counts, smi):
+    """CKKS slot-packed encrypted scoring (BASELINE.json config 3) on the
+    engine, index and base of the main phase and the candidates of the
+    encrypted phase: K2 against its plain version at the program's primes
+    and row counts, the device program (host encode) bit-equal to its
+    numpy twin on the first query and the served gather form bit-equal to
+    the row-upload device encode on the first batch; then N_BATCHES
+    combined requests of 64 seedTf queries (the first carrying the 10
+    Galois keys) and one per-block request of 8 queries, with K2's
+    launches counted around each, the decrypted distances' max relative
+    error, recall, where one request's time goes and its device time by
+    kernel. Returns (K2 launches, K2's launches per request, K2's max
+    |err| vs plain)."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.client.he import HEClient
+    from prefhetch_tpu_torch.engine.hecompute import CKKSComputeService
+    from prefhetch_tpu_torch.metrics import benchmark_results
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
+
+    t_phase = time.perf_counter()
+    cfg = engine.config
+    k, cp = cfg.protocol.k, cfg.protocol.coarse_probe
+    he = ckks_he()
+    # the same engine, index and base serve config 3's HE parameters: its
+    # CKKS service is built from them, the BFV phases keep theirs
+    engine.config = dataclasses.replace(cfg, he=he)
+    try:
+        svc = engine.ckks_service
+    finally:
+        engine.config = cfg
+    base_np = data["base"]
+    t0 = time.perf_counter()
+    client = HEClient(he)
+    key_ms = (time.perf_counter() - t0) * 1e3
+    nb = client.combine_blocks(cp, D)
+    t0 = time.perf_counter()
+    gks = client.galois_keys_wire(D, nb)
+    gal_ms = (time.perf_counter() - t0) * 1e3
+    if len(gks) != 10 or client.galois_keys_wire(D, nb) is not None:
+        raise AssertionError("the client did not make its 10 Galois keys "
+                             "once")
+    log("ckks", f"{smi}: HE CKKS N={he.n}, {he.n_limbs} limbs {svc.ext[:3]} "
+        f"+ special prime {svc.ext[3]}, scale 2^{he.scale_bits}, d={D}, "
+        f"P={cp}: {nb} blocks, window {D // nb}; client keys {key_ms:.0f} "
+        f"ms, 10 Galois keys (15-bit digits) {gal_ms:.0f} ms, "
+        f"{len(json.dumps(gks)) / 1e6:.2f} MB on the wire")
+    k2_err = check_k2_ckks(svc)
+
+    # the device program against its numpy twin on the first query, and
+    # the served gather form against the row-upload device encode
+    t0 = time.perf_counter()
+    svc.register_keys(client.key_id, gks)
+    reg_ms = (time.perf_counter() - t0) * 1e3
+    q0, cand0 = queries[:NQ_BATCH], cands[0]
+    rows0 = engine.base[torch.from_numpy(cand0).to(engine.device)]
+    rows0 = rows0.cpu().numpy().astype(np.float64)         # [64, P, d]
+    wires0 = client.encrypt_query_batch(q0)
+    host, host_norms = svc.encrypted_scores_combined_batch(
+        wires0[:1], rows0[:1], client.key_id)
+    t0 = time.perf_counter()
+    twin = CKKSComputeService(svc.params)
+    twin.register_keys(client.key_id, gks)
+    t_ct, t_norms = twin.encrypted_scores_combined(
+        svc.ctx.ct_from_wire(wires0[0]), rows0[0], client.key_id)
+    twin_s = time.perf_counter() - t0
+    if not (np.array_equal(host[0].c0, t_ct.c0)
+            and np.array_equal(host[0].c1, t_ct.c1)
+            and host[0].level == t_ct.level == 1
+            and abs(host[0].scale - t_ct.scale) <= 1e-6 * abs(t_ct.scale)
+            and np.array_equal(host_norms[0], t_norms)):
+        raise AssertionError("the CKKS device program (host encode) "
+                             "differs from its numpy twin")
+    if svc._base_dev is None:
+        svc.set_base(engine.base)
+    ids0 = cand0.astype(np.int32)
+    g_cts, g_norms = svc.encrypted_scores_combined_batch(wires0, ids0,
+                                                         client.key_id)
+    r_cts, r_norms = svc.encrypted_scores_combined_batch(
+        wires0, rows0, client.key_id, dev_encode=True)
+    if not (all(np.array_equal(g.c0, r.c0) and np.array_equal(g.c1, r.c1)
+                for g, r in zip(g_cts, r_cts))
+            and np.array_equal(g_norms, r_norms)):
+        raise AssertionError("the gather form differs from the row-upload "
+                             "device encode")
+    # what the f32 encode product rounds otherwise than the host FFT, and
+    # what that does to the decrypted distances: the served form against
+    # the host-encode program (the reference's arithmetic, bit-equal to the
+    # numpy twin) on the same 64 ciphertexts
+    cand_scale = float(1 << CKKSComputeService.CAND_SCALE_BITS)
+    flat = rows0.reshape(-1, (he.n // 2 // D) * D) / cand_scale
+    host_coeffs = svc.ctx.encode(flat)
+    dev_coeffs = svc._encode(torch.from_numpy(
+        flat.astype(np.float32)).to(svc.device)).cpu().numpy()
+    diff = np.abs(dev_coeffs.astype(np.int64) - host_coeffs)
+    h_cts, h_norms = svc.encrypted_scores_combined_batch(wires0, rows0,
+                                                         client.key_id)
+    d_host = client.decrypt_scores_combined(
+        [c.to_wire() for c in h_cts], h_norms, q0)
+    d_served = client.decrypt_scores_combined(
+        [c.to_wire() for c in g_cts], g_norms, q0)
+    d_twin = client.decrypt_scores_combined([t_ct.to_wire()],
+                                            t_norms[None], q0[:1])
+    rel_host, abs_host = ckks_errors(d_host, rows0, q0)
+    rel_served, abs_served = ckks_errors(d_served, rows0, q0)
+    rel_twin, abs_twin = ckks_errors(d_twin, rows0[:1], q0[:1])
+    ref = ((rows0 - q0[:, None].astype(np.float64)) ** 2).sum(-1)
+    log("ckks", f"device program (host encode) = numpy twin "
+        f"(CKKSComputeService, {twin_s:.1f} s) on 1 query x {nb} blocks: ok "
+        f"(bit-equal, c0 and c1, level 1, scale, norms); gather form = "
+        f"row-upload device encode on {NQ_BATCH} queries: ok (bit-equal); "
+        f"f32 device encode vs host FFT encode: {int((diff > 0).sum())} of "
+        f"{diff.size} coefficients differ, max |diff| {int(diff.max())} "
+        f"(|coeff| up to {int(np.abs(host_coeffs).max())}); key "
+        f"registration (host NTT into four-step order) {reg_ms:.0f} ms")
+    log("ckks", f"{smi}: the combined response's precision on the coarse "
+        f"round's 256 candidates of the first batch (distances "
+        f"{ref.min():.0f} to {ref.max():.0f}): max |distance error| "
+        f"{abs_twin:.1f} (relative {rel_twin:.6f}) for the numpy twin on "
+        f"query 0, {abs_host:.1f} ({rel_host:.6f}) for the host-encode "
+        f"program, {abs_served:.1f} ({rel_served:.6f}) served (gather + "
+        f"f32 encode) on {NQ_BATCH} queries")
+    # the f32 encode re-draws the rescales' rounding, so the served form is
+    # held to the size of the reference arithmetic's error, not its values
+    if abs_served > 1.5 * abs_host or abs_host > CKKS_COMBINED_MAX_ABS:
+        raise AssertionError(f"combined error {abs_served} served, "
+                             f"{abs_host} host encode: above 1.5 x the host "
+                             f"encode's or {CKKS_COMBINED_MAX_ABS}")
+    del rows0, g_cts, r_cts, h_cts
+
+    # the main path: N_BATCHES combined requests, then one per-block one
+    reset_counts()
+    per_request, rows, ids = [], [], []
+    err, err_abs = 0.0, 0.0
+    for b in range(N_BATCHES):
+        sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
+        before = k2.ntt4_transform.launches
+        dists, req, up, down, enc_t, dec_t, n_cts = post_ckks(
+            disp, client, queries[sl], cands[b], gks if b == 0 else None,
+            combined=True)
+        per_request.append(k2.ntt4_transform.launches - before)
+        rel, abs_ = ckks_errors(dists, base_np[cands[b]], queries[sl])
+        err, err_abs = max(err, rel), max(err_abs, abs_)
+        order = np.argsort(dists, axis=1, kind="stable")[:, :k]
+        ids.append(np.take_along_axis(cands[b], order, axis=1))
+        rows.append(f"{req:.1f} ms (request {up / 1e6:.2f} MB"
+                    f"{' with the Galois keys' if b == 0 else ''}, response "
+                    f"{down / 1e6:.3f} MB, {n_cts} cts; client encrypt "
+                    f"{enc_t:.0f} ms, decrypt {dec_t:.0f} ms)")
+    pb_client = HEClient(dataclasses.replace(he, resp_mod="full"))
+    pb_gks = pb_client.galois_keys_wire(D)
+    nq_pb = 8
+    before = k2.ntt4_transform.launches
+    pb_d, pb_req, pb_up, pb_down, pb_enc, pb_dec, pb_cts = post_ckks(
+        disp, pb_client, queries[:nq_pb], cands[0][:nq_pb], pb_gks,
+        combined=False)
+    pb_launches = k2.ntt4_transform.launches - before
+    pb_err = ckks_errors(pb_d, base_np[cands[0][:nq_pb]],
+                         queries[:nq_pb])[0]
+    launches = k2.ntt4_transform.launches
+    plain_calls = k2s.ntt4_step_plain.calls
+    # bench.py's CKKS workload on the first batch: the exact top-100 of the
+    # coarse candidates padded with consecutive base rows (after the counts
+    # are read: a measurement, not the path)
+    exact0 = engine.precise_search(q0, cand0)
+    top0 = np.take_along_axis(
+        cand0, np.argsort(exact0, axis=1, kind="stable")[:, :k], axis=1)
+    bench_cand = bench_ckks_candidates(top0, cp, len(base_np))
+    bd_d = post_ckks(disp, client, q0, bench_cand, None, combined=True)[0]
+    bench_err, bench_abs = ckks_errors(bd_d, base_np[bench_cand], q0)
+    # one launch per transform. Combined: 2 per input prime for ct x pt
+    # (3), 2 per prime of the level and the special prime for each
+    # pre-combine rotation (3 x 3), 2 per active prime for the mask (2), 2
+    # per prime for each tree round and each post-combine rotation (2 x
+    # (3 + 4)). Per-block: ct x pt, then log2(d) = 7 rotations x 3 x 2
+    want, want_pb = 6 + 18 + 4 + 12 + 16, 6 + 7 * 6
+    log("ckks", f"POST /encryptedsearch (ckks, combined) x{N_BATCHES} of "
+        f"{NQ_BATCH} seedTf queries (host clock): " + "; ".join(rows))
+    log("ckks", f"POST /encryptedsearch (ckks, per-block) of {nq_pb} "
+        f"queries: {pb_req:.1f} ms (request {pb_up / 1e6:.2f} MB with 7 "
+        f"Galois keys, response {pb_down / 1e6:.3f} MB, {pb_cts} level-2 "
+        f"cts; client encrypt {pb_enc:.0f} ms, decrypt {pb_dec:.0f} ms)")
+    log("ckks", f"ntt4_transform launches counted around each combined "
+        f"request {per_request} (expected {want}), the per-block request "
+        f"{pb_launches} (expected {want_pb}), {launches} in all, "
+        f"plain-version calls {plain_calls}")
+    log("ckks", f"{smi}: max relative distance error (bench.py's "
+        f"ckks_max_rel_err: max |err| / max distance): combined "
+        f"{err:.6f} on the coarse round's candidates (max |err| "
+        f"{err_abs:.1f}), {bench_err:.6f} on bench.py's workload (top-{k} "
+        f"padded with consecutive rows; max |err| {bench_abs:.1f}); "
+        f"per-block {pb_err:.6f} (limit {CKKS_MAX_REL}); the combined "
+        f"response is held to its own precision, max |err| <= "
+        f"{CKKS_COMBINED_MAX_ABS:.0f}")
+    if any(c != want for c in per_request) or pb_launches != want_pb \
+            or launches != sum(per_request) + pb_launches:
+        raise AssertionError(f"K2 launches per ckks request {per_request}, "
+                             f"{pb_launches}, {launches} in all; expected "
+                             f"{want} and {want_pb}")
+    if plain_calls != 0:
+        raise AssertionError("a plain version ran on the ckks path")
+    if pb_err > CKKS_MAX_REL:
+        raise AssertionError(f"ckks per-block max relative error {pb_err} "
+                             f"above {CKKS_MAX_REL}")
+    if max(err_abs, bench_abs) > CKKS_COMBINED_MAX_ABS:
+        raise AssertionError(f"ckks combined max |distance error| "
+                             f"{max(err_abs, bench_abs)} above "
+                             f"{CKKS_COMBINED_MAX_ABS}")
+    rep = benchmark_results(np.concatenate(ids), data["groundtruth"], k=k)
+    order = np.argsort(pb_d, axis=1, kind="stable")[:, :k]
+    rep_pb = benchmark_results(
+        np.take_along_axis(cands[0][:nq_pb], order, axis=1),
+        data["groundtruth"][:nq_pb], k=k)
+    log("ckks", f"recall of the client's top-{k} after decryption: "
+        f"combined recall@1 {rep.recall_1} recall@10 {rep.recall_10} "
+        f"recall@100 {rep.recall_100} mrr@10 {rep.mrr_10}; per-block "
+        f"({nq_pb} queries) recall@10 {rep_pb.recall_10} recall@100 "
+        f"{rep_pb.recall_100}")
+    if rep_pb.recall_10 < RECALL10_MIN or rep_pb.recall_100 < RECALL100_MIN:
+        raise AssertionError(
+            f"ckks per-block: recall@10 {rep_pb.recall_10} / recall@100 "
+            f"{rep_pb.recall_100} below {RECALL10_MIN} / {RECALL100_MIN}")
+
+    bd = encrypted_breakdown(disp, client, q0, cand0, "combined")
+    L = he.n_limbs
+    h2d = NQ_BATCH * (L * he.n * 4 + 2 * 8 + nb * (he.n // 2 // D) * 4)
+    d2h = NQ_BATCH * (2 * he.n * 4 + nb * (he.n // 2 // D) * 8)
+    log("ckks", f"bytes of that request: body {bd['request_bytes']:,} up, "
+        f"{bd['response_bytes']:,} down; to the card {h2d:,} (c0, the "
+        f"threefry keys, the padded ids), from the card {d2h:,} ({NQ_BATCH} "
+        f"level-1 cts and the norms)")
+    wall, busy, prof = profile_device(
+        f"one warm /encryptedsearch request (ckks combined, {NQ_BATCH} "
+        f"queries)",
+        lambda: disp.handle("POST", "/encryptedsearch", {}, bd["raw"]))
+    k2_ms = sum(us for us, key, _ in prof if "ntt4_kernel" in key) / 1e3
+    k2_n = sum(c for _, key, c in prof if "ntt4_kernel" in key)
+    other_n = sum(c for _, key, c in prof if "ntt4_kernel" not in key)
+    if prof:
+        log("profile", f"  {smi}: K2 (ntt4_kernel) {k2_ms:.4f} ms in "
+            f"{k2_n} launches of the device's busy {busy:.3f} ms "
+            f"({100 * k2_ms / busy:.1f}%); {other_n} other device events "
+            f"(elementwise int64, gathers, copies, the encode matmul); "
+            f"device busy {100 * busy / wall:.1f}% of the request's "
+            f"{wall:.1f} ms")
+    log("ckks", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return (launches, {"ckks_combined": per_request,
+                       "ckks_per_block": pb_launches}, k2_err)
 
 
 def time_ntt4_transform(tb, nbatch: int, forward_int64: bool = False) -> dict:
@@ -1936,9 +2330,11 @@ def http_concurrency(cfg, srv, disp, queries, probes, smi):
 
 
 def http_encrypted(cfg, addr, engine, queries, sorted_coarse):
-    """Step 5: one "full" and one "packed" /encryptedsearch request of the
-    reference client's stage 6 over HTTP, decrypted by the client. Returns
-    K2's launches per request by wire."""
+    """Step 5: one "full", one "packed" and one CKKS "combined" (config 3's
+    HE parameters) /encryptedsearch request of the reference client's
+    stage 6 over HTTP, decrypted by the client: BFV exactly, CKKS within
+    the combined response's own precision (CKKS_COMBINED_MAX_ABS).
+    Returns K2's launches per request by wire."""
     import numpy as np
 
     from prefhetch_tpu_torch.client.he import HEClient
@@ -1946,14 +2342,18 @@ def http_encrypted(cfg, addr, engine, queries, sorted_coarse):
     from prefhetch_tpu_torch.ops import ntt4_fused as k2
     from prefhetch_tpu_torch.ops import ntt4_step as k2s
 
+    import torch
+
     L = cfg.he.n_limbs
     n_elts = len(engine.he_service.ctx.extraction_elts(cfg.he.n, D))
     want = {"full": 2 * L,
-            "packed": L + 2 * L + 2 * (L + 1) * n_elts + 2 * L}
+            "packed": L + 2 * L + 2 * (L + 1) * n_elts + 2 * L,
+            "ckks combined": 56}
     per_request, rows = {}, []
     k2s.ntt4_step_plain.calls = 0
-    for mode in ("full", "packed"):
-        he = dataclasses.replace(cfg.he, resp_mod=mode)
+    for mode in ("full", "packed", "ckks combined"):
+        he = (ckks_he() if mode.startswith("ckks")
+              else dataclasses.replace(cfg.he, resp_mod=mode))
         client = ClientPipeline(dataclasses.replace(cfg, he=he), addr)
         hec = HEClient(he)
         before = k2.ntt4_transform.launches
@@ -1962,19 +2362,31 @@ def http_encrypted(cfg, addr, engine, queries, sorted_coarse):
             sorted_coarse, queries, he_client=hec)
         ms = (time.perf_counter() - t0) * 1e3
         per_request[mode] = k2.ntt4_transform.launches - before
-        plain = engine.precise_search(queries, cand)
-        if not np.array_equal(dists, plain):
-            raise AssertionError(f"{mode} over HTTP: decrypted distances "
-                                 f"differ from precise_search")
+        if mode.startswith("ckks"):
+            cand_rows = engine.base[torch.from_numpy(cand).to(
+                engine.device)].cpu().numpy()
+            rel, abs_ = ckks_errors(dists, cand_rows, queries)
+            if abs_ > CKKS_COMBINED_MAX_ABS:
+                raise AssertionError(f"{mode} over HTTP: max |distance "
+                                     f"error| {abs_} above "
+                                     f"{CKKS_COMBINED_MAX_ABS}")
+            note = (f", max |distance error| {abs_:.1f} (relative "
+                    f"{rel:.6f})")
+        else:
+            plain = engine.precise_search(queries, cand)
+            if not np.array_equal(dists, plain):
+                raise AssertionError(f"{mode} over HTTP: decrypted "
+                                     f"distances differ from precise_search")
+            note = ""
         rows.append(f"{mode} {ms:.1f} ms (wire "
                     f"{client.wire_ms['encryptedsearch']:.1f} ms, "
                     f"{client.bytes['encryptedsearch']:,} B down), K2 "
-                    f"launches {per_request[mode]}")
+                    f"launches {per_request[mode]}{note}")
     log("http", f"POST /encryptedsearch over HTTP, {len(queries)} queries "
         f"(client encrypt + request + decrypt, host clock; wire = request "
         f"sent to response read): "
-        + "; ".join(rows) + f" (expected {want}); decrypted distances = "
-        f"precise_search")
+        + "; ".join(rows) + f" (expected {want}); BFV distances = "
+        f"precise_search, CKKS within {CKKS_COMBINED_MAX_ABS:.0f}")
     if per_request != want:
         raise AssertionError(f"K2 launches per HTTP request {per_request}, "
                              f"expected {want}")
@@ -2334,7 +2746,10 @@ def main() -> int:
         engine, disp, data, queries, probes, reset_counts)
     packed_launches, k2_per_request["packed"], k2_err_p = phase_packed(
         engine, disp, data, queries, cands, rep_e, reset_counts)
-    k2_err = max(k2_err, k2_err_p)
+    ckks_launches, ckks_per_request, k2_err_c = phase_ckks(
+        engine, disp, data, queries, cands, reset_counts, smi)
+    k2_per_request.update(ckks_per_request)
+    k2_err = max(k2_err, k2_err_p, k2_err_c)
 
     # -- 4c. the reference's protocol served over HTTP ------------------------
     http = phase_http(engine, disp, data, queries, probes, smi)
@@ -2390,6 +2805,9 @@ def main() -> int:
     k2_packed = time_ntt4_transform(svc._packed_tables[1][-1],
                                     nbatch * len(svc.params.qs),
                                     forward_int64=True)
+    # the CKKS key switch's largest transform: [2048, 8192] on the special
+    # prime (512 block rows x 4 digit components, pre-combine)
+    k2_ckks = time_ntt4_transform(engine.ckks_service._tables[-1], 2048)
     profile_search(disp, queries, probes, k)
     phase_ablation(hold.pop("sq8"), hold.pop("slab"), svc._tables[0], nbatch)
     log("done", f"wall {time.perf_counter() - t_start:.1f} s")
@@ -2420,16 +2838,20 @@ def main() -> int:
         "route": "cuda",
         "source": "prefhetch_tpu_torch/csrc/ntt4_step.cu",
         "replaces": "prefhetch_tpu/ops/ntt_pallas.py:246",
-        "launches": enc_launches["ntt4_transform"] + packed_launches,
+        "launches": (enc_launches["ntt4_transform"] + packed_launches
+                     + ckks_launches),
         "launches_per_request": k2_per_request,
         "path": f"POST /encryptedsearch x{N_BATCHES} "
                 f"({N_BATCHES - 1} full, 1 q1) + x{N_BATCHES} packed "
-                f"(seedTf)",
+                f"(seedTf) + x{N_BATCHES} ckks combined (seedTf) + 1 ckks "
+                f"per-block",
         "max_abs_err": k2_err,
         **k2_times,
         "at_packed_key_switch_shape": {
             key: k2_packed[key] for key in
             ("ms", "ms_events", "plain_ms", "bound_ms", "bound_by")},
+        "at_ckks_key_switch_shape": {
+            "shape": [2048, 8192], **k2_ckks},
         "library_ms": None,
         "per": "transform (one launch)",
         "launches_http_per_request": http["k2_per_request"],

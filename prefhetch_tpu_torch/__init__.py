@@ -7,7 +7,8 @@ inputs. Plain tensor code is PyTorch; every Pallas kernel of the JAX package
 becomes a kernel written by hand for Hopper under ``csrc/``.
 
 Ported so far (the fused triage search, the BFV encrypted re-rank with its
-packed wire, the scan variants, and serving over HTTP, each end to end):
+packed wire, CKKS slot-packed encrypted scoring, the scan variants, and
+serving over HTTP, each end to end):
 
 - ``data``     — fvecs/ivecs IO and the synthetic SIFT-style generator (copies)
 - ``index``    — ``IVFIndex`` dataclass, k-means/PQ build, npz save/load,
@@ -17,12 +18,14 @@ packed wire, the scan variants, and serving over HTTP, each end to end):
                  four-step NTT (``ops/ntt4.py``) with its CUDA kernel, one
                  launch per transform (``ops/ntt4_fused.py``); the PQ, SQ8
                  and slab scans with theirs
-- ``crypto``   — host-side RNS-BFV, the butterfly NTT, packing, RNG (numpy)
+- ``crypto``   — host-side RNS-BFV and RNS-CKKS, the butterfly NTT,
+                 packing, RNG (numpy)
 - ``client``   — ``HEClient``; the reference's client stages
                  (``client/pipeline.py``), the binary-wire client and the CLI
 - ``engine``   — ``QueryEngine`` (the reference's four services, the tiled
-                 and top-k coarse wires, fused search, encrypted re-rank)
-                 and ``HEComputeService``
+                 and top-k coarse wires, fused search, encrypted re-rank),
+                 ``HEComputeService`` (BFV), ``DeviceCKKS`` and its numpy
+                 twin ``CKKSComputeService`` (CKKS)
 - ``serve``    — ``Dispatcher`` (every route but ``/pir-fetch``), the
                  batcher, the threaded, asyncio and native epoll frontends,
                  and ``python -m prefhetch_tpu_torch.serve.main``

@@ -1,16 +1,21 @@
 """Client-side homomorphic encryption: keygen, query encryption, score
-decryption — the port of prefhetch_tpu/client/he.py, BFV subset (host,
-numpy only).
+decryption — the port of prefhetch_tpu/client/he.py (host, numpy only).
 
 All key material lives here; the server never sees any secret (for the
-packed response the client registers *public* Galois keys once). BFV gives
-exact integer inner products via negacyclic coefficient packing
-(crypto/packing.py) and needs no evaluation keys for the "full" and "q1"
-response wires. The same integer seed gives the same keys and the same
-wires as the JAX package's ``HEClient`` (tests/test_torch_bfv.py,
-tests/test_torch_packed.py).
+packed and the CKKS responses the client registers *public* Galois keys
+once). Schemes:
 
-Not ported yet: the CKKS scheme.
+- "bfv"  — exact integer inner products via negacyclic coefficient packing
+           (crypto/packing.py); no evaluation keys for the "full" and "q1"
+           response wires, extraction keys for "packed";
+- "ckks" — approximate slot-packed scoring (BASELINE config 3): the query
+           is replicated across the slots, the server rotate-accumulates
+           with the registered Galois keys; per-block or "combined"
+           responses.
+
+The same integer seed gives the same keys and the same wires as the JAX
+package's ``HEClient`` (tests/test_torch_bfv.py, tests/test_torch_packed.py,
+tests/test_torch_ckks_route.py).
 """
 
 from __future__ import annotations
@@ -20,13 +25,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from prefhetch_tpu_torch.crypto import ckks
 from prefhetch_tpu_torch.crypto.bfv import BFVContext, Ciphertext, RelinKey
 from prefhetch_tpu_torch.crypto.ntt import intt, ntt
 from prefhetch_tpu_torch.crypto.packing import (
     distances_from_inner_products,
     encode_query_poly,
 )
-from prefhetch_tpu_torch.crypto.params import bfv_params_for
+from prefhetch_tpu_torch.crypto.params import bfv_params_for, ckks_params_for
 from prefhetch_tpu_torch.crypto.rng import secure_rng
 from prefhetch_tpu_torch.utils.config import HEParams
 
@@ -37,30 +43,61 @@ class HEClient:
     def __init__(self, he: HEParams, seed: Optional[int] = None):
         self.he = he
         self.scheme = he.scheme
-        if he.scheme != "bfv":
-            raise NotImplementedError(
-                f"scheme {he.scheme!r} is not ported yet (BFV only)"
-            )
+        if he.scheme not in ("bfv", "ckks"):
+            raise NotImplementedError(f"scheme {he.scheme}")
         # seed=None (production): OS-entropy CSPRNG. Integer seeds are for
         # tests only — deterministic secret keys are publicly derivable.
         self._rng = secure_rng(seed)
         self.key_id = uuid.uuid4().hex
         self._keys_sent = False
-        # packed response mode needs ODD t (the ×d extraction factor must
-        # invert mod t — crypto/params.bfv_params_for)
-        self.params = bfv_params_for(he.n, he.t_bits, he.n_limbs,
-                                     odd_t=he.resp_mod == "packed")
-        self.ctx = BFVContext(self.params)
-        self.sk, self.pk = self.ctx.keygen(self._rng, sparse_h=he.sparse_h)
-        self._galois_bfv: Dict[int, RelinKey] = {}
+        if he.scheme == "bfv":
+            # packed response mode needs ODD t (the ×d extraction factor
+            # must invert mod t — crypto/params.bfv_params_for)
+            self.params = bfv_params_for(he.n, he.t_bits, he.n_limbs,
+                                         odd_t=he.resp_mod == "packed")
+            self.ctx = BFVContext(self.params)
+            self.sk, self.pk = self.ctx.keygen(self._rng,
+                                               sparse_h=he.sparse_h)
+            self._galois_bfv: Dict[int, RelinKey] = {}
+        else:
+            self.params = ckks_params_for(he.n, he.scale_bits, he.n_limbs)
+            self.ctx = ckks.CKKSContext(self.params)
+            self.sk, self.pk = self.ctx.keygen(self._rng)
+            self._galois: Dict[int, ckks.GaloisKey] = {}
+
+    # -- galois keys (ckks) ------------------------------------------------
+    def combine_blocks(self, p: int, d: int) -> int:
+        """Blocks the combined single-ct response will tree-merge for P
+        candidates of dimension d (pow2, matches the server's padding)."""
+        return ckks.combined_blocks_padded(p, self.params.n // 2, d)
+
+    def galois_keys_wire(
+        self, d: int, combine_blocks: int = 1
+    ) -> Optional[dict]:
+        """Public rotation keys for block size d (generated once, sent once:
+        None after the first call, and None under BFV). With
+        combine_blocks > 1 also the −W·2^k combine-tree steps the combined
+        single-ct response needs (resp_mod="combined")."""
+        if self.scheme != "ckks" or self._keys_sent:
+            return None
+        steps = ckks.rotation_steps(d)
+        if combine_blocks > 1:
+            steps = steps + self.ctx.combine_tree_steps(combine_blocks, d)
+        missing = [s for s in steps if s not in self._galois]
+        if missing:
+            self._galois.update(
+                self.ctx.galois_keygen(self.sk, missing, self._rng)
+            )
+        self._keys_sent = True
+        return {str(s): self._galois[s].to_wire() for s in steps}
 
     # -- galois keys (packed response) ------------------------------------
     def bfv_extraction_keys_wire(self, d: int) -> Optional[dict]:
         """Public Galois keys for the packed single-ct BFV response
         (resp_mod="packed"): the log2(d) coefficient-extraction elements
         (crypto/bfv.BFVContext.extraction_elts). Generated once and sent
-        once: None after the first call."""
-        if self._keys_sent:
+        once: None after the first call, and None under CKKS."""
+        if self.scheme != "bfv" or self._keys_sent:
             return None
         elts = self.ctx.extraction_elts(self.params.n, d)
         missing = [g for g in elts if g not in self._galois_bfv]
@@ -79,12 +116,15 @@ class HEClient:
 
     # -- encrypt ----------------------------------------------------------
     def encrypt_query_batch(self, queries: np.ndarray) -> List[dict]:
-        """Encrypt a [nq, d] query batch as seeded SYMMETRIC ciphertexts
+        """Encrypt a [nq, d] query batch. BFV: seeded SYMMETRIC ciphertexts
         (the client holds the secret key, so c1 travels as a seed — half
         the upload): a 32-byte SHAKE seed (crypto/bfv.py
         encrypt_symmetric_batch_ntt), or under resp_mod="packed" an 8-byte
         threefry key that the server expands inside its device program
-        (encrypt_symmetric_batch_ntt_tf, with its PRG note)."""
+        (encrypt_symmetric_batch_ntt_tf, with its PRG note). CKKS: one
+        ``encrypt_query`` a query."""
+        if self.scheme != "bfv":
+            return [self.encrypt_query(q) for q in queries]
         ms = np.stack([encode_query_poly(q, self.params) for q in queries])
         if self.he.resp_mod == "packed":
             wires = self.ctx.encrypt_symmetric_batch_ntt_tf(
@@ -97,10 +137,23 @@ class HEClient:
         return wires
 
     def encrypt_query(self, q: np.ndarray) -> dict:
-        """Query vector [d] → public-key ciphertext wire dict."""
-        poly = encode_query_poly(q, self.params)
-        ct = self.ctx.to_ntt(self.ctx.encrypt(self.pk, poly, self._rng))
-        w = ct.to_wire()
+        """Query vector [d] → ciphertext wire dict (scheme-tagged). BFV: a
+        public-key ciphertext; CKKS: the rounded query replicated across
+        the N/2 slots, threefry-seeded symmetric (c0 and an 8-byte key)
+        under resp_mod="combined", public-key otherwise."""
+        if self.scheme == "bfv":
+            poly = encode_query_poly(q, self.params)
+            ct = self.ctx.to_ntt(self.ctx.encrypt(self.pk, poly, self._rng))
+            w = ct.to_wire()
+        else:
+            d = q.shape[0]
+            slots = self.params.n // 2
+            tiled = np.tile(np.round(q).astype(np.float64), slots // d)
+            coeffs = self.ctx.encode(tiled)
+            if self.he.resp_mod == "combined":
+                w = self.ctx.encrypt_symmetric_tf(self.sk, coeffs, self._rng)
+            else:
+                w = self.ctx.encrypt(self.pk, coeffs, self._rng).to_wire()
         w["scheme"] = self.scheme
         return w
 
@@ -210,3 +263,62 @@ class HEClient:
         ips = msgs[qi // G, j * d + (qi % G) * nb + b]  # [nq, nb, B]
         ips = ips.reshape(nq, nb * B) * inv_d % p.t      # undo ×d extraction
         return self._distances(ips, norms, queries)
+
+    def decrypt_scores_combined(
+        self,
+        ct_wires: List[dict],           # [nq] ONE level-1 ct per query
+        norms: np.ndarray,              # [nq, P]
+        queries: np.ndarray,            # [nq, d]
+    ) -> np.ndarray:
+        """Decrypt the combined single-ct CKKS response
+        (CKKSComputeService.encrypted_scores_combined: ⟨q, x_{b·per_ct+j}⟩
+        at slot j·d + W·b) → approximate squared-L2 distances [nq, P]."""
+        assert self.scheme == "ckks"
+        nq, P = norms.shape
+        d = queries.shape[1]
+        out = np.empty((nq, P), np.float32)
+        for i in range(nq):
+            vals = self.ctx.decrypt(
+                self.sk, ckks.CKKSCiphertext.from_wire(ct_wires[i]))
+            ips = ckks.extract_combined_ips(vals, P, d)
+            out[i] = distances_from_inner_products(
+                queries[i], ips, np.asarray(norms[i]))
+        return out
+
+    def decrypt_scores_batch(
+        self,
+        score_ct_wires_per_query: List[List[dict]],   # [nq][n_blocks]
+        norms: np.ndarray,                            # [nq, P]
+        queries: np.ndarray,                          # [nq, d]
+    ) -> np.ndarray:
+        """Decrypt the CKKS per-block response, one query at a time →
+        approximate squared-L2 distances [nq, P]."""
+        return np.stack([
+            self.decrypt_scores(w, norms[i], queries[i])
+            for i, w in enumerate(score_ct_wires_per_query)])
+
+    def decrypt_scores(
+        self,
+        score_ct_wires: List[dict],     # per-block result ciphertexts
+        norms: np.ndarray,              # [P] candidate squared norms
+        q: np.ndarray,                  # [d] the plaintext query (local)
+    ) -> np.ndarray:
+        """Decrypt one query's CKKS Enc(⟨q,x⟩) blocks (slot j·d of block b
+        holds candidate b·per_ct + j) → squared-L2 distances [P]. The BFV
+        form of whole result ciphertexts is served by neither package's
+        routes and is not ported."""
+        if self.scheme != "ckks":
+            raise NotImplementedError(
+                "whole BFV result ciphertexts are not ported; BFV responses "
+                "decrypt with decrypt_scores_trunc(_q1) / _packed")
+        d = q.shape[0]
+        P = norms.shape[0]
+        per_ct = (self.params.n // 2) // d
+        vals = []
+        for w in score_ct_wires:
+            ct = ckks.CKKSCiphertext.from_wire(w)
+            out = np.real(self.ctx.decrypt(self.sk, ct))
+            vals.append(out[np.arange(per_ct) * d])
+        ips = np.concatenate(vals)[:P]
+        return distances_from_inner_products(
+            q, ips, np.asarray(norms)).astype(np.float32)

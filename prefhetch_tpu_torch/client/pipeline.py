@@ -14,7 +14,8 @@ Stages (reference call order, src/client/client.cpp:7-80):
  5. compute_nearest_coarse_vectors — local ragged unpack + sort
  6. get_precise_scores             — POST /precisesearch, or
     get_encrypted_precise_scores   — POST /encryptedsearch (BFV, the
-                                     "full", "q1" and "packed" wires)
+                                     "full", "q1" and "packed" wires;
+                                     CKKS, per-block and "combined")
  7. compute_nearest_precise_vectors— local re-pair + sort
  8. get_precise_vectors_pir        — POST /precise-vector-pir
  9. benchmark_results              — recall/MRR scoring (metrics.py)
@@ -22,7 +23,7 @@ Stages (reference call order, src/client/client.cpp:7-80):
 The client is host numpy and the stdlib's urllib (the reference used
 cpr/libcurl blocking calls, src/client/client_lib.cpp:43,109,179,231); the
 ragged coarse response is decoded by the port's C++ codec. Not ported yet:
-the real-PIR stage 8 (pir_mode="he") and the CKKS scheme.
+the real-PIR stage 8 (pir_mode="he").
 """
 
 from __future__ import annotations
@@ -285,12 +286,14 @@ class ClientPipeline:
         query: np.ndarray,
         he_client=None,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """POST /encryptedsearch: the query travels ONLY as a BFV ciphertext;
+        """POST /encryptedsearch: the query travels ONLY as a ciphertext;
         the server returns Enc(⟨q,x⟩) + plaintext candidate norms, and the
-        exact distances are assembled locally after decryption. The
-        response wire is the config's ``he.resp_mod``: "full", "q1"
-        (single-limb, needs ``he.sparse_h``) or "packed" (the extraction
-        Galois keys travel once).
+        distances are assembled locally after decryption (exact under BFV,
+        approximate under CKKS). The response wire is the config's
+        ``he.resp_mod``: BFV "full", "q1" (single-limb, needs
+        ``he.sparse_h``) or "packed" (the extraction Galois keys travel
+        once); CKKS per-block or "combined" (the rotation Galois keys, with
+        the combine-tree steps for "combined", travel once).
 
         The realized form of the reference's reserved
         compute_encrypted_precise_query (include/client/client_lib.h:28-30).
@@ -308,25 +311,41 @@ class ClientPipeline:
             "nearestCoarseVectorIndexes": cand.tolist(),
         }
         resp_mod = self.config.he.resp_mod
-        if resp_mod in ("q1", "packed"):
-            payload["respMod"] = resp_mod
-        if resp_mod == "packed":
+        if resp_mod == "q1":
+            payload["respMod"] = "q1"
+        combine_blocks = 1
+        if resp_mod == "combined" and he_client.scheme == "ckks":
+            # combined single-ct CKKS response; the Galois key set carries
+            # the −W·2^k combine-tree steps too
+            payload["respMod"] = "combined"
+            combine_blocks = he_client.combine_blocks(cp, query.shape[1])
+        if resp_mod == "packed" and he_client.scheme == "bfv":
+            payload["respMod"] = "packed"
             gks = he_client.bfv_extraction_keys_wire(query.shape[1])
-            if gks is not None:
-                payload["galoisKeys"] = gks
+        else:
+            gks = he_client.galois_keys_wire(query.shape[1], combine_blocks)
+        if gks is not None:
+            payload["galoisKeys"] = gks
         resp = self._post("encryptedsearch", payload)
         norms = np.asarray(resp["candidateNorms"], np.int64)
         if "packedScores" in resp:
             scores = he_client.decrypt_scores_packed(
                 resp["packedScores"], norms, query, int(resp["packGroup"]))
+        elif "encryptedScoresCombined" in resp:
+            scores = he_client.decrypt_scores_combined(
+                resp["encryptedScoresCombined"], norms, query)
         elif "c1Q1" in resp:
             scores = he_client.decrypt_scores_trunc_q1(
                 unpack_i32(resp["c1Q1"]), unpack_i32(resp["c0Ip"]), norms,
                 query)
-        else:
+        elif "c1Ntt" in resp:
             scores = he_client.decrypt_scores_trunc(
                 unpack_i32(resp["c1Ntt"]), unpack_i32(resp["c0Ip"]), norms,
                 query)
+        else:
+            # the CKKS per-block response
+            scores = he_client.decrypt_scores_batch(
+                resp["encryptedScores"], norms, query)
         return scores, cand
 
     def _pq_encode_query(

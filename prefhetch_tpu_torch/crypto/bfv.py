@@ -12,9 +12,9 @@ candidate block costs one pointwise modular multiply per limb. The same
 integer seed gives the same keys and wires as the JAX package
 (tests/test_torch_bfv.py, tests/test_torch_threefry.py).
 
-Not ported yet (they come with the CKKS and PIR slices): ct×ct ``mul`` with
+Not ported yet (they come with the PIR slice): BFV's ct×ct ``mul`` with
 relinearization (``relin_keygen``) and the exact mixed-radix (Garner)
-helpers it needs.
+helpers it needs. The CKKS scheme is crypto/ckks.py.
 
 Security note: parameters follow the standard HE security tables
 (N=4096, log q ≈ 60 → >128-bit classical security); error σ=3.2 centered

@@ -29,8 +29,11 @@ twins (``_trunc_mac_numpy``, ``_trunc_mac_q1_numpy``, ``_packed_mac_numpy``:
 butterfly NTT, natural order) are the independent oracle the tests hold the
 program against; no served path falls back to them.
 
-Not ported yet: ``encrypted_scores``/``encrypted_scores_batch`` (whole
-result ciphertexts) and ``CKKSComputeService``.
+``CKKSComputeService`` (numpy) is the host twin and oracle of the CKKS
+device program (engine/ckks_device.py), which shares ``key_switch`` with
+the packed program. Not ported: the BFV ``encrypted_scores`` /
+``encrypted_scores_batch`` (whole result ciphertexts), which no served
+path of either package calls.
 """
 
 from __future__ import annotations
@@ -43,6 +46,9 @@ import numpy as np
 import torch
 
 from prefhetch_tpu_torch.crypto.bfv import BFVContext, Ciphertext, RelinKey
+from prefhetch_tpu_torch.crypto.ckks import (
+    CKKSContext, GaloisKey, combine_window, rotation_steps,
+)
 from prefhetch_tpu_torch.crypto.ntt import build_tables, intt, ntt
 from prefhetch_tpu_torch.crypto.params import BFVParams
 from prefhetch_tpu_torch.device import resolve_device
@@ -51,6 +57,49 @@ from prefhetch_tpu_torch.ops.ntt4 import (
 )
 from prefhetch_tpu_torch.ops.threefry import tf_uniform_rns
 from prefhetch_tpu_torch.utils.stages import stage
+
+
+def key_switch(c1g: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor,
+               tabs, digit_bits: int):
+    """Hybrid key switch on the device, shared by the packed BFV program
+    and the CKKS program (engine/ckks_device.py, at its active level).
+
+    c1g [M, l, N]: canonical coefficient-domain residues mod the first l
+    primes of ``tabs``; kb, ka [l·n_digits, l+1, N] int32: the key's rows
+    for those primes and the special prime (the last of ``tabs``), NTT
+    domain in four-step order → (ks0, ks1) [M, l, N] int64 canonical.
+
+    Per extension prime: one forward K2 over all (row, digit) polys, Σ of
+    the n_comp reduced products (< 2^35, far inside int64), one inverse K2
+    of both halves; then the special prime's residue, centred, is divided
+    out exactly. The products live one prime at a time."""
+    M, l, n = c1g.shape
+    n_digits = -(-30 // digit_bits)
+    n_comp = l * n_digits
+    dmask = (1 << digit_bits) - 1
+    digits = torch.stack(
+        [(c1g[:, i] >> (dd * digit_bits)) & dmask
+         for i in range(l) for dd in range(n_digits)], dim=1)
+    flat = digits.reshape(M * n_comp, n)
+    acc0, acc1 = [], []
+    for e, tb in enumerate(tabs):
+        D = ntt4(flat, tb).reshape(M, n_comp, n)
+        s0 = modmul(D, kb[:, e], tb.q).sum(1) % tb.q
+        s1 = modmul(D, ka[:, e], tb.q).sum(1) % tb.q
+        del D
+        i01 = intt4(torch.cat([s0, s1]), tb).to(torch.int64)
+        acc0.append(i01[:M])
+        acc1.append(i01[M:])
+    sp = tabs[-1].q
+    cp0 = torch.where(acc0[-1] > sp // 2, acc0[-1] - sp, acc0[-1])
+    cp1 = torch.where(acc1[-1] > sp // 2, acc1[-1] - sp, acc1[-1])
+    out0, out1 = [], []
+    for i in range(l):
+        q = tabs[i].q
+        inv_p = pow(sp, -1, q)
+        out0.append((acc0[i] - cp0) % q * inv_p % q)
+        out1.append((acc1[i] - cp1) % q * inv_p % q)
+    return torch.stack(out0, 1), torch.stack(out1, 1)
 
 
 class HEComputeService:
@@ -599,45 +648,6 @@ class HEComputeService:
         return tuple(torch.from_numpy(np.stack(x)).to(self.device)
                      for x in (kbs, kas, perms, negs))
 
-    def _key_switch(self, c1g: torch.Tensor, kb: torch.Tensor,
-                    ka: torch.Tensor):
-        """Hybrid key switch on the device: c1g [M, L, N] coefficient
-        domain, canonical → (ks0, ks1) [M, L, N] int64 canonical.
-
-        The digit ladder comes from the KEY's shape: n_comp = L·n_digits
-        rows, digit_bits = 30/n_digits (30-bit keys: n_comp = L). Per
-        extension prime: one forward K2 over all (row, digit) polys, Σ of
-        n_comp reduced products (< 2^32, far inside int64), one inverse K2
-        of both halves; then the special prime's residue, centred, is
-        divided out exactly."""
-        ext, tabs, _ = self._packed_tables
-        M, L, n = c1g.shape
-        n_comp = kb.shape[0]
-        n_digits = n_comp // L
-        digit_bits = 30 // n_digits
-        dmask = (1 << digit_bits) - 1
-        digits = torch.stack(
-            [(c1g[:, i] >> (dd * digit_bits)) & dmask
-             for i in range(L) for dd in range(n_digits)], dim=1)
-        flat = digits.reshape(M * n_comp, n)
-        acc0, acc1 = [], []
-        for e, tb in enumerate(tabs):
-            D = ntt4(flat, tb).reshape(M, n_comp, n)
-            s0 = modmul(D, kb[:, e], tb.q).sum(1) % tb.q
-            s1 = modmul(D, ka[:, e], tb.q).sum(1) % tb.q
-            i01 = intt4(torch.cat([s0, s1]), tb).to(torch.int64)
-            acc0.append(i01[:M])
-            acc1.append(i01[M:])
-        sp = ext[-1]
-        cp0 = torch.where(acc0[-1] > sp // 2, acc0[-1] - sp, acc0[-1])
-        cp1 = torch.where(acc1[-1] > sp // 2, acc1[-1] - sp, acc1[-1])
-        out0, out1 = [], []
-        for i, q in enumerate(self.params.qs):
-            inv_p = pow(sp, -1, q)
-            out0.append((acc0[i] - cp0) % q * inv_p % q)
-            out1.append((acc1[i] - cp1) % q * inv_p % q)
-        return torch.stack(out0, 1), torch.stack(out1, 1)
-
     def _packed_program(self, c0q, c1q, idx, kb, ka, perms, negs,
                         mono_pre, shift_tabs) -> torch.Tensor:
         """The packed program: (c0q, c1q [nq, L, N] FOUR-STEP NTT domain,
@@ -648,7 +658,7 @@ class HEComputeService:
            the gathered, reversed, lifted rows, NTT-domain multiplies by
            mono_pre and by c0/c1, one inverse K2 of both halves;
         2. log2(d) extraction rounds ct += σ_g(ct): an automorphism gather
-           with its sign and a key switch (``_key_switch``);
+           with its sign and a key switch (``key_switch``);
         3. the shift-pack, per limb: one forward K2 of both halves, a
            multiply by each row's monomial NTT(X^{(qi mod G)·nb + b}), the
            sum over groups of G·nb rows (< 2^37, exact), one inverse K2.
@@ -679,12 +689,15 @@ class HEComputeService:
             c1.append(i01[M:])
         c0 = torch.stack(c0, 1)                       # [M, L, N] coeff
         c1 = torch.stack(c1, 1)
+        # the digit ladder from the keys' shape: n_comp = L·n_digits rows,
+        # digit_bits = 30/n_digits (30-bit keys: n_comp = L)
+        digit_bits = 30 // (kb.shape[1] // L)
         for r in range(perms.shape[0]):
             perm, neg = perms[r], negs[r]
             v0, v1 = c0[:, :, perm], c1[:, :, perm]
             c0g = torch.where(neg & (v0 != 0), qs - v0, v0)
             c1g = torch.where(neg & (v1 != 0), qs - v1, v1)
-            ks0, ks1 = self._key_switch(c1g, kb[r], ka[r])
+            ks0, ks1 = key_switch(c1g, kb[r], ka[r], tabs, digit_bits)
             c0 = (c0 + c0g + ks0) % qs
             c1 = (c1 + ks1) % qs
         outs = []
@@ -707,3 +720,139 @@ class HEComputeService:
         c1q = torch.stack([ntt4(a[:, i], tabs[i])
                            for i in range(len(self.params.qs))], 1)
         return self._packed_program(c0_nat[..., self._perm], c1q, idx, *args)
+
+
+class CKKSComputeService:
+    """CKKS slot-packed scoring on the host (BASELINE config 3), numpy: the
+    port of the JAX package's ``CKKSComputeService``. It is the host twin
+    and the oracle of the device program (engine/ckks_device.py
+    ``DeviceCKKS``), as ``_packed_mac_numpy`` is for the packed wire; no
+    served path runs it.
+
+    Slot layout: the query arrives replicated across all N/2 slots; the
+    server packs slots/d candidates per plaintext, multiplies slot-wise, and
+    rotate-accumulates log2(d) times so slot j·d carries ⟨q, x_j⟩. Rotations
+    use client-registered Galois keys (public; registered once per key id —
+    the server still holds NO secret material)."""
+
+    # candidates scaled 2^-CAND_SCALE_BITS at encode so the inner products
+    # fit ONE 30-bit limb after two rescales; the mask plaintext's scale
+    # sets the final precision (see encrypted_scores_combined)
+    CAND_SCALE_BITS = 16
+    # 29 puts the worst-case message (IP=128·255², i.e. 2^7 after the 2^-16
+    # candidate scale) at 2^28 against q1/2 ≈ 2^29 — 2× headroom, and each
+    # extra scale bit halves the (key-switch-noise-dominated) output error
+    MASK_SCALE_BITS = 29
+
+    def __init__(self, params):
+        self.params = params
+        self.ctx = CKKSContext(params)
+        self._galois: dict = {}          # key_id -> {step: GaloisKey}
+
+    def register_keys(self, key_id: str, gks_wire: dict) -> None:
+        self._galois[key_id] = {
+            int(step): GaloisKey.from_wire(w) for step, w in gks_wire.items()
+        }
+
+    def has_keys(self, key_id: str) -> bool:
+        return key_id in self._galois
+
+    def encrypted_scores(self, ct, candidates: np.ndarray, key_id: str):
+        """Returns (result ciphertexts per block, candidate norms [P])."""
+        gks = self._galois[key_id]
+        ctx = self.ctx
+        P, d = candidates.shape
+        slots = self.params.n // 2
+        per_ct = slots // d
+        n_blocks = -(-P // per_ct)
+        padded = np.zeros((n_blocks * per_ct, d), np.float64)
+        padded[:P] = candidates
+
+        out = []
+        for b in range(n_blocks):
+            block = padded[b * per_ct : (b + 1) * per_ct].reshape(-1)
+            acc = ctx.mul_plain(ct, ctx.encode(block), ctx.scale)
+            for s in rotation_steps(d):
+                acc = ctx.add(acc, ctx.rotate(acc, s, gks[s]))
+            out.append(acc)
+        norms = (np.round(candidates).astype(np.int64) ** 2).sum(-1)
+        return out, norms
+
+    def encrypted_scores_combined(self, ct, candidates: np.ndarray,
+                                  key_id: str):
+        """ONE single-limb result ciphertext for ALL candidates of a query.
+
+        The per-block path (encrypted_scores) returns n_blocks level-2 cts
+        per query — ~1 MB at the config-3 operating point, 32 useful slots
+        per 4096-slot ciphertext. This variant:
+
+        1. scales candidates by 2^-16 at encode (server-side, exact in
+           float64) so every inner product fits a single 30-bit limb;
+        2. runs only the IP rotations with stride ≥ W = d/n_blocks before
+           combining (the WINDOWED layout — crypto/ckks.combine_window):
+           after those, candidate j's partial sums occupy the W slots
+           [j·d, j·d + W);
+        3. multiplies by the slot mask (1 at slots with offset < W mod d,
+           0 elsewhere — one ct×pt whose rescale drops a level), killing
+           out-of-window garbage, and tree-combines the blocks with
+           rotations by −W·2^k, placing block b's window at [j·d + W·b);
+        4. finishes the inner products with the remaining strides < W on
+           the ONE combined ct — n_blocks× less rotate-accumulate work on
+           the dominant pre-combine side.
+
+        Response: ONE level-1 ct (~16× smaller). The returned ct's `scale`
+        is pre-divided by 2^16 so decode() yields RAW inner products; slot
+        j·d + W·b carries ⟨q, x_{b·per_ct + j}⟩. The client needs Galois
+        keys for the IP tree steps (d/2 … 1) AND the combine steps
+        (−W, −2W, … — crypto/ckks.combine_tree_steps). Returns
+        (ct, norms [P])."""
+        gks = self._galois[key_id]
+        ctx = self.ctx
+        P, d = candidates.shape
+        slots = self.params.n // 2
+        per_ct = slots // d
+        n_blocks = -(-P // per_ct)
+        if n_blocks > 1:
+            n_blocks = 1 << (n_blocks - 1).bit_length()   # pow2 tree
+        if n_blocks > d:
+            raise ValueError("combine needs n_blocks <= d distinct offsets")
+        if ct.level < 3:
+            raise ValueError("combined scoring needs a level-3 query ct")
+        padded = np.zeros((n_blocks * per_ct, d), np.float64)
+        padded[:P] = candidates
+        cand_scale = float(1 << self.CAND_SCALE_BITS)
+
+        window = combine_window(d, n_blocks)
+        steps = rotation_steps(d)
+        pre_steps = [s for s in steps if s >= window]
+        post_steps = [s for s in steps if s < window]
+
+        mask_slots = np.zeros(slots, np.float64)
+        for w in range(window):
+            mask_slots[w::d] = 1.0
+        mask_scale = float(1 << self.MASK_SCALE_BITS)
+        mask_pt = ctx.encode(mask_slots, scale=mask_scale)
+
+        cur = []
+        for b in range(n_blocks):
+            block = padded[b * per_ct : (b + 1) * per_ct].reshape(-1)
+            acc = ctx.mul_plain(
+                ct, ctx.encode(block / cand_scale), ctx.scale
+            )
+            for s in pre_steps:
+                acc = ctx.add(acc, ctx.rotate(acc, s, gks[s]))
+            cur.append(ctx.mul_plain(acc, mask_pt, mask_scale))
+        k = 0
+        while len(cur) > 1:
+            step = -(window << k)
+            cur = [ctx.add(cur[i], ctx.rotate(cur[i + 1], step, gks[step]))
+                   for i in range(0, len(cur), 2)]
+            k += 1
+        out = cur[0]
+        for s in post_steps:
+            out = ctx.add(out, ctx.rotate(out, s, gks[s]))
+        # decode divides by `scale`: report it 2^16 smaller so slot values
+        # come back as RAW inner products
+        out.scale = out.scale / cand_scale
+        norms = (np.round(candidates).astype(np.int64) ** 2).sum(-1)
+        return out, norms

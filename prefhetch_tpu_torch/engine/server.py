@@ -19,10 +19,12 @@
   id resolve → exact re-rank → final top-k, one chain of device work with
   one host sync. The serving frontends call the ``*_async`` forms, which
   enqueue the device work and return a resolver;
-- encrypted_precise_search (POST /encryptedsearch), BFV with the "full",
-  "q1" and "packed" response wires: Enc(⟨q, x⟩) for the candidates the
-  client names, through engine/hecompute.py and kernel K2. CKKS raises
-  NotImplementedError, as does enable_sharding (one device).
+- encrypted_precise_search (POST /encryptedsearch): Enc(⟨q, x⟩) for the
+  candidates the client names. BFV with the "full", "q1" and "packed"
+  response wires through engine/hecompute.py; CKKS (BASELINE config 3)
+  with the per-block and the "combined" responses through
+  engine/ckks_device.py; every transform one launch of kernel K2.
+  enable_sharding raises NotImplementedError (one device).
 
 The coarse scans of the JSON and tiled wires are plain PyTorch: the JAX
 package computes them in XLA, outside its Pallas kernels. coarse_search
@@ -94,6 +96,7 @@ class QueryEngine:
         self._tiled: Optional[TiledView] = None
         self._serve_mt: dict = {}
         self._he_service = None
+        self._ckks_service = None
 
     # Reference singleton accessor (include/server/server_lib.h:20-23).
     @classmethod
@@ -173,6 +176,7 @@ class QueryEngine:
         self._tiled = None
         self._serve_mt = {}
         self._he_service = None
+        self._ckks_service = None
 
     @property
     def _tiled_view(self) -> Optional[TiledView]:
@@ -522,6 +526,65 @@ class QueryEngine:
                     self._he_service = svc
         return self._he_service
 
+    @property
+    def ckks_service(self):
+        """Lazily-built CKKS slot-packed scoring service (engine/
+        ckks_device.py ``DeviceCKKS``, no secret keys held) on the engine's
+        device, with the config's CKKS parameters. The JAX engine picks its
+        numpy twin off the TPU; the port runs the device program on every
+        device (K2's plain version on a CPU tensor)."""
+        if self._ckks_service is None:
+            from prefhetch_tpu_torch.crypto.params import ckks_params_for
+            from prefhetch_tpu_torch.engine.ckks_device import DeviceCKKS
+
+            he = self.config.he
+            with self._lock:
+                if self._ckks_service is None:
+                    self._ckks_service = DeviceCKKS(
+                        ckks_params_for(he.n, he.scale_bits, he.n_limbs),
+                        device=self.device,
+                    )
+        return self._ckks_service
+
+    def _encrypted_search_ckks(self, encrypted_queries, cand_idx, key_id,
+                               galois_keys, resp_mod):
+        """The CKKS branch of encrypted_precise_search. "combined": the base
+        parked once, the candidates gathered, encoded and scored in one
+        device program → {"encryptedScoresCombined", "candidateNorms"};
+        any other respMod: the per-block response, the request's queries in
+        one program → (per query the block ct wires, per query the norms).
+        """
+        from prefhetch_tpu_torch.utils.stages import stage
+
+        svc = self.ckks_service
+        if galois_keys:
+            with stage("register galois keys"):
+                svc.register_keys(key_id, galois_keys)
+        if not svc.has_keys(key_id):
+            raise ValueError("unknown CKKS keyId — register Galois keys first")
+        cand = np.asarray(cand_idx, np.int64)
+        if resp_mod == "combined":
+            if svc._base_dev is None:
+                with self._lock, stage("park the base (once)"):
+                    if svc._base_dev is None:
+                        svc.set_base(self.base)
+            res, norms = svc.encrypted_scores_combined_batch(
+                encrypted_queries, cand.astype(np.int32), key_id)
+            with stage("to_wire (base64)"):
+                return {
+                    "encryptedScoresCombined": [c.to_wire() for c in res],
+                    "candidateNorms": norms.tolist(),
+                }
+        with stage("ct_from_wire"):
+            cts = [svc.ctx.ct_from_wire(w) for w in encrypted_queries]
+        with stage("gather (candidate rows)"):
+            rows = self.base[torch.from_numpy(cand).to(self.device)]
+            rows = rows.cpu().numpy().astype(np.float64)
+        res, norms = svc.encrypted_scores_batch(cts, rows, key_id)
+        with stage("to_wire (base64)"):
+            return ([[c.to_wire() for c in per_q] for per_q in res],
+                    norms.tolist())
+
     def encrypted_precise_search(
         self,
         encrypted_queries: list,                 # [nq] ct wire dicts
@@ -544,15 +607,17 @@ class QueryEngine:
         must hold a sparse secret) or {"packedScores", "candidateNorms",
         "packGroup"} ("packed": G = packGroup queries per 2-limb response
         ct; needs the client's Galois keys, sent once as ``galois_keys``
-        under ``key_id``)."""
+        under ``key_id``). CKKS: {"encryptedScoresCombined",
+        "candidateNorms"} under resp_mod="combined", otherwise the per-block
+        response (ct wires per block per query, norms), as the JAX engine
+        returns them; both need the client's Galois keys."""
         from prefhetch_tpu_torch.utils.stages import stage
         from prefhetch_tpu_torch.utils.wire import pack_i32
 
         if scheme == "ckks":
-            raise NotImplementedError(
-                "scheme='ckks' is not ported yet (it comes with the CKKS "
-                "slice: crypto/ckks.py, engine/ckks_device.py)"
-            )
+            return self._encrypted_search_ckks(
+                encrypted_queries, nearest_coarse_vector_idx, key_id,
+                galois_keys, resp_mod)
         if scheme != "bfv":
             raise ValueError(f"unknown scheme {scheme!r}")
         if resp_mod not in ("full", "q1", "packed"):

@@ -23,12 +23,13 @@ package writes them.
 - ``POST /precisesearch`` — exact distances of the named candidates, JSON or
   binary (5 → 3)
 - ``POST /search``      — the fused triage round, binary only (11 → 12)
-- ``POST /encryptedsearch`` — the BFV encrypted re-rank, JSON; ``respMod``
-  "full" (default), "q1" or "packed"
+- ``POST /encryptedsearch`` — the encrypted re-rank, JSON: BFV with
+  ``respMod`` "full" (default), "q1" or "packed"; ``scheme="ckks"`` with
+  the per-block response (``encryptedScores``) or ``respMod="combined"``
+  (``encryptedScoresCombined``)
 - ``POST /precise-vector-pir`` — the named vectors, JSON or binary (7 → 8)
 
-Not ported yet, answered 501 with the reason: ``POST /pir-fetch`` and
-``scheme="ckks"``.
+Not ported yet, answered 501 with the reason: ``POST /pir-fetch``.
 """
 
 from __future__ import annotations
@@ -367,17 +368,22 @@ class Dispatcher:
                     "mismatch"
                 )
             self._check_vector_ids(cand)
-        # json.dumps stays here: the codec writes number arrays without
-        # the spaces json.dumps puts after commas, and this response must
-        # keep the JAX package's bytes
-        return _json_resp(self.engine.encrypted_precise_search(
+        result = self.engine.encrypted_precise_search(
             enc_queries,
             cand,
             scheme=body.get("scheme", "bfv"),
             key_id=body.get("keyId"),
             galois_keys=body.get("galoisKeys"),
             resp_mod=body.get("respMod", "full"),
-        ))
+        )
+        if not isinstance(result, dict):
+            # CKKS per-block response: result ct wires per block per query
+            cts, norms = result
+            result = {"encryptedScores": cts, "candidateNorms": norms}
+        # json.dumps stays here: the codec writes number arrays without
+        # the spaces json.dumps puts after commas, and this response must
+        # keep the JAX package's bytes
+        return _json_resp(result)
 
     # reference: Query.cc:99-127
     def _precise_vector_pir(self, body) -> Response:

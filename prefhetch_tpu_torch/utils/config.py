@@ -90,8 +90,9 @@ class IndexParams:
 @dataclasses.dataclass(frozen=True)
 class HEParams:
     """Homomorphic-encryption layer parameters (the reference's SEAL slot,
-        CMakeLists.txt:33-38, realized in crypto/ and engine/hecompute.py; the
-    port has BFV with the "full", "q1" and "packed" responses so far).
+        CMakeLists.txt:33-38, realized in crypto/, engine/hecompute.py and
+    engine/ckks_device.py: BFV with the "full", "q1" and "packed"
+    responses, CKKS with the per-block and "combined" ones).
 
     scheme: "bfv" (exact integer) or "ckks" (approximate, slot-packed).
     n / t_bits / n_limbs follow BASELINE.json config 2 defaults

@@ -179,8 +179,18 @@ def test_each_client_decrypts_the_other_services_response(mode):
 
 
 def test_client_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ckks"):
-        TClient(THEParams(scheme="ckks"))
+    # an unknown scheme is refused as the JAX client refuses it; CKKS is
+    # ported (tests/test_torch_ckks*.py): the JAX client's params and keys
+    with pytest.raises(NotImplementedError, match="scheme bgv"):
+        TClient(THEParams(scheme="bgv"))
+    with pytest.raises(NotImplementedError, match="scheme bgv"):
+        JClient(JHEParams(scheme="bgv"))
+    he = dict(scheme="ckks", n=256, n_limbs=3)
+    jk, tk = JClient(JHEParams(**he), seed=3), TClient(THEParams(**he), seed=3)
+    assert (tk.params.n, tk.params.scale_bits, tk.params.qs) == \
+        (jk.params.n, jk.params.scale_bits, jk.params.qs)
+    np.testing.assert_array_equal(tk.sk.s_rns, jk.sk.s_rns)
+    assert tk.bfv_extraction_keys_wire(D) is None
     # the packed response is ported: an odd t, the JAX client's keys, and
     # its Galois keys once
     jc, tc = _clients(2, resp_mod="packed")

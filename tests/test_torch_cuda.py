@@ -1,8 +1,9 @@
 """Tests that need the card: kernels K1 to K5 and the tile schedule of K4
 and K5 against their plain versions, the engine on CUDA against the engine
 on the CPU, the encrypted re-rank service on CUDA against the service on
-the CPU (the packed response and its threefry expansion too), and the
-scan variants of query_pipeline on CUDA against the CPU.
+the CPU (the packed response and its threefry expansion too), the CKKS
+device program on CUDA against the CPU (K2 at the CKKS primes too), and
+the scan variants of query_pipeline on CUDA against the CPU.
 Without CUDA they skip. On a machine with an H100 and nvcc (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -289,6 +290,74 @@ def test_packed_service_on_cuda_matches_cpu(cuda, entry):
                                        q, rg[2])
     np.testing.assert_array_equal(
         got, ((base[cand] - q[:, None]) ** 2).sum(-1))
+
+
+@pytest.mark.parametrize("rows", [2048, 128])
+def test_ntt4_transform_kernel_at_the_ckks_primes(cuda, rows):
+    """K2 at N=8192 on the CKKS chain and its special prime
+    (find_ntt_primes(8192, 30, 4)), at the combined program's largest row
+    count (the pre-combine key switch, 512 rows x 4 digits) and a small
+    one: forward of 15-bit digits and of residues, inverse of residues,
+    exact against the plain version."""
+    for q in find_ntt_primes(8192, 30, 4):
+        tb = build_ntt4_tables(q, 8192)
+        gen = torch.Generator(device=cuda).manual_seed(q % 1000)
+        for hi, inverse in ((1 << 15, False), (q, False), (q, True)):
+            x = torch.randint(0, hi, (rows, 8192), generator=gen,
+                              device=cuda, dtype=torch.int64)
+            before = k2.ntt4_transform.launches
+            got = k2.ntt4_transform(x, tb, inverse)
+            torch.cuda.synchronize()
+            assert k2.ntt4_transform.launches == before + 1
+            assert torch.equal(got, transform_plain(x, tb, inverse))
+
+
+@pytest.mark.parametrize("mode", ["combined", "per-block"])
+def test_ckks_device_on_cuda_matches_cpu(cuda, mode):
+    """DeviceCKKS on the card (every transform one K2 launch) bit-equal to
+    the same program on the CPU, at config 3 (N=8192, 3 limbs, scale 2^26,
+    d=128, P=256), nq = 2, host encode, seedTf wires for "combined":
+    56 K2 launches a combined program, 48 a per-block one."""
+    from prefhetch_tpu_torch.engine.ckks_device import DeviceCKKS
+
+    he = HEParams(scheme="ckks", n=8192, n_limbs=3, scale_bits=26,
+                  resp_mod="combined" if mode == "combined" else "full")
+    client = HEClient(he, seed=12)
+    wire = client.galois_keys_wire(128, client.combine_blocks(256, 128))
+    rng = np.random.default_rng(13)
+    rows = rng.integers(0, 256, (2, 256, 128)).astype(np.float64)
+    q = rng.integers(0, 256, (2, 128)).astype(np.float64)
+    wires = client.encrypt_query_batch(q)
+    gpu = DeviceCKKS(client.params, device=cuda)
+    cpu = DeviceCKKS(client.params, device="cpu")
+    for s in (gpu, cpu):
+        s.register_keys("k", wire)
+    before = k2.ntt4_transform.launches
+    if mode == "combined":
+        rg = gpu.encrypted_scores_combined_batch(wires, rows, "k")
+        torch.cuda.synchronize()
+        launched = k2.ntt4_transform.launches - before
+        rc = cpu.encrypted_scores_combined_batch(wires, rows, "k")
+        pairs = list(zip(rg[0], rc[0]))
+        got = client.decrypt_scores_combined([c.to_wire() for c in rg[0]],
+                                             rg[1], q)
+    else:
+        cts = [client.ctx.ct_from_wire(w) for w in wires]
+        rg = gpu.encrypted_scores_batch(cts, rows, "k")
+        torch.cuda.synchronize()
+        launched = k2.ntt4_transform.launches - before
+        rc = cpu.encrypted_scores_batch(cts, rows, "k")
+        pairs = [p for a, b in zip(rg[0], rc[0]) for p in zip(a, b)]
+        got = client.decrypt_scores_batch(
+            [[c.to_wire() for c in per_q] for per_q in rg[0]], rg[1], q)
+    assert launched == (56 if mode == "combined" else 48)
+    for a, b in pairs:
+        assert a.level == b.level and a.scale == b.scale
+        np.testing.assert_array_equal(a.c0, b.c0)
+        np.testing.assert_array_equal(a.c1, b.c1)
+    np.testing.assert_array_equal(rg[1], rc[1])
+    ref = ((rows - q[:, None]) ** 2).sum(-1)
+    assert np.abs(got - ref).max() / ref.max() <= 0.01
 
 
 PAD = 3.4e38

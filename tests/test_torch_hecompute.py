@@ -319,10 +319,14 @@ def test_encrypted_search_errors(engines):
         assert td.handle("POST", "/encryptedsearch", {}, raw)[0] == \
             jd.handle("POST", "/encryptedsearch", {}, raw)[0] == 400
     assert td.handle("POST", "/encryptedsearch", {}, b"{nope")[0] == 400
-    # the part of a later slice: a clear refusal, never a wrong answer
-    status, _, msg = td.handle("POST", "/encryptedsearch", {},
-                               json.dumps({**ok, "scheme": "ckks"}).encode())
-    assert status == 501 and "ckks" in json.loads(msg)["error"]
+    # scheme="ckks" is served (tests/test_torch_ckks_route.py): without
+    # Galois keys for its keyId it is refused as the JAX package refuses it
+    raw = json.dumps({**ok, "scheme": "ckks"}).encode()
+    st_t, _, msg_t = td.handle("POST", "/encryptedsearch", {}, raw)
+    st_j, _, msg_j = jd.handle("POST", "/encryptedsearch", {}, raw)
+    assert st_t == st_j == 400
+    assert json.loads(msg_t) == json.loads(msg_j)
+    assert "CKKS keyId" in json.loads(msg_t)["error"]
     # respMod="packed" is served, and refused as the JAX package refuses it
     # without Galois keys for its keyId, with a wrong keyId, and with keys
     # whose digitBits disagree with their shape
@@ -341,7 +345,7 @@ def test_encrypted_search_errors(engines):
     with pytest.raises(ValueError, match="keyId"):
         te.encrypted_precise_search(wires, np.asarray(cand),
                                     resp_mod="packed")
-    with pytest.raises(NotImplementedError, match="ckks"):
+    with pytest.raises(ValueError, match="CKKS keyId"):
         te.encrypted_precise_search(wires, np.asarray(cand), scheme="ckks")
     with pytest.raises(ValueError, match="respMod"):
         te.encrypted_precise_search(wires, np.asarray(cand), resp_mod="x")

@@ -133,7 +133,9 @@ def test_port_imports_without_jax():
             "prefhetch_tpu_torch.client.binwire",
             "prefhetch_tpu_torch.client.driver",
             "prefhetch_tpu_torch.utils.timer",
-            "prefhetch_tpu_torch.utils.logging"} <= set(mods)
+            "prefhetch_tpu_torch.utils.logging",
+            "prefhetch_tpu_torch.crypto.ckks",
+            "prefhetch_tpu_torch.engine.ckks_device"} <= set(mods)
 
 
 def test_http_routes_serve_without_jax(tmp_path):
@@ -214,6 +216,56 @@ def test_packed_path_runs_without_jax():
         "w = [x.to_wire() for x in cts]\n"
         "d = c.decrypt_scores_packed(w, norms, q, g)\n"
         "assert (d == ((base[cand] - q[:, None]) ** 2).sum(-1)).all()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_ckks_path_runs_without_jax():
+    """One combined CKKS request on the CPU with jax, flax, ml_dtypes and
+    the JAX package blocked: the client's keys and seedTf wires, the JSON
+    route of the port's engine (parked base, the device program on K2's
+    plain version) and the client's decryption."""
+    code = (
+        "import sys, json\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'prefhetch_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from prefhetch_tpu_torch.client.he import HEClient\n"
+        "from prefhetch_tpu_torch.engine.server import QueryEngine\n"
+        "from prefhetch_tpu_torch.index.build import build_ivf_index\n"
+        "from prefhetch_tpu_torch.serve.handlers import Dispatcher\n"
+        "from prefhetch_tpu_torch.utils.config import (\n"
+        "    HEParams, IndexParams, PipelineConfig)\n"
+        "he = HEParams(scheme='ckks', n=256, n_limbs=3, "
+        "resp_mod='combined')\n"
+        "rng = np.random.default_rng(2)\n"
+        "base = rng.integers(0, 256, (300, 32)).astype(np.float32)\n"
+        "ip = IndexParams(d=32, nlist=4, pq_m=4, kmeans_iters=2,\n"
+        "                 pq_kmeans_iters=2)\n"
+        "cfg = PipelineConfig(index=ip, he=he, nbase=300)\n"
+        "e = QueryEngine(cfg, device='cpu')\n"
+        "e.set_index(build_ivf_index(base, base, ip, device='cpu'), base)\n"
+        "c = HEClient(he, seed=1)\n"
+        "q = rng.integers(0, 256, (2, 32)).astype(np.float32)\n"
+        "cand = rng.integers(0, 300, (2, 20))\n"
+        "body = {'scheme': 'ckks', 'keyId': c.key_id, 'respMod': "
+        "'combined',\n"
+        "        'encryptedPreciseQuery': c.encrypt_query_batch(q),\n"
+        "        'nearestCoarseVectorIndexes': cand.tolist(),\n"
+        "        'galoisKeys': c.galois_keys_wire(32, "
+        "c.combine_blocks(20, 32))}\n"
+        "st, _, out = Dispatcher(e).handle('POST', '/encryptedsearch', {},\n"
+        "                                  json.dumps(body).encode())\n"
+        "assert st == 200, out[:300]\n"
+        "r = json.loads(out)\n"
+        "d = c.decrypt_scores_combined(r['encryptedScoresCombined'],\n"
+        "                              np.asarray(r['candidateNorms']), q)\n"
+        "ref = ((base[cand] - q[:, None]) ** 2).sum(-1)\n"
+        "assert (np.abs(d - ref) <= 0.08 * ref.max(1, keepdims=True)).all()\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -85,6 +85,23 @@ reporting on lines of its own; any failure exits non-zero:
               bench.py's workload and their recall reported; the stage
               breakdown of one request with its bytes, and its device time
               by kernel;
+   pir      — private row retrieval on the same engine and base (HE
+              defaults: N=4096, 2 limbs, t=257): the engine's DevicePIR2
+              built on the card (pack_database on the host, the 1,026.7 MB
+              database transformed by K2, 2 launches, held against its
+              plain version on the build's own input), the device program
+              bit-equal to the numpy
+              PIR2Server at nbase 5,000; then one POST /pir-fetch of 4
+              single-row queries (62 K2 launches) and the client's stage 8
+              on the first /search query's top-100 through the multi-row
+              wire (10 cts of 11 rows, a 12-level expansion, 80 launches),
+              every row exact, with the shape of each K2 launch recorded;
+              K2 against its plain version at every shape recorded (up to
+              [163,840, 4,096] int32 forward and [81,920, 4,096] int64
+              inverse, the multi-row key switch's last round); where one
+              multi-row request's time goes, the dim-1 fold against its
+              byte bound, the device's busy share and K2's time at that
+              widest round;
    http     — the reference's protocol served over HTTP on the same engine
               by the native epoll frontend, in-process (max_batch 256,
               grace 1.5 ms, 3 resolvers; /stats must report it): the port's
@@ -144,6 +161,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -333,28 +351,58 @@ def check_tensor_core_sass(path, ops, kernel: str) -> None:
         f"{counts}")
 
 
-def check_transform(name, x, tb, inverse) -> int:
+def check_transform(name, x, tb, inverse, got=None) -> int:
     """K2 (one launch) against its plain version (two plain stages) on the
-    same card tensor: equal, canonical. Returns the max |difference| (0)."""
+    same card tensor: equal, canonical. ``got``, where given, is K2's
+    output on x from a launch the caller made. The plain version runs over
+    slices of at most 2^26 elements (16,384 rows at N=4096; its float64
+    stages take ~40 bytes an element). Returns the max |difference| (0)."""
     import torch
 
     from prefhetch_tpu_torch.ops import ntt4 as n4
     from prefhetch_tpu_torch.ops import ntt4_fused as k2
 
-    before = k2.ntt4_transform.launches
-    got = (n4.intt4 if inverse else n4.ntt4)(x, tb)
-    torch.cuda.synchronize()              # a fault in the run shows here
-    if k2.ntt4_transform.launches != before + 1:
-        raise AssertionError(f"{name}: not one K2 launch")
-    want = n4.transform_plain(x, tb, inverse)
-    if got.dtype != torch.int32 or int(got.min()) < 0 \
-            or int(got.max()) >= tb.q:
-        raise AssertionError(f"{name}: output not canonical int32")
-    err = int((got.long() - want.long()).abs().max())
+    if got is None:
+        before = k2.ntt4_transform.launches
+        got = (n4.intt4 if inverse else n4.ntt4)(x, tb)
+        torch.cuda.synchronize()          # a fault in the run shows here
+        if k2.ntt4_transform.launches != before + 1:
+            raise AssertionError(f"{name}: not one K2 launch")
+    if got.dtype != torch.int32 or got.shape != x.shape \
+            or int(got.min()) < 0 or int(got.max()) >= tb.q:
+        raise AssertionError(f"{name}: output not canonical int32 [B, N]")
+    err, step = 0, max(1, (1 << 26) // tb.n)
+    for i in range(0, x.shape[0], step):
+        want = n4.transform_plain(x[i:i + step], tb, inverse)
+        err = max(err, int((got[i:i + step].long() - want.long()).abs()
+                           .max()))
     if err != 0:
         raise AssertionError(f"{name}: K2 differs from its plain version "
                              f"(max |diff| {err})")
     return err
+
+
+@contextlib.contextmanager
+def recording_k2(keep_inputs: bool = False):
+    """Records every K2 launch that ops/ntt4's ntt4/intt4 make inside the
+    block, as (rows, dtype, inverse, tables, the input where
+    ``keep_inputs``). It wraps the name ops/ntt4 calls, not the counted
+    wrapper, so the kernel's launch count is untouched."""
+    from prefhetch_tpu_torch.ops import ntt4 as n4
+
+    seen = []
+    real = n4.ntt4_transform
+
+    def record(x, tb, inverse):
+        seen.append((x.shape[0], x.dtype, bool(inverse), tb,
+                     x if keep_inputs else None))
+        return real(x, tb, inverse)
+
+    n4.ntt4_transform = record
+    try:
+        yield seen
+    finally:
+        n4.ntt4_transform = real
 
 
 def phase_ntt() -> None:
@@ -1239,11 +1287,364 @@ def phase_ckks(engine, disp, data, queries, cands, reset_counts, smi):
                        "ckks_per_block": pb_launches}, k2_err)
 
 
-def time_ntt4_transform(tb, nbatch: int, forward_int64: bool = False) -> dict:
+def check_k2_pir_database(svc, built) -> int:
+    """K2 against its plain version at the database's transform: the
+    service's own launches at build time (``built``, recorded with their
+    input: [g1·g2, N] int32 values below t, one forward a limb), whose
+    output is svc.db, against the plain version of that same input; then
+    that launch's time beside its bound. Returns the max |difference| (0)."""
+    from prefhetch_tpu_torch.ops.ntt4 import ntt4
+
+    L, n = len(svc.params.qs), svc.params.n
+    if [(b[2], b[3].q) for b in built] != [(False, tb.q)
+                                          for tb in svc._tabs_q]:
+        raise AssertionError("the database was not one forward K2 a limb")
+    db = svc.db.view(-1, L, n)
+    err = 0
+    for i, (_, _, _, tb, x) in enumerate(built):
+        err = max(err, check_transform(f"pir/db limb {i}", x, tb, False,
+                                       got=db[:, i]))
+    x, tb0 = built[0][4], built[0][3]
+    t_db = cuda_time_ms(lambda: ntt4(x, tb0), iters=5, warmup=1)
+    db_in = x.numel() * 8
+    ops = 2 * x.numel() * (tb0.n1 + tb0.n2) * INT8_MACS_PER_MODMAC
+    log("timing", f"ntt4_transform forward at the database's [{x.shape[0]}, "
+        f"{n}] int32 (CUDA events): {t_db:.4f} ms a limb, bound "
+        f"{db_in / HBM_BYTES_S * 1e3:.4f} ms (bytes, {db_in / 1e6:.1f} MB; "
+        f"int8 {ops / INT8_OPS * 1e3:.4f} ms)")
+    log("kernel", f"ntt4_transform at the PIR database [{x.shape[0]}, {n}] "
+        f"int32 on {list(svc.params.qs)}: the build's own launches = the "
+        f"plain version of their input (max |err| {err})")
+    return err
+
+
+def check_k2_pir_path(recorded: dict, device) -> int:
+    """K2 against its plain version at every shape the PIR path gave it:
+    each (rows, input dtype, direction, prime) recorded around the path's
+    requests, on fresh residues below q of that dtype, one launch each.
+    Returns the max |difference| (0)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    seen, err, n_rows = {}, 0, 0
+    for launches in recorded.values():
+        for rows, dtype, inverse, tb, _ in launches:
+            seen.setdefault((rows, dtype, inverse, tb.q), tb)
+    for (rows, dtype, inverse, q), tb in sorted(
+            seen.items(), key=lambda kv: kv[0][0]):
+        x = torch.randint(0, q, (rows, tb.n), generator=gen,
+                          device=device, dtype=dtype)
+        err = max(err, check_transform(
+            f"pir/[{rows}] {str(dtype)[6:]} "
+            f"{'inverse' if inverse else 'forward'} mod {q}", x, tb, inverse))
+        n_rows += rows
+        del x
+    for name, launches in recorded.items():
+        fwd = max((b for b in launches if not b[2]), key=lambda b: b[0])
+        inv = max((b for b in launches if b[2]), key=lambda b: b[0])
+        log("kernel", f"ntt4_transform on {name}: {len(launches)} launches, "
+            f"the widest [{fwd[0]}, {fwd[3].n}] {str(fwd[1])[6:]} forward "
+            f"and [{inv[0]}, {inv[3].n}] {str(inv[1])[6:]} inverse")
+    log("kernel", f"ntt4_transform at all {len(seen)} (rows, dtype, "
+        f"direction, prime) of the PIR path ({n_rows:,} rows in all) = its "
+        f"plain version (max |err| {err})")
+    return err
+
+
+def widest_key_switch(launches, sp: int) -> tuple:
+    """The widest forward and inverse K2 launch of the key switch among
+    ``launches`` (its transforms on the special prime ``sp``, which only
+    the key switch runs): ((rows, dtype), (rows, dtype), tables)."""
+    ks = [b for b in launches if b[3].q == sp]
+    fwd = max((b for b in ks if not b[2]), key=lambda b: b[0])
+    inv = max((b for b in ks if b[2]), key=lambda b: b[0])
+    return (fwd[0], fwd[1]), (inv[0], inv[1]), fwd[3]
+
+
+def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
+    """Private row retrieval on the engine and base of the main phase: the
+    engine's DevicePIR2 built on the card (pack_database on the host, the
+    database's transform by K2, held against its plain version on the
+    build's own input), the device program bit-equal to the numpy oracle
+    PIR2Server at nbase 5,000; then the path: one POST /pir-fetch of 4
+    single-row queries (pirHypercube) and the client's stage 8 on one
+    query's top-K rows through the multi-row wire (pirHypercubeMulti),
+    with K2's launches counted and their shapes recorded around each and
+    every row decoded exactly; K2 against its plain version at every shape
+    recorded; then where one multi-row request's time goes, the dim-1 fold
+    against its byte bound, the device's busy share, and K2's time at the
+    multi-row key switch's widest round. Returns (K2 launches, launches
+    per request, K2's max |err| vs plain, K2's timing at the key-switch
+    shape, the path's description)."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.client.pir import get_pir_client
+    from prefhetch_tpu_torch.client.pipeline import ClientPipeline
+    from prefhetch_tpu_torch.crypto.pir import PIR2Server, PIRClient
+    from prefhetch_tpu_torch.engine import pir_device
+    from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
+    from prefhetch_tpu_torch.utils.stages import record_stages
+
+    t_phase = time.perf_counter()
+    cfg = engine.config
+    nbase, d = base_np.shape
+    k = top_ids.shape[1]
+
+    # the service, built lazily by the engine as a request would
+    before = k2.ntt4_transform.launches
+    torch.cuda.synchronize()
+    with record_stages() as build, recording_k2(keep_inputs=True) as built:
+        t0 = time.perf_counter()
+        svc = engine.pir2_service
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+    build_launches = k2.ntt4_transform.launches - before
+    p = svc.params
+    L = len(p.qs)
+    db_bytes = svc.db.numel() * svc.db.element_size()
+    G = -(-nbase // (p.n // d))
+    log("pir", f"{smi}: PIR N={p.n}, t={p.t}, limbs {list(p.qs)} + special "
+        f"prime {svc._ext[-1]}; nbase {nbase}, d={d}: {p.n // d} rows a "
+        f"block, G={G}, grid {svc.g1} x {svc.g2}, m={svc.m}, single-row "
+        f"logm {svc.logm} (m_pad {svc.m_pad}), {svc._n_digits} response "
+        f"digits, {svc.rows_per_ct()} rows a multi-row ct")
+    log("pir", f"service built in {build_ms:.0f} ms: pack_database "
+        f"{build['pack_database']:.0f} ms (host), database upload + "
+        f"transform {build['database upload + transform']:.0f} ms with "
+        f"{build_launches} K2 launches; the database on the card "
+        f"{db_bytes / 1e6:.1f} MB {list(svc.db.shape)} int32 (four-step "
+        f"NTT order), one pass at 3.35 TB/s = "
+        f"{db_bytes / HBM_BYTES_S * 1e3:.3f} ms")
+    if build_launches != L:
+        raise AssertionError(f"the database took {build_launches} K2 "
+                             f"launches, not {L}")
+    k2_err = check_k2_pir_database(svc, built)
+    del built
+
+    # the device program against the numpy oracle at nbase 5,000
+    t0 = time.perf_counter()
+    small = base_np[:5000]
+    dev_s, host_s = DevicePIR2(small, p, device=svc.device), \
+        PIR2Server(small, p)
+    c_s = PIRClient(p)
+    gw = c_s.galois_keys_wire_2d(len(small), d)
+    dev_s.register_galois_keys(c_s.key_id, gw)
+    host_s.register_galois_keys(c_s.key_id, gw)
+    row_s = min(4321, len(small) - 1)
+    w, r = c_s.build_query_2d(row_s, len(small), d)
+    t1 = time.perf_counter()
+    rd = dev_s.answer_2d(w, c_s.key_id)
+    dev_ms = (time.perf_counter() - t1) * 1e3
+    t1 = time.perf_counter()
+    rh = host_s.answer_2d(w, c_s.key_id)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    if rd != rh or not np.array_equal(c_s.decode_response_2d(rd, d, r),
+                                      small[row_s]):
+        raise AssertionError("DevicePIR2 differs from PIR2Server at nbase "
+                             "5,000")
+    log("pir", f"DevicePIR2 on the card = PIR2Server (numpy) at nbase 5,000 "
+        f"(grid {dev_s.g1} x {dev_s.g2}): one answer_2d bit-equal, the row "
+        f"exact; device {dev_ms:.0f} ms (first call), host {host_ms:.0f} ms; "
+        f"{time.perf_counter() - t0:.1f} s with keys and set-up")
+    del dev_s, host_s
+
+    # the client: keys before the path (its own host work, timed here)
+    t0 = time.perf_counter()
+    mclient = get_pir_client(cfg)
+    key_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    gks1 = mclient.galois_keys_wire_2d(nbase, d)
+    gal1_ms = (time.perf_counter() - t0) * 1e3
+    k_ct = mclient.rows_per_ct(nbase, d)
+    t0 = time.perf_counter()
+    gksm = mclient.galois_keys_wire_2d_multi(nbase, d, k_ct)
+    galm_ms = (time.perf_counter() - t0) * 1e3
+    rows4 = [int(x) for x in top_ids[0, :4]]
+    t0 = time.perf_counter()
+    q4 = [mclient.build_query_2d(r_, nbase, d) for r_ in rows4]
+    enc4_ms = (time.perf_counter() - t0) * 1e3
+    body4 = json.dumps({"pirHypercube": [w_ for w_, _ in q4],
+                        "keyId": mclient.key_id,
+                        "galoisKeys": gks1}).encode()
+
+    captured = {}
+
+    def send(method, route, body):
+        t0 = time.perf_counter()
+        status, _, out = disp.handle(method, "/" + route, {}, body)
+        captured.update(req=body, resp=out,
+                        ms=(time.perf_counter() - t0) * 1e3)
+        if status != 200:
+            raise AssertionError(f"{method} /{route}: {status} {out[:300]!r}")
+        return out
+
+    tclient = ClientPipeline(cfg, send=send)
+
+    # -- the path ----------------------------------------------------------
+    reset_counts()
+    with recording_k2() as shapes4:
+        t0 = time.perf_counter()
+        status, _, resp4 = disp.handle("POST", "/pir-fetch", {}, body4)
+        single_ms = (time.perf_counter() - t0) * 1e3
+    if status != 200:
+        raise AssertionError(f"POST /pir-fetch: {status} {resp4[:300]!r}")
+    single_launches = k2.ntt4_transform.launches
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with recording_k2() as shapes_m:
+        t0 = time.perf_counter()
+        vecs, ids = tclient.get_precise_vectors_real_pir(top_ids[:1])
+        stage8_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - mem0
+    launches = k2.ntt4_transform.launches
+    multi_launches = launches - single_launches
+    plain_calls = k2s.ntt4_step_plain.calls
+    # -----------------------------------------------------------------------
+
+    res4 = json.loads(resp4)["pirResults"]
+    for row, (_, r_), resp in zip(rows4, q4, res4):
+        if not np.array_equal(mclient.decode_response_2d(resp, d, r_),
+                              base_np[row]):
+            raise AssertionError(f"pirHypercube row {row} decoded wrong")
+    if not np.array_equal(vecs[0], base_np[ids[0]]):
+        raise AssertionError("the multi-row stage 8 decoded rows that are "
+                             "not the base's")
+    n_cts = -(-k // k_ct)
+    logm_multi = max(1, (k_ct * svc.m - 1).bit_length())
+
+    def want(logm: int, cts: int) -> int:
+        # 6 a level of the expansion (forward and inverse on 3 primes), 4 a
+        # limb for the selectors and the two folds; a program a chunk
+        programs = -(-cts // max(1, pir_device.MAX_EXPANDED >> logm))
+        return programs * (6 * logm + 4 * L)
+
+    want1, wantm = want(svc.logm, 4), want(logm_multi, n_cts)
+    log("pir", f"client (host): keygen {key_ms:.0f} ms, Galois keys for "
+        f"{svc.logm} levels {gal1_ms:.0f} ms "
+        f"({len(json.dumps(gks1)) / 1e6:.2f} MB), the {logm_multi - svc.logm}"
+        f" deeper levels of the multi-row wire {galm_ms:.0f} ms "
+        f"({len(json.dumps(gksm)) / 1e6:.2f} MB in all); 4 single-row "
+        f"queries {enc4_ms:.0f} ms")
+    log("pir", f"POST /pir-fetch pirHypercube of 4 rows with the Galois "
+        f"keys: {single_ms:.1f} ms (host clock; key registration included), "
+        f"request {len(body4) / 1e6:.2f} MB, response "
+        f"{len(resp4) / 1e6:.3f} MB, rows exact; K2 launches "
+        f"{single_launches} (expected {want1} = 6·{svc.logm} + 4·{L})")
+    log("pir", f"stage 8 (ClientPipeline.get_precise_vectors_real_pir) on "
+        f"{k} rows of one query: {n_cts} cts of {k_ct} rows "
+        f"(nRows {k_ct}, the last padded), a {logm_multi}-level expansion; "
+        f"{stage8_ms:.0f} ms in all, the request {captured['ms']:.0f} ms "
+        f"(with the {logm_multi}-level keys), request "
+        f"{len(captured['req']) / 1e6:.2f} MB, response "
+        f"{len(captured['resp']) / 1e6:.2f} MB, rows exact; K2 launches "
+        f"{multi_launches} (expected {wantm} = 6·{logm_multi} + 4·{L} a "
+        f"program of at most {pir_device.MAX_EXPANDED >> logm_multi} cts); "
+        f"peak device memory of the request {peak / 2**30:.2f} GiB above the "
+        f"{mem0 / 2**30:.2f} GiB already allocated; plain-version calls "
+        f"{plain_calls}")
+    if single_launches != want1 or multi_launches != wantm:
+        raise AssertionError(f"K2 launches {single_launches}, "
+                             f"{multi_launches}; expected {want1}, {wantm}")
+    if plain_calls != 0:
+        raise AssertionError("a plain version ran on the pir path")
+    if (len(shapes4), len(shapes_m)) != (single_launches, multi_launches):
+        raise AssertionError("the recorded K2 launches differ from the "
+                             "counted ones")
+    # K2 against its plain version at every shape the two requests gave it
+    k2_err = max(k2_err, check_k2_pir_path({
+        "the 4-row pirHypercube request": shapes4,
+        f"the {n_cts}-ct pirHypercubeMulti request": shapes_m}, svc.device))
+    sp = svc._ext[-1]
+    ks_fwd, ks_inv, ks_tb = widest_key_switch(shapes_m, sp)
+    ks4_fwd, ks4_inv, _ = widest_key_switch(shapes4, sp)
+    del shapes4, shapes_m
+
+    # where one multi-row request's time goes (keys registered: the
+    # client's next request)
+    body = json.loads(captured["req"])
+    body.pop("galoisKeys", None)
+    raw = json.dumps(body).encode()
+    t0 = time.perf_counter()
+    with record_stages() as times:
+        t1 = time.perf_counter()
+        status, _, out = disp.handle("POST", "/pir-fetch", {}, raw)
+        wall = (time.perf_counter() - t1) * 1e3
+    if status != 200 or out != captured["resp"]:
+        raise AssertionError("the repeated multi-row request answered "
+                             "otherwise")
+    covered = sum(times.values())
+    log("pir", f"{smi}: one warm POST /pir-fetch pirHypercubeMulti ({n_cts} "
+        f"cts x {k_ct} rows) by stage: " + ", ".join(
+            f"{name} {ms:.2f} ms" for name, ms in times.items())
+        + f"; request wall {wall:.1f} ms (stages {100 * covered / wall:.1f}%"
+        f" of it), {len(raw):,} bytes up, {len(out):,} down")
+    rows_all = [int(x) for x in ids.reshape(-1)]
+    chunks = [rows_all[i:i + k_ct] for i in range(0, len(rows_all), k_ct)]
+    t0 = time.perf_counter()
+    for ch in chunks:
+        mclient.build_query_2d_multi(ch + [ch[-1]] * (k_ct - len(ch)),
+                                     nbase, d)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    res = json.loads(out)["pirResults"]
+    t0 = time.perf_counter()
+    for resp in res[:k]:
+        mclient.decode_response_2d(resp, d, 0)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    log("pir", f"client (host) for that fetch: {n_cts} multi-row queries "
+        f"{enc_ms:.0f} ms, decoding {k} rows {dec_ms:.0f} ms")
+
+    # the dim-1 fold alone against its byte bound, at both paths' widths
+    gen = torch.Generator(device=svc.device).manual_seed(5)
+    for S in (4, n_cts * k_ct):
+        s1 = torch.randint(0, p.qs[0], (S, svc.g1, 2, L, p.n), generator=gen,
+                           device=svc.device, dtype=torch.int32)
+        t_fold = cuda_time_ms(lambda: svc._fold_dim1(s1), iters=3, warmup=1)
+        io = s1.numel() * 4 + s1.numel() // svc.g1 * svc.g2 * 4
+        log("pir", f"{smi}: dim-1 fold of {S} selector sets (CUDA events): "
+            f"{t_fold:.3f} ms; bound by bytes: the database once "
+            f"{db_bytes / HBM_BYTES_S * 1e3:.3f} ms, with its selectors "
+            f"read and canonical int32 sums written "
+            f"{(db_bytes + io) / HBM_BYTES_S * 1e3:.3f} ms")
+        del s1
+
+    wall_p, busy, prof = profile_device(
+        f"one warm /pir-fetch ({n_cts} multi-row cts)",
+        lambda: disp.handle("POST", "/pir-fetch", {}, raw))
+    k2_ms = sum(us for us, key, _ in prof if "ntt4_kernel" in key) / 1e3
+    k2_n = sum(c for _, key, c in prof if "ntt4_kernel" in key)
+    if prof:
+        log("profile", f"  {smi}: K2 (ntt4_kernel) {k2_ms:.4f} ms in "
+            f"{k2_n} launches of the device's busy {busy:.3f} ms "
+            f"({100 * k2_ms / busy:.1f}%); device busy "
+            f"{100 * busy / wall_p:.1f}% of the request's {wall_p:.1f} ms")
+
+    # K2 at the multi-row key switch's widest round, on the special prime
+    k2_pir = time_ntt4_transform(ks_tb, ks_fwd[0],
+                                 forward_int64=ks_fwd[1] == torch.int64,
+                                 inverse_rows=ks_inv[0])
+    k2_pir.update(
+        shape=[ks_fwd[0], p.n], dtype=str(ks_fwd[1])[6:],
+        inverse_shape=[ks_inv[0], p.n], inverse_dtype=str(ks_inv[1])[6:],
+        single_row_x4_shapes=[[ks4_fwd[0], p.n], [ks4_inv[0], p.n]])
+    log("pir", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    path = (f"POST /pir-fetch x2 (pirHypercube of 4 rows; "
+            f"pirHypercubeMulti of {n_cts} cts x {k_ct} rows, stage 8 of "
+            f"one query)")
+    return (launches, {"pir_single_x4": single_launches,
+                       f"pir_multi_{n_cts}cts": multi_launches},
+            k2_err, k2_pir, path)
+
+
+def time_ntt4_transform(tb, nbatch: int, forward_int64: bool = False,
+                        inverse_rows: int | None = None) -> dict:
     """K2 per transform at a request's shape ([nbatch, N]): the forward
     transform of int32 residues (int64 with ``forward_int64``, as the packed
-    key switch gives it its digits) and the inverse of int64 ones, as the
-    request runs them, each beside the plain version and the card's bound.
+    key switch gives it its digits) and the inverse of int64 ones (of
+    ``inverse_rows`` rows if given), as the request runs them, each beside
+    the plain version and the card's bound.
     Returns the timing keys of K2's entry in the kernels line (means of the
     two directions; each direction's own under "forward"/"inverse")."""
     import torch
@@ -1254,26 +1655,33 @@ def time_ntt4_transform(tb, nbatch: int, forward_int64: bool = False) -> dict:
     gen = torch.Generator(device=dev).manual_seed(3)
     rows = {}
     fwd = torch.int64 if forward_int64 else torch.int32
-    for name, inverse, dtype in (("forward", False, fwd),
-                                 ("inverse", True, torch.int64)):
+    for name, inverse, dtype, rows_n in (
+            ("forward", False, fwd, nbatch),
+            ("inverse", True, torch.int64, inverse_rows or nbatch)):
         fn = n4.intt4 if inverse else n4.ntt4
-        xs = [torch.randint(0, tb.q, (nbatch, tb.n), device=dev, dtype=dtype,
+        # 6 x 25 MB in + out: past L2; two copies of an input of a GB
+        n_x = 6 if rows_n * tb.n * dtype.itemsize < 1 << 30 else 2
+        xs = [torch.randint(0, tb.q, (rows_n, tb.n), device=dev, dtype=dtype,
                             generator=gen)
-              for _ in range(6)]            # 6 x 25 MB in + out: past L2
+              for _ in range(n_x)]
         x0 = xs[0]
+        # the plain version over slices of 2^26 elements (its float64
+        # stages take ~40 bytes an element)
+        step = max(1, (1 << 26) // tb.n)
         t_k = cuda_time_ms(lambda: fn(x0, tb))
-        t_p = cuda_time_ms(lambda: fn(x0, tb, plain=True))
+        t_p = cuda_time_ms(lambda: [fn(x0[i:i + step], tb, plain=True)
+                                    for i in range(0, rows_n, step)])
         t_k2 = cuda_time_ms(lambda: fn(x0, tb))
         ring = iter(range(10 ** 9))
-        t_cold = cuda_time_ms(lambda: fn(xs[next(ring) % 6], tb), iters=24)
+        t_cold = cuda_time_ms(lambda: fn(xs[next(ring) % n_x], tb), iters=24)
         t_dev = kernel_ms(lambda: fn(x0, tb), "ntt4_kernel", min(t_k, t_k2))
         # bytes: input read once, int32 output written once, the four digit
         # tables and the packed twiddles read once
-        nbytes = (nbatch * tb.n * (x0.element_size() + 4)
+        nbytes = (rows_n * tb.n * (x0.element_size() + 4)
                   + 4 * (tb.n1 ** 2 + tb.n2 ** 2) + tb.n * 8)
         # int8 multiply-adds: two stages of [64, n2] outputs over k = 64 and
         # k = n2, 16 digit products each; 2 operations a multiply-add
-        macs = nbatch * tb.n * (tb.n1 + tb.n2) * INT8_MACS_PER_MODMAC
+        macs = rows_n * tb.n * (tb.n1 + tb.n2) * INT8_MACS_PER_MODMAC
         t_b, t_o = nbytes / HBM_BYTES_S, 2 * macs / INT8_OPS
         rows[name] = {
             "ms": t_dev, "ms_events": min(t_k, t_k2),
@@ -1281,7 +1689,7 @@ def time_ntt4_transform(tb, nbatch: int, forward_int64: bool = False) -> dict:
             "bound_ms": max(t_b, t_o) * 1e3,
             "bound_by": "bytes" if t_b >= t_o else "operations",
             "bytes_ms": t_b * 1e3, "int8_ms": t_o * 1e3}
-        log("timing", f"ntt4_transform {name} at [{nbatch}, {tb.n}] "
+        log("timing", f"ntt4_transform {name} at [{rows_n}, {tb.n}] "
             f"{str(dtype)[6:]} in, int32 out: kernel {t_dev:.4f} ms on the "
             f"device (CUDA events over wrapper calls {min(t_k, t_k2):.4f}, "
             f"inputs past L2 {t_cold:.4f}), plain {t_p:.4f} ms, library "
@@ -2749,7 +3157,10 @@ def main() -> int:
     ckks_launches, ckks_per_request, k2_err_c = phase_ckks(
         engine, disp, data, queries, cands, reset_counts, smi)
     k2_per_request.update(ckks_per_request)
-    k2_err = max(k2_err, k2_err_p, k2_err_c)
+    pir_launches, pir_per_request, k2_err_pir, k2_pir, pir_path = phase_pir(
+        engine, disp, data["base"], ids_all[0][:1], reset_counts, smi)
+    k2_per_request.update(pir_per_request)
+    k2_err = max(k2_err, k2_err_p, k2_err_c, k2_err_pir)
 
     # -- 4c. the reference's protocol served over HTTP ------------------------
     http = phase_http(engine, disp, data, queries, probes, smi)
@@ -2839,12 +3250,12 @@ def main() -> int:
         "source": "prefhetch_tpu_torch/csrc/ntt4_step.cu",
         "replaces": "prefhetch_tpu/ops/ntt_pallas.py:246",
         "launches": (enc_launches["ntt4_transform"] + packed_launches
-                     + ckks_launches),
+                     + ckks_launches + pir_launches),
         "launches_per_request": k2_per_request,
         "path": f"POST /encryptedsearch x{N_BATCHES} "
                 f"({N_BATCHES - 1} full, 1 q1) + x{N_BATCHES} packed "
                 f"(seedTf) + x{N_BATCHES} ckks combined (seedTf) + 1 ckks "
-                f"per-block",
+                f"per-block + {pir_path}",
         "max_abs_err": k2_err,
         **k2_times,
         "at_packed_key_switch_shape": {
@@ -2852,6 +3263,7 @@ def main() -> int:
             ("ms", "ms_events", "plain_ms", "bound_ms", "bound_by")},
         "at_ckks_key_switch_shape": {
             "shape": [2048, 8192], **k2_ckks},
+        "at_pir_key_switch_shape": k2_pir,
         "library_ms": None,
         "per": "transform (one launch)",
         "launches_http_per_request": http["k2_per_request"],

@@ -65,7 +65,6 @@ def main(argv=None) -> None:
 
     # stage 8 — outside the timed window (client.cpp:55-66); real-PIR mode
     # dispatches like ClientPipeline.run() so the CLI never leaks indices
-    # (it raises NotImplementedError until the PIR slice)
     if cfg.protocol.pir_mode == "he":
         _, top_ids = client.get_precise_vectors_real_pir(sorted_ids)
     else:

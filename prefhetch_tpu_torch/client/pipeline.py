@@ -17,18 +17,21 @@ Stages (reference call order, src/client/client.cpp:7-80):
                                      "full", "q1" and "packed" wires;
                                      CKKS, per-block and "combined")
  7. compute_nearest_precise_vectors— local re-pair + sort
- 8. get_precise_vectors_pir        — POST /precise-vector-pir
+ 8. get_precise_vectors_pir        — POST /precise-vector-pir, or
+    get_precise_vectors_real_pir   — POST /pir-fetch (pir_mode="he": the
+                                     rows leave the server as ciphertexts
+                                     it cannot link to an index)
  9. benchmark_results              — recall/MRR scoring (metrics.py)
 
 The client is host numpy and the stdlib's urllib (the reference used
 cpr/libcurl blocking calls, src/client/client_lib.cpp:43,109,179,231); the
-ragged coarse response is decoded by the port's C++ codec. Not ported yet:
-the real-PIR stage 8 (pir_mode="he").
+ragged coarse response is decoded by the port's C++ codec.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import logging
 import time
@@ -418,14 +421,86 @@ class ClientPipeline:
 
     # -- stage 8 (real-PIR variant) -----------------------------------------
     def get_precise_vectors_real_pir(
-        self, sorted_precise_ids: np.ndarray
+        self, sorted_precise_ids: np.ndarray, wire: str = "multi"
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """POST /pir-fetch, the private retrieval of the final rows: not
-        ported yet (it comes with the PIR slice: crypto/pir.py,
-        client/pir.py)."""
-        raise NotImplementedError(
-            "pir_mode='he' is not ported yet (it comes with the PIR slice)"
-        )
+        """POST /pir-fetch: private retrieval of the final top-K rows. Each
+        uploaded BFV ciphertext carries the hypercube indicators of
+        ⌊N/m⌋ rows (``wire="multi"``, crypto/pir.build_query_2d_multi; the
+        last chunk padded by repeating its final row, its true count kept
+        here) or of one row (``wire="single"``); the server expands them
+        obliviously (engine/pir_device.DevicePIR2) and never learns which
+        rows were fetched. The public Galois expansion keys go with the
+        first request of a client; an HTTP 400 (the server lost them)
+        re-registers them and retries once. Upgrades the reference's
+        placeholder, which sent indices in cleartext
+        (src/server/server_lib.cpp:169-196)."""
+        from prefhetch_tpu_torch.client.pir import get_pir_client
+
+        if wire not in ("multi", "single"):
+            raise ValueError(f"unknown PIR wire {wire!r}")
+        k = self.config.protocol.k
+        top_ids = sorted_precise_ids[:, :k]
+        client = get_pir_client(self.config)
+        nbase = self.config.nbase
+        d = self.config.index.d
+        k_ct = client.rows_per_ct(nbase, d)
+        if k_ct <= 1 or wire == "single":
+            return self._pir_fetch_single(top_ids, client, nbase, d)
+        all_rows = [int(r) for r in top_ids.reshape(-1)]
+        entries, rs, n_valids = [], [], []
+        for i in range(0, len(all_rows), k_ct):
+            chunk = all_rows[i:i + k_ct]
+            n_valid = len(chunk)
+            chunk = chunk + [chunk[-1]] * (k_ct - n_valid)
+            w, r_offs = client.build_query_2d_multi(chunk, nbase, d)
+            # nValid stays on the client: the wire shows only cts × nRows
+            entries.append({"ct": w, "nRows": k_ct})
+            n_valids.append(n_valid)
+            rs.extend(r_offs[:n_valid])
+        payload = {"pirHypercubeMulti": entries, "keyId": client.key_id}
+        gks = functools.partial(client.galois_keys_wire_2d_multi, nbase, d,
+                                k_ct)
+        if not getattr(client, "_keys_registered", False):
+            payload["galoisKeys"] = gks()
+        resp = self._post_pir(payload, gks)
+        client._keys_registered = True
+        # drop the pad rows' responses of the last chunk
+        results = []
+        for i, n_valid in enumerate(n_valids):
+            results.extend(resp["pirResults"][i * k_ct:i * k_ct + n_valid])
+        flat = np.stack([client.decode_response_2d(w, d, rs[i])
+                         for i, w in enumerate(results)])
+        return flat.reshape(top_ids.shape[0], k, d), top_ids
+
+    def _pir_fetch_single(self, top_ids, client, nbase: int, d: int):
+        """The single-row pirHypercube wire: one uploaded ct a fetched row
+        (a shallower expansion tree than the multi-row wire)."""
+        rows = [int(r) for r in top_ids.reshape(-1)]
+        wires, rs = zip(*(client.build_query_2d(r, nbase, d) for r in rows))
+        payload = {"pirHypercube": list(wires), "keyId": client.key_id}
+        gks = functools.partial(client.galois_keys_wire_2d, nbase, d)
+        if not getattr(client, "_keys_registered_single", False):
+            payload["galoisKeys"] = gks()
+        resp = self._post_pir(payload, gks)
+        client._keys_registered_single = True
+        flat = np.stack([client.decode_response_2d(w, d, rs[i])
+                         for i, w in enumerate(resp["pirResults"])])
+        nq, k = top_ids.shape
+        return flat.reshape(nq, k, d), top_ids
+
+    def _post_pir(self, payload: dict, gks):
+        """POST /pir-fetch; on HTTP 400 without keys in the body (the server
+        restarted, or another replica answered) register them and retry
+        once."""
+        import urllib.error
+
+        try:
+            return self._post("pir-fetch", payload)
+        except urllib.error.HTTPError as e:
+            if e.code != 400 or "galoisKeys" in payload:
+                raise
+            payload["galoisKeys"] = gks()
+            return self._post("pir-fetch", payload)
 
     # -- stage 9 ----------------------------------------------------------
     def benchmark_results(self, observed_idx: np.ndarray) -> BenchmarkReport:

@@ -12,9 +12,12 @@ candidate block costs one pointwise modular multiply per limb. The same
 integer seed gives the same keys and wires as the JAX package
 (tests/test_torch_bfv.py, tests/test_torch_threefry.py).
 
-Not ported yet (they come with the PIR slice): BFV's ct×ct ``mul`` with
+For PIR (crypto/pir.py): batched public-key encryption
+(``encrypt_batch``, ``encrypt_batch_ntt``), ``add``, ``plain_to_ntt``,
+``mul_plain_ntt`` and ``noise_budget_bits``. Also the ct×ct ``mul`` with
 relinearization (``relin_keygen``) and the exact mixed-radix (Garner)
-helpers it needs. The CKKS scheme is crypto/ckks.py.
+helpers it needs, so every function of the JAX module has its copy here.
+The CKKS scheme is crypto/ckks.py.
 
 Security note: parameters follow the standard HE security tables
 (N=4096, log q ≈ 60 → >128-bit classical security); error σ=3.2 centered
@@ -311,6 +314,69 @@ class BFVContext:
         c1 = np.mod(self._polymul(pk.a_rns, u) + e2, qs)
         return Ciphertext(c0=c0, c1=c1)
 
+    def encrypt_batch(
+        self, pk: PublicKey, ms: np.ndarray, rng: np.random.Generator
+    ) -> List[Ciphertext]:
+        """Encrypt B plaintexts [B, N] at once (batched NTTs)."""
+        p = self.params
+        B = ms.shape[0]
+        qs = np.array(p.qs, np.int64)[:, None, None]          # [L,1,1]
+        u = _sample_ternary(rng, (B, p.n))
+        e1 = _sample_error(rng, (B, p.n))
+        e2 = _sample_error(rng, (B, p.n))
+        u_rns = np.mod(u[None], qs)                           # [L, B, N]
+        e1_rns = np.mod(e1[None], qs)
+        e2_rns = np.mod(e2[None], qs)
+        dm = self._delta[:, None, None] * np.mod(
+            ms[None].astype(np.int64), p.t
+        ) % qs
+        c0 = np.empty((B, len(p.qs), p.n), np.int64)
+        c1 = np.empty_like(c0)
+        for i, tb in enumerate(self.tables):
+            qi = tb.q
+            b_ntt = ntt(pk.b_rns[i], tb)
+            a_ntt = ntt(pk.a_rns[i], tb)
+            u_ntt = ntt(u_rns[i], tb)                         # [B, N]
+            c0[:, i] = (intt(b_ntt[None] * u_ntt % qi, tb) + e1_rns[i]
+                        + dm[i]) % qi
+            c1[:, i] = (intt(a_ntt[None] * u_ntt % qi, tb) + e2_rns[i]) % qi
+        return [Ciphertext(c0=c0[b], c1=c1[b]) for b in range(B)]
+
+    def encrypt_batch_ntt(
+        self, pk: PublicKey, ms: np.ndarray, rng
+    ) -> List[Ciphertext]:
+        """Encrypt B plaintexts [B, N] directly into NTT domain: the
+        masking products b·u, a·u are formed in NTT domain and the
+        noise/message terms are forward-NTT'd once — 3 batched NTTs per
+        limb instead of the 5 of encrypt_batch + to_ntt."""
+        p = self.params
+        B = ms.shape[0]
+        qs = np.array(p.qs, np.int64)[:, None, None]          # [L,1,1]
+        u = _sample_ternary(rng, (B, p.n))
+        e1 = _sample_error(rng, (B, p.n))
+        e2 = _sample_error(rng, (B, p.n))
+        u_rns = np.mod(u[None], qs)                           # [L, B, N]
+        e1_rns = np.mod(e1[None], qs)
+        e2_rns = np.mod(e2[None], qs)
+        dm = self._delta[:, None, None] * np.mod(
+            ms[None].astype(np.int64), p.t
+        ) % qs
+        c0 = np.empty((B, len(p.qs), p.n), np.int64)
+        c1 = np.empty_like(c0)
+        for i, tb in enumerate(self.tables):
+            qi = tb.q
+            b_ntt = ntt(pk.b_rns[i], tb)
+            a_ntt = ntt(pk.a_rns[i], tb)
+            u_ntt = ntt(u_rns[i], tb)                         # [B, N]
+            c0[:, i] = (
+                b_ntt[None] * u_ntt % qi
+                + ntt((e1_rns[i] + dm[i]) % qi, tb)
+            ) % qi
+            c1[:, i] = (a_ntt[None] * u_ntt % qi + ntt(e2_rns[i], tb)) % qi
+        return [
+            Ciphertext(c0=c0[b], c1=c1[b], is_ntt=True) for b in range(B)
+        ]
+
     # -- seeded symmetric encryption ------------------------------------
     def expand_a(self, seed: bytes) -> np.ndarray:
         """Deterministic uniform ring element mod q from a public seed:
@@ -490,6 +556,23 @@ class BFVContext:
             out.append(acc % q)
         return out
 
+    def noise_budget_bits(self, sk: SecretKey, ct: Ciphertext,
+                          m: np.ndarray) -> int:
+        """Remaining noise budget log2(q/(2t)) − log2(noise∞)."""
+        ct = self.from_ntt(ct) if ct.is_ntt else ct
+        p = self.params
+        qs = np.array(p.qs, np.int64)[:, None]
+        v = np.mod(ct.c0 + self._polymul(ct.c1, sk.s_rns), qs)
+        big = self._crt_compose(v)
+        q, t = p.q, p.t
+        delta = p.delta
+        worst = 0
+        for j, x in enumerate(big):
+            noise = (x - delta * int(m[j])) % q
+            noise = min(noise, q - noise)
+            worst = max(worst, noise)
+        return (q // (2 * t)).bit_length() - max(worst, 1).bit_length()
+
     # -- generic special-modulus key switching ----------------------------
     @property
     def _ext_basis(self):
@@ -507,7 +590,135 @@ class BFVContext:
                 : n_extra + 1
             ]
             self._ext_cached = tuple(self.params.qs) + aux
+            self._ext_tables = [
+                build_tables(q, self.params.n) for q in self._ext_cached
+            ]
         return self._ext_cached
+
+    # -- exact mixed-radix (Garner) RNS arithmetic -----------------------
+    # The ct×ct tensoring needs base extension and the round(t·v/q) scale.
+    # Both are exact and vectorized here: values convert to mixed-radix
+    # digits (x = d₀ + p₀·d₁ + p₀p₁·d₂ + …, every intermediate < 2^60 in
+    # int64) and reduce per target prime by Horner — no big-int loops.
+
+    @staticmethod
+    def _garner_digits(x_rns: np.ndarray, primes) -> np.ndarray:
+        """[L, …] residues → mixed-radix digits [L, …] (exact, int64)."""
+        digits = []
+        for i, pi in enumerate(primes):
+            t = np.mod(x_rns[i], pi)
+            for j in range(i):
+                inv = pow(primes[j] % pi, -1, pi)
+                t = np.mod(t - digits[j], pi) * inv % pi
+            digits.append(t)
+        return np.stack(digits)
+
+    @staticmethod
+    def _digits_mod(digits: np.ndarray, primes, m: int) -> np.ndarray:
+        """Mixed-radix digits → value mod m (Horner; products < 2^60)."""
+        L = len(primes)
+        acc = np.mod(digits[L - 1], m)
+        for i in range(L - 2, -1, -1):
+            acc = (acc * (primes[i] % m) + digits[i]) % m
+        return acc
+
+    @staticmethod
+    def _digits_gt(digits: np.ndarray, primes, threshold: int) -> np.ndarray:
+        """Elementwise (value > threshold) from mixed-radix digits."""
+        tdig = []
+        t = threshold
+        for p_ in primes:
+            tdig.append(t % p_)
+            t //= p_
+        gt = np.zeros(digits.shape[1:], bool)
+        eq = np.ones(digits.shape[1:], bool)
+        for i in range(len(primes) - 1, -1, -1):
+            gt |= eq & (digits[i] > tdig[i])
+            eq &= digits[i] == tdig[i]
+        return gt
+
+    def _lift_to_basis(self, x_rns: np.ndarray) -> np.ndarray:
+        """[L, N] residues mod qs → [B, N] residues over the full ext basis
+        (exact vectorized base extension via mixed-radix digits)."""
+        basis = self._ext_basis
+        qs = self.params.qs
+        L = len(qs)
+        x = np.mod(x_rns, np.array(qs, np.int64)[:, None])
+        dig = self._garner_digits(x, qs)
+        out = np.empty((len(basis), self.params.n), np.int64)
+        out[:L] = x
+        for i in range(L, len(basis)):
+            out[i] = self._digits_mod(dig, qs, basis[i])
+        return out
+
+    def mul(self, x: Ciphertext, y: Ciphertext, rk: RelinKey) -> Ciphertext:
+        """Homomorphic ct×ct with relinearization.
+
+        The tensor products are computed over the integers (coefficients up
+        to N·q²) in the extended RNS basis, then scaled by t/q exactly. With
+        v' ∈ [0, Q), v̂ = v' − Q·F (F = [v' > Q/2]) and v' = w'·q + u':
+        r = t·w' + round(t·u'/q) − t·A·F, A = Q/q. w' = (v' − u')/q is
+        exact in the aux basis; round(t·u'/q) ∈ [0, t] comes from the
+        float64 CRT fraction (error ≤ 1, absorbed by the ct×ct noise)."""
+        x = self.from_ntt(x) if x.is_ntt else x
+        y = self.from_ntt(y) if y.is_ntt else y
+        basis = self._ext_basis
+        tables = self._ext_tables
+        p = self.params
+
+        def polymul_basis(a, b):
+            out = np.empty((len(basis), p.n), np.int64)
+            for i, tb in enumerate(tables):
+                out[i] = intt(ntt(a[i], tb) * ntt(b[i], tb) % tb.q, tb)
+            return out
+
+        x0 = self._lift_to_basis(x.c0)
+        x1 = self._lift_to_basis(x.c1)
+        y0 = self._lift_to_basis(y.c0)
+        y1 = self._lift_to_basis(y.c1)
+        qb = np.array(basis, np.int64)[:, None]
+        d0 = polymul_basis(x0, y0)
+        d1 = np.mod(polymul_basis(x0, y1) + polymul_basis(x1, y0), qb)
+        d2 = polymul_basis(x1, y1)
+
+        Q = 1
+        for q in basis:
+            Q *= q
+        L = len(p.qs)
+        aux = basis[L:]
+        A = Q // p.q
+        inv_q_aux = [pow(p.q % aj, -1, aj) for aj in aux]
+        frac_inv = [pow((p.q // qi) % qi, -1, qi) for qi in p.qs]
+
+        def round_scale(d):
+            u_dig = self._garner_digits(d[:L], p.qs)      # u' = v' mod q
+            v_dig = self._garner_digits(d, basis)
+            F = self._digits_gt(v_dig, basis, Q // 2).astype(np.int64)
+            frac = np.zeros(p.n, np.float64)
+            for i, qi in enumerate(p.qs):
+                frac += (d[i] * frac_inv[i] % qi).astype(np.float64) / qi
+            frac -= np.floor(frac)
+            rnd = np.round(p.t * frac).astype(np.int64)      # [0, t]
+            w_aux = np.empty((len(aux), p.n), np.int64)
+            for j, aj in enumerate(aux):
+                uj = self._digits_mod(u_dig, p.qs, aj)
+                w_aux[j] = np.mod(d[L + j] - uj, aj) * inv_q_aux[j] % aj
+            w_dig = self._garner_digits(w_aux, aux)
+            out = np.empty((L, p.n), np.int64)
+            for i, qi in enumerate(p.qs):
+                wi = self._digits_mod(w_dig, aux, qi)
+                out[i] = np.mod(
+                    (p.t % qi) * wi + rnd - (p.t % qi) * (A % qi) % qi * F,
+                    qi,
+                )
+            return out
+
+        c0 = round_scale(d0)
+        c1 = round_scale(d1)
+        c2 = round_scale(d2)
+        ks0, ks1 = self._key_switch(c2, rk)
+        qs = np.array(p.qs, np.int64)[:, None]
+        return Ciphertext(c0=np.mod(c0 + ks0, qs), c1=np.mod(c1 + ks1, qs))
 
     @property
     def _special_p(self) -> int:
@@ -581,6 +792,23 @@ class BFVContext:
             special_p=sp, b=np.stack(comps_b), a=np.stack(comps_a),
             ext=ext, digit_bits=digit_bits,
         )
+
+    def relin_keygen(self, sk: SecretKey, rng) -> RelinKey:
+        """Evaluation key for s² (special-modulus, 15-bit digit decomposed)."""
+        p = self.params
+        sp = self._special_p
+        ext = tuple(p.qs) + (sp,)
+        ext_tables = [build_tables(q, p.n) for q in ext]
+        qs_ext = np.array(ext, np.int64)[:, None]
+        s_ext = np.mod(self._s_signed(sk)[None, :].astype(np.int64), qs_ext)
+        s2_ext = np.empty((len(ext), p.n), np.int64)
+        for i, tb in enumerate(ext_tables):
+            s2_ext[i] = intt(ntt(s_ext[i], tb) ** 2 % tb.q, tb)
+        # s² has coefficients up to ~N (small): its signed form mod sp
+        s2_signed = np.where(
+            s2_ext[-1] > sp // 2, s2_ext[-1] - sp, s2_ext[-1]
+        )
+        return self._make_switch_key(sk, s2_signed, rng)
 
     # -- Galois automorphisms (X → X^g) -------------------------------------
     @staticmethod
@@ -721,6 +949,30 @@ class BFVContext:
         c1g = np.mod(c1s[:, :, perm] * sgn[None, None, :], qs)
         ks0, ks1 = self._key_switch_batch(c1g, gk)
         return np.mod(c0g + ks0, qs), ks1
+
+    # -- homomorphic ops -------------------------------------------------
+    def add(self, a: Ciphertext, b: Ciphertext) -> Ciphertext:
+        if a.is_ntt != b.is_ntt:
+            raise ValueError("add needs both ciphertexts in one domain")
+        qs = np.array(self.params.qs, np.int64)[:, None]
+        return Ciphertext(
+            c0=np.mod(a.c0 + b.c0, qs), c1=np.mod(a.c1 + b.c1, qs),
+            is_ntt=a.is_ntt,
+        )
+
+    def plain_to_ntt(self, p_coeffs: np.ndarray) -> np.ndarray:
+        """Plaintext poly [N] small non-negative ints → NTT-domain [L, N]."""
+        return self.ntt_fwd(self._rns_small(p_coeffs.astype(np.int64)))
+
+    def mul_plain_ntt(self, ct: Ciphertext, pt_ntt: np.ndarray) -> Ciphertext:
+        """ct × plaintext, both in NTT domain: one pointwise modmul per
+        limb (the server-side MAC primitive)."""
+        if not ct.is_ntt:
+            raise ValueError("mul_plain_ntt needs an NTT-domain ciphertext")
+        qs = np.array(self.params.qs, np.int64)[:, None]
+        return Ciphertext(
+            c0=ct.c0 * pt_ntt % qs, c1=ct.c1 * pt_ntt % qs, is_ntt=True
+        )
 
     # -- domain changes ---------------------------------------------------
     def to_ntt(self, ct: Ciphertext) -> Ciphertext:

@@ -23,7 +23,11 @@
   candidates the client names. BFV with the "full", "q1" and "packed"
   response wires through engine/hecompute.py; CKKS (BASELINE config 3)
   with the per-block and the "combined" responses through
-  engine/ckks_device.py; every transform one launch of kernel K2.
+  engine/ckks_device.py; every transform one launch of kernel K2;
+- pir_fetch (POST /pir-fetch): private row retrieval in its four forms,
+  the naive and 1-D packed ones through crypto/pir.py ``PIRServer``
+  (numpy, as in the JAX engine), the 2-D hypercube and its multi-row form
+  through engine/pir_device.py ``DevicePIR2`` on the engine's device.
   enable_sharding raises NotImplementedError (one device).
 
 The coarse scans of the JSON and tiled wires are plain PyTorch: the JAX
@@ -97,6 +101,8 @@ class QueryEngine:
         self._serve_mt: dict = {}
         self._he_service = None
         self._ckks_service = None
+        self._pir_service = None
+        self._pir2_service = None
 
     # Reference singleton accessor (include/server/server_lib.h:20-23).
     @classmethod
@@ -120,8 +126,9 @@ class QueryEngine:
 
     def enable_sharding(self, n_devices: Optional[int] = None) -> None:
         raise NotImplementedError(
-            "sharding is not ported yet (it comes with the torch.distributed "
-            "slice: parallel/mesh.py, parallel/sharded.py)"
+            "sharding is not ported yet (it comes with sharding over "
+            "torch.distributed, ROADMAP queue 1 item 5: parallel/mesh.py, "
+            "parallel/sharded.py)"
         )
 
     # ------------------------------------------------------------------
@@ -177,6 +184,8 @@ class QueryEngine:
         self._serve_mt = {}
         self._he_service = None
         self._ckks_service = None
+        self._pir_service = None
+        self._pir2_service = None
 
     @property
     def _tiled_view(self) -> Optional[TiledView]:
@@ -382,6 +391,102 @@ class QueryEngine:
                             device=self.device)
         scores = exact_rerank(self.base, q, cand)
         return lambda: scores.cpu().numpy()
+
+    # -- service 4b: POST /pir-fetch (real PIR) ----------------------------
+    @property
+    def pir_service(self):
+        """Real single-server PIR (crypto/pir.py ``PIRServer``, numpy, as in
+        the JAX engine) over the base matrix: the naive and 1-D packed
+        forms."""
+        if self._pir_service is None:
+            from prefhetch_tpu_torch.crypto.params import pir_params_for
+            from prefhetch_tpu_torch.crypto.pir import PIRServer
+
+            he = self.config.he
+            with self._lock:
+                if self._pir_service is None:
+                    self._pir_service = PIRServer(
+                        self.base.cpu().numpy(),
+                        pir_params_for(he.n, he.pir_plain_modulus, he.n_limbs),
+                    )
+        return self._pir_service
+
+    @property
+    def pir2_service(self):
+        """2-D hypercube PIR (SealPIR-style): ``DevicePIR2`` on the engine's
+        device, the CPU included (K2's plain version there). The JAX engine
+        picks its numpy ``PIR2Server`` off the TPU (``PFH_PIR_BACKEND``);
+        the port has one service."""
+        if self._pir2_service is None:
+            from prefhetch_tpu_torch.crypto.params import pir_params_for
+            from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
+
+            he = self.config.he
+            with self._lock:
+                if self._pir2_service is None:
+                    self._pir2_service = DevicePIR2(
+                        self.base.cpu().numpy(),
+                        pir_params_for(he.n, he.pir_plain_modulus, he.n_limbs),
+                        device=self.device,
+                    )
+        return self._pir2_service
+
+    def pir_fetch(
+        self,
+        pir_queries: list | None = None,
+        packed: list | None = None,
+        hypercube: list | None = None,
+        hypercube_multi: list | None = None,
+        key_id: str | None = None,
+        galois_keys: dict | None = None,
+    ) -> list:
+        """Answer PIR queries; the server never learns the row indices.
+
+        Four forms: ``pir_queries`` = naive (G selector cts a row);
+        ``packed`` = 1-D oblivious expansion (ONE ct a row, host);
+        ``hypercube`` = 2-D SealPIR-style (ONE ct a row, on the device);
+        ``hypercube_multi`` = 2-D with multi-row packed queries (ONE ct per
+        ⌊N/m⌋ rows; each entry {"ct": wire, "nRows": k} yields k responses
+        in order)."""
+        from prefhetch_tpu_torch.utils.stages import stage
+
+        if hypercube_multi is not None or hypercube is not None:
+            svc = self.pir2_service
+            if galois_keys:
+                with stage("register galois keys"):
+                    svc.register_galois_keys(key_id, galois_keys)
+            if not svc.has_keys(key_id):
+                raise ValueError(
+                    "unknown PIR keyId — register Galois keys first"
+                )
+            if hypercube is not None and hypercube_multi is None:
+                # every selector set of the request folds against one pass
+                # over the packed database a chunk
+                return svc.answer_2d_batch(hypercube, key_id)
+            out: list = []
+            # runs of equal nRows (the client pads every chunk to one nRows,
+            # so a whole request is usually ONE batched call)
+            i = 0
+            while i < len(hypercube_multi):
+                nr = int(hypercube_multi[i]["nRows"])
+                j = i
+                while (j < len(hypercube_multi)
+                       and int(hypercube_multi[j]["nRows"]) == nr):
+                    j += 1
+                wires = [e["ct"] for e in hypercube_multi[i:j]]
+                out.extend(svc.answer_2d_multi_batch(wires, key_id, nr))
+                i = j
+            return out
+        svc = self.pir_service
+        if packed is not None:
+            if galois_keys:
+                svc.register_galois_keys(key_id, galois_keys)
+            if not svc.has_keys(key_id):
+                raise ValueError(
+                    "unknown PIR keyId — register Galois keys first"
+                )
+            return [svc.answer_packed(w, key_id) for w in packed]
+        return [svc.answer(q) for q in pir_queries]
 
     # -- service 4: POST /precise-vector-pir ------------------------------
     def precise_vector_pir(self, ids: np.ndarray) -> np.ndarray:

@@ -164,6 +164,9 @@ class BatchScheduler:
     def encrypted_precise_search(self, *a, **kw):
         return self.engine.encrypted_precise_search(*a, **kw)
 
+    def pir_fetch(self, *a, **kw):
+        return self.engine.pir_fetch(*a, **kw)
+
     # batched services ----------------------------------------------------
     def coarse_search(self, precise_query, nearest_centroid_idx):
         return self._coarse.submit(

@@ -28,8 +28,9 @@ package writes them.
   the per-block response (``encryptedScores``) or ``respMod="combined"``
   (``encryptedScoresCombined``)
 - ``POST /precise-vector-pir`` — the named vectors, JSON or binary (7 → 8)
-
-Not ported yet, answered 501 with the reason: ``POST /pir-fetch``.
+- ``POST /pir-fetch``   — private row retrieval, JSON: ``pirHypercubeMulti``,
+  ``pirHypercube``, ``pirPacked`` or ``pirQueries`` (selector ciphertexts
+  only; the server never sees a row index)
 """
 
 from __future__ import annotations
@@ -199,10 +200,7 @@ class Dispatcher:
                 return self._precise_vector_pir_bin(body)
             return self._precise_vector_pir(self._parse_json(body))
         if path == "/pir-fetch":
-            raise NotImplementedError(
-                "/pir-fetch is not ported yet (it comes with the PIR slice: "
-                "crypto/pir.py, engine/pir_device.py)"
-            )
+            return self._pir_fetch(self._parse_json(body))
         return _json_resp({"error": "not found"}, 404)
 
     @staticmethod
@@ -386,6 +384,50 @@ class Dispatcher:
         return _json_resp(result)
 
     # reference: Query.cc:99-127
+    # net-new route: REAL single-server PIR (crypto/pir.py) — unlike
+    # /precise-vector-pir (the reference's cleartext-index placeholder),
+    # the request carries only selector ciphertexts.
+    def _pir_fetch(self, body) -> Response:
+        if "pirHypercubeMulti" in body:
+            multi = body["pirHypercubeMulti"]
+            if not isinstance(multi, list) or not multi:
+                raise ValueError("pirHypercubeMulti must be a non-empty list")
+            for entry in multi:
+                if not isinstance(entry, dict) or "ct" not in entry \
+                        or "nRows" not in entry:
+                    raise ValueError(
+                        "pirHypercubeMulti entries need 'ct' and 'nRows'"
+                    )
+            results = self.engine.pir_fetch(
+                hypercube_multi=multi,
+                key_id=body.get("keyId"),
+                galois_keys=body.get("galoisKeys"),
+            )
+        elif "pirHypercube" in body:
+            hyper = body["pirHypercube"]
+            if not isinstance(hyper, list) or not hyper:
+                raise ValueError("pirHypercube must be a non-empty list")
+            results = self.engine.pir_fetch(
+                hypercube=hyper,
+                key_id=body.get("keyId"),
+                galois_keys=body.get("galoisKeys"),
+            )
+        elif "pirPacked" in body:
+            packed = body["pirPacked"]
+            if not isinstance(packed, list) or not packed:
+                raise ValueError("pirPacked must be a non-empty list")
+            results = self.engine.pir_fetch(
+                packed=packed,
+                key_id=body.get("keyId"),
+                galois_keys=body.get("galoisKeys"),
+            )
+        else:
+            queries = body["pirQueries"]
+            if not isinstance(queries, list) or not queries:
+                raise ValueError("pirQueries must be a non-empty list")
+            results = self.engine.pir_fetch(pir_queries=queries)
+        return _json_resp({"pirResults": results})
+
     def _precise_vector_pir(self, body) -> Response:
         ids = np.asarray(body["nearestPreciseVectorIndexes"], np.int64)
         vecs = self._fetch_vectors(ids)

@@ -200,3 +200,99 @@ def test_client_refuses_what_is_not_ported():
     np.testing.assert_array_equal(tc.sk.s_rns, jc.sk.s_rns)
     assert tc.bfv_extraction_keys_wire(D) == jc.bfv_extraction_keys_wire(D)
     assert tc.bfv_extraction_keys_wire(D) is None
+
+
+# -- the rest of BFVContext: ct×ct, relinearization, Garner, PIR's helpers --
+
+def _ctxs(params_kw):
+    jp = j_params.BFVParams(**params_kw)
+    tp = t_params.BFVParams(**params_kw)
+    return j_bfv.BFVContext(jp), t_bfv.BFVContext(tp)
+
+
+@pytest.mark.parametrize("case", ["n256_t4096", "n2048_t65536"])
+def test_ct_ct_mul_relinearize_matches_jax(case):
+    """tests/test_crypto_bfv.py's two ct×ct cases: the same seed gives the
+    same relinearization key, the same product ciphertext and the exact
+    negacyclic product mod t."""
+    n, t, seed, hi = ((256, 1 << 12, 2024, 1 << 12) if case == "n256_t4096"
+                      else (2048, 1 << 16, 6, 30))
+    kw = dict(n=n, t=t, qs=tuple(t_params.find_ntt_primes(n, 30, 2)))
+    jctx, tctx = _ctxs(kw)
+    out = []
+    for ctx in (jctx, tctx):
+        rng = np.random.default_rng(seed)
+        sk, pk = ctx.keygen(rng)
+        rk = ctx.relin_keygen(sk, rng)
+        m1 = rng.integers(0, hi, n).astype(np.int64)
+        m2 = rng.integers(0, hi, n).astype(np.int64)
+        ct = ctx.mul(ctx.encrypt(pk, m1, rng), ctx.encrypt(pk, m2, rng), rk)
+        out.append((rk, ct, ctx.decrypt(sk, ct), m1, m2))
+    (jrk, jct, _, _, _), (trk, tct, got, m1, m2) = out
+    assert trk.to_wire() == jrk.to_wire()
+    np.testing.assert_array_equal(tct.c0, jct.c0)
+    np.testing.assert_array_equal(tct.c1, jct.c1)
+    full = np.polymul(m1[::-1].astype(object), m2[::-1].astype(object))[::-1]
+    ref = np.zeros(n, object)
+    for i, c in enumerate(full):
+        ref[i % n] += c if i < n else -c
+    np.testing.assert_array_equal(
+        got, np.array([int(v) % t for v in ref], np.int64))
+
+
+def test_garner_helpers_match_jax():
+    kw = dict(n=256, t=257, qs=tuple(t_params.find_ntt_primes(256, 30, 2)))
+    jctx, tctx = _ctxs(kw)
+    basis = tctx._ext_basis
+    assert basis == jctx._ext_basis
+    rng = np.random.default_rng(8)
+    x = np.stack([rng.integers(0, q, 256) for q in basis])
+    jd = jctx._garner_digits(x, basis)
+    np.testing.assert_array_equal(tctx._garner_digits(x, basis), jd)
+    for m in (97, basis[0], (1 << 30) - 35):
+        np.testing.assert_array_equal(tctx._digits_mod(jd, basis, m),
+                                      jctx._digits_mod(jd, basis, m))
+    Q = int(np.prod([int(q) for q in basis], dtype=object))
+    np.testing.assert_array_equal(tctx._digits_gt(jd, basis, Q // 2),
+                                  jctx._digits_gt(jd, basis, Q // 2))
+    np.testing.assert_array_equal(tctx._lift_to_basis(x[:2]),
+                                  jctx._lift_to_basis(x[:2]))
+
+
+def test_pir_helpers_match_jax():
+    """encrypt_batch(_ntt), add, plain_to_ntt, mul_plain_ntt (the ct×pt
+    product decrypts to the negacyclic product mod t) and
+    noise_budget_bits, from the same seed, against the JAX package."""
+    kw = dict(n=256, t=1 << 24, qs=tuple(t_params.find_ntt_primes(256, 30, 2)))
+    jctx, tctx = _ctxs(kw)
+    res = []
+    for ctx in (jctx, tctx):
+        rng = np.random.default_rng(42)
+        sk, pk = ctx.keygen(rng)
+        ms = rng.integers(0, 256, (3, 256)).astype(np.int64)
+        p = np.zeros(256, np.int64)
+        p[:16] = rng.integers(0, 256, 16)
+        batch = ctx.encrypt_batch(pk, ms, rng)
+        batch_ntt = ctx.encrypt_batch_ntt(pk, ms, rng)
+        summed = ctx.add(batch[0], batch[1])
+        pt = ctx.plain_to_ntt(p)
+        prod = ctx.mul_plain_ntt(batch_ntt[2], pt)
+        res.append(dict(
+            cts=[c.to_wire() for c in batch + batch_ntt + [summed, prod]],
+            pt=pt, budget=[ctx.noise_budget_bits(sk, c, m)
+                           for c, m in zip(batch, ms)],
+            dec_sum=ctx.decrypt(sk, summed), dec_prod=ctx.decrypt(sk, prod),
+            ms=ms, p=p))
+    j, t = res
+    assert t["cts"] == j["cts"] and t["budget"] == j["budget"]
+    assert min(t["budget"]) > 15
+    np.testing.assert_array_equal(t["pt"], j["pt"])
+    np.testing.assert_array_equal(t["dec_sum"], (t["ms"][0] + t["ms"][1])
+                                  % (1 << 24))
+    full = np.polymul(t["ms"][2][::-1].astype(object),
+                      t["p"][::-1].astype(object))[::-1]
+    ref = np.zeros(256, object)
+    for i, c in enumerate(full):
+        ref[i % 256] += c if i < 256 else -c
+    np.testing.assert_array_equal(
+        t["dec_prod"], np.array([int(v) % (1 << 24) for v in ref], np.int64))

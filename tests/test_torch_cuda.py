@@ -2,9 +2,11 @@
 and K5 against their plain versions, the engine on CUDA against the engine
 on the CPU, the encrypted re-rank service on CUDA against the service on
 the CPU (the packed response and its threefry expansion too), the CKKS
-device program on CUDA against the CPU (K2 at the CKKS primes too), and
-the scan variants of query_pipeline on CUDA against the CPU.
-Without CUDA they skip. On a machine with an H100 and nvcc (no JAX needed):
+device program on CUDA against the CPU (K2 at the CKKS primes too), the
+PIR device program on CUDA against the CPU (K2 at its key-switch and
+database shapes too), and the scan variants of query_pipeline on CUDA
+against the CPU. Without CUDA they skip (one CPU test here checks that
+``DevicePIR2`` refuses the card when CUDA is absent). On a machine with an H100 and nvcc (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -310,6 +312,91 @@ def test_ntt4_transform_kernel_at_the_ckks_primes(cuda, rows):
             torch.cuda.synchronize()
             assert k2.ntt4_transform.launches == before + 1
             assert torch.equal(got, transform_plain(x, tb, inverse))
+
+
+@pytest.mark.parametrize("shape", ["multi-row key switch",
+                                   "single-row key switch", "database"])
+def test_ntt4_transform_kernel_at_the_pir_shapes(cuda, shape):
+    """K2 at the widest shapes the PIR path gives it at the SIFT1M preset
+    (N=4096, find_ntt_primes(4096, 30, 2) and the special prime): the
+    multi-row key switch's last round over the 100-row fetch's 10 cts
+    (40,960 expanded cts in one program), forward of [163,840, 4,096]
+    int32 15-bit digits and inverse of [81,920] int64 residues per
+    extension prime; the 4-row single-row batch's, [8,192] and [4,096];
+    the packed database, forward of [31,329, 4,096] int32 values below
+    t=257 per limb. Exact against the plain version, compared in slices
+    of 16,384 rows."""
+    from prefhetch_tpu_torch.crypto.bfv import BFVContext
+    from prefhetch_tpu_torch.crypto.params import pir_params_for
+
+    p = pir_params_for(4096, 257, 2)
+    if shape == "database":
+        primes = p.qs
+        cases = ((31329, 257, torch.int32, False),)
+    else:
+        primes = tuple(p.qs) + (BFVContext(p)._special_p,)
+        cts = 40960 if shape == "multi-row key switch" else 2048
+        cases = ((4 * cts, 1 << 15, torch.int32, False),
+                 (2 * cts, None, torch.int64, True))
+    for q in primes:
+        tb = build_ntt4_tables(q, 4096)
+        gen = torch.Generator(device=cuda).manual_seed(q % 1000)
+        for rows, hi, dtype, inverse in cases:
+            x = torch.randint(0, hi or q, (rows, 4096), generator=gen,
+                              device=cuda, dtype=dtype)
+            before = k2.ntt4_transform.launches
+            got = k2.ntt4_transform(x, tb, inverse)
+            torch.cuda.synchronize()
+            assert k2.ntt4_transform.launches == before + 1
+            for i in range(0, rows, 16384):
+                assert torch.equal(got[i:i + 16384], transform_plain(
+                    x[i:i + 16384], tb, inverse))
+            del x, got
+
+
+def test_pir_device_on_cuda_matches_cpu(cuda):
+    """DevicePIR2 at N=4096, t=257, nbase 5,000, d=128: the packed
+    database, a single-row batch and a 3-row multi-row answer on the card
+    are bit-equal to the same program on the CPU, and decode exactly."""
+    from prefhetch_tpu_torch.crypto.params import pir_params_for
+    from prefhetch_tpu_torch.crypto.pir import PIRClient
+    from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
+
+    p = pir_params_for(4096, 257, 2)
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 256, (5000, 128)).astype(np.float32)
+    client = PIRClient(p, seed=5)
+    gw = client.galois_keys_wire_2d_multi(5000, 128, 3)
+    dev, cpu = (DevicePIR2(base, p, device=d) for d in (cuda, "cpu"))
+    assert torch.equal(dev.db.cpu(), cpu.db)
+    for svc in (dev, cpu):
+        svc.register_galois_keys("k", gw)
+    rows = [0, 4999, 1234]
+    wires, rs = zip(*(client.build_query_2d(r, 5000, 128) for r in rows))
+    before = k2.ntt4_transform.launches
+    got = dev.answer_2d_batch(list(wires), "k")
+    assert k2.ntt4_transform.launches - before == 6 * dev.logm + 8
+    assert got == cpu.answer_2d_batch(list(wires), "k")
+    wm, rm = client.build_query_2d_multi(rows, 5000, 128)
+    multi = dev.answer_2d_multi(wm, "k", 3)
+    assert multi == cpu.answer_2d_multi(wm, "k", 3)
+    for row, resp, r in zip(rows * 2, got + multi, list(rs) + rm):
+        np.testing.assert_array_equal(
+            client.decode_response_2d(resp, 128, r), base[row])
+
+
+def test_pir_device_needs_cuda(monkeypatch):
+    """A CPU test: DevicePIR2 asked for the card without CUDA raises
+    instead of running on the CPU."""
+    from prefhetch_tpu_torch.crypto.params import pir_params_for
+    from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    base = np.zeros((300, 32), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DevicePIR2(base, pir_params_for(256, 257, 2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DevicePIR2(base, pir_params_for(256, 257, 2), device="cuda")
 
 
 @pytest.mark.parametrize("mode", ["combined", "per-block"])

@@ -135,7 +135,10 @@ def test_port_imports_without_jax():
             "prefhetch_tpu_torch.utils.timer",
             "prefhetch_tpu_torch.utils.logging",
             "prefhetch_tpu_torch.crypto.ckks",
-            "prefhetch_tpu_torch.engine.ckks_device"} <= set(mods)
+            "prefhetch_tpu_torch.engine.ckks_device",
+            "prefhetch_tpu_torch.crypto.pir",
+            "prefhetch_tpu_torch.client.pir",
+            "prefhetch_tpu_torch.engine.pir_device"} <= set(mods)
 
 
 def test_http_routes_serve_without_jax(tmp_path):
@@ -266,6 +269,46 @@ def test_ckks_path_runs_without_jax():
         "                              np.asarray(r['candidateNorms']), q)\n"
         "ref = ((base[cand] - q[:, None]) ** 2).sum(-1)\n"
         "assert (np.abs(d - ref) <= 0.08 * ref.max(1, keepdims=True)).all()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_pir_path_runs_without_jax():
+    """One pirHypercube fetch on the CPU with jax, flax, ml_dtypes and the
+    JAX package blocked: the client's query and Galois keys
+    (client/pir.py, crypto/pir.py), the route of the port's engine
+    (engine/pir_device.py on K2's plain version) and the exact row."""
+    code = (
+        "import sys, json\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'prefhetch_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np\n"
+        "from prefhetch_tpu_torch.client.pir import get_pir_client\n"
+        "from prefhetch_tpu_torch.engine.server import QueryEngine\n"
+        "from prefhetch_tpu_torch.index.build import build_ivf_index\n"
+        "from prefhetch_tpu_torch.serve.handlers import Dispatcher\n"
+        "from prefhetch_tpu_torch.utils.config import (\n"
+        "    HEParams, IndexParams, PipelineConfig)\n"
+        "he = HEParams(n=256, pir_plain_modulus=257)\n"
+        "rng = np.random.default_rng(2)\n"
+        "base = rng.integers(0, 256, (300, 32)).astype(np.float32)\n"
+        "ip = IndexParams(d=32, nlist=4, pq_m=0, kmeans_iters=2)\n"
+        "cfg = PipelineConfig(index=ip, he=he, nbase=300)\n"
+        "e = QueryEngine(cfg, device='cpu')\n"
+        "e.set_index(build_ivf_index(base, base, ip, device='cpu'), base)\n"
+        "c = get_pir_client(cfg, seed=3)\n"
+        "w, r = c.build_query_2d(211, 300, 32)\n"
+        "body = {'pirHypercube': [w], 'keyId': c.key_id,\n"
+        "        'galoisKeys': c.galois_keys_wire_2d(300, 32)}\n"
+        "st, _, out = Dispatcher(e).handle('POST', '/pir-fetch', {},\n"
+        "                                  json.dumps(body).encode())\n"
+        "assert st == 200, out[:300]\n"
+        "resp = json.loads(out)['pirResults'][0]\n"
+        "assert (c.decode_response_2d(resp, 32, r) == base[211]).all()\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

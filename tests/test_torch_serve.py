@@ -278,9 +278,14 @@ def test_malformed_requests_answer_like_jax(setup):
         want = jd.handle(method, path, h, body)[0]
         assert want >= 400
         assert td.handle(method, path, h, body)[0] == want, (path, body[:60])
-    # not ported yet: 501 with the reason
-    status, _, resp = _post_json(td, "/pir-fetch", {"pirQueries": [{}]})
-    assert status == 501 and b"not ported" in resp
+    # /pir-fetch is served: malformed bodies are refused with JAX's text
+    for body in ({"pirQueries": []}, {"pirHypercube": "x"},
+                 {"pirPacked": []}, {"pirHypercubeMulti": [{"ct": {}}]},
+                 {"nothing": 1}):
+        want = jd.handle("POST", "/pir-fetch", {}, json.dumps(body).encode())
+        got = _post_json(td, "/pir-fetch", body)
+        assert want[0] == 400 and got[0] == 400, body
+        assert json.loads(got[2]) == json.loads(want[2]), body
 
 
 def test_stats_carries_the_batcher(setup):

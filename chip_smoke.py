@@ -125,7 +125,10 @@ reporting on lines of its own; any failure exits non-zero:
               prefhetch_tpu_torch.client.driver) as two processes on a 100K
               SIFT-style dataset at the preset's widths, the client
               driver's timing line and recall/MRR block required, the
-              server killed by PID;
+              server killed by PID; then the same with serve.main --shard
+              (the index warm-loaded, then sharded over every visible
+              card), the driver run twice against each server (first and
+              warm requests), its recall/MRR block the unsharded server's;
    variants — the quantised and slab scan variants of the triage pipeline
               (pipeline.query_pipeline) on the same index and base:
               quant="pq" (PQ codes, 256-slot tiles, K3 over the probed
@@ -153,7 +156,25 @@ reporting on lines of its own; any failure exits non-zero:
               request's shape, each beside the unchanged source; the
               variants that change a constant are held against the plain
               version;
-6. result   — the last line, {"ok": true, "device": {...}}.
+6. shard    — sharding (parallel/), last, since it leaves the main
+              engine sharded: the unsharded engine's answers to GET /query
+              and /tiletable and 4 x (POST /search, JSON, tiled and
+              top-256 /coarsesearch, JSON /precisesearch, binary
+              /precise-vector-pir); enable_sharding() over every visible card (a
+              mesh of one), then over 4 shards of cuda:0, each answering
+              the same requests byte for byte, K1 launched once a shard a
+              /search batch and held against its plain version at every
+              shard's union share, the card memory sharding adds (shards
+              are views); sharded_trunc_mac_q1 on 64 queries x 256
+              candidates over 1 and 4 shards, bit-equal to the one-device
+              q1 program (6 K2 launches a shard) and decrypted exactly;
+              DevicePIR2.answer_2d_sharded at the SIFT1M grid over 1 and 3
+              shards, bit-equal to answer_2d, the row exact, a mesh of 4
+              refused; K2 against its plain version at every shape those
+              launched; init_multihost as an NCCL world of one; the dry run
+              dryrun_multichip(4) on cuda:0; times with their clock beside
+              them;
+7. result   — the last line, {"ok": true, "device": {...}}.
 
 Without CUDA, or without the port beside it, it exits non-zero and prints no
 result.
@@ -258,6 +279,23 @@ def kernel_ms(fn, kernel: str, events_ms: float) -> float:
     saw no device event."""
     dev = device_ms(fn, kernel)
     return events_ms if dev is None else dev
+
+
+def k1_bound(payload, sizes, union, nq: int):
+    """The card's bound for K1's work on a union: each input byte read once
+    (the valid payload rows and norms of the union tiles), each output byte
+    written once; the product's FLOPs over the valid rows → (bound_ms,
+    bound_by, bytes, flops, valid rows)."""
+    U, T, d = union.shape[0], payload.shape[1], payload.shape[2]
+    rows = int(sizes[union.long()].sum())
+    esz = payload.element_size()
+    bytes_moved = (rows * d * esz + rows * 4 + U * 4 + U * 4
+                   + nq * d * esz + nq * 4 + U * nq * T * 2 + U * nq * 4)
+    flops = 2.0 * nq * d * rows
+    bound_ms = max(bytes_moved / HBM_BYTES_S, flops / BF16_FLOPS) * 1e3
+    bound_by = ("bytes" if bytes_moved / HBM_BYTES_S >= flops / BF16_FLOPS
+                else "operations")
+    return bound_ms, bound_by, bytes_moved, flops, rows
 
 
 def check_union_scan_min(name, payload, norms, sizes, q, union,
@@ -1318,9 +1356,9 @@ def check_k2_pir_database(svc, built) -> int:
     return err
 
 
-def check_k2_pir_path(recorded: dict, device) -> int:
-    """K2 against its plain version at every shape the PIR path gave it:
-    each (rows, input dtype, direction, prime) recorded around the path's
+def check_k2_path(tag: str, recorded: dict, device) -> int:
+    """K2 against its plain version at every shape a path gave it: each
+    (rows, input dtype, direction, prime) recorded around the path's
     requests, on fresh residues below q of that dtype, one launch each.
     Returns the max |difference| (0)."""
     import torch
@@ -1335,7 +1373,7 @@ def check_k2_pir_path(recorded: dict, device) -> int:
         x = torch.randint(0, q, (rows, tb.n), generator=gen,
                           device=device, dtype=dtype)
         err = max(err, check_transform(
-            f"pir/[{rows}] {str(dtype)[6:]} "
+            f"{tag}/[{rows}] {str(dtype)[6:]} "
             f"{'inverse' if inverse else 'forward'} mod {q}", x, tb, inverse))
         n_rows += rows
         del x
@@ -1346,8 +1384,8 @@ def check_k2_pir_path(recorded: dict, device) -> int:
             f"the widest [{fwd[0]}, {fwd[3].n}] {str(fwd[1])[6:]} forward "
             f"and [{inv[0]}, {inv[3].n}] {str(inv[1])[6:]} inverse")
     log("kernel", f"ntt4_transform at all {len(seen)} (rows, dtype, "
-        f"direction, prime) of the PIR path ({n_rows:,} rows in all) = its "
-        f"plain version (max |err| {err})")
+        f"direction, prime) of the {tag} path ({n_rows:,} rows in all) = "
+        f"its plain version (max |err| {err})")
     return err
 
 
@@ -1554,7 +1592,7 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
         raise AssertionError("the recorded K2 launches differ from the "
                              "counted ones")
     # K2 against its plain version at every shape the two requests gave it
-    k2_err = max(k2_err, check_k2_pir_path({
+    k2_err = max(k2_err, check_k2_path("pir", {
         "the 4-row pirHypercube request": shapes4,
         f"the {n_cts}-ct pirHypercubeMulti request": shapes_m}, svc.device))
     sp = svc._ext[-1]
@@ -2803,13 +2841,13 @@ def http_encrypted(cfg, addr, engine, queries, sorted_coarse):
     return per_request
 
 
-def http_two_processes(cfg, device: str):
+def http_two_processes(cfg, device: str, smi: str):
     """Step 6: the port's server and driver as two processes on a 100K
     SIFT-style dataset at the preset's widths; the server builds its index
-    on ``device`` (the card)."""
-    import re
+    on ``device`` (the card). Then the same with ``serve.main --shard``
+    (the index warm-loaded, then sharded over every visible card): the
+    driver's recall/MRR block must be the unsharded server's."""
     import socket
-    import urllib.request
 
     from prefhetch_tpu_torch.data.synthetic import write_sift_style_dataset
 
@@ -2831,13 +2869,33 @@ def http_two_processes(cfg, device: str):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     env = dict(os.environ, PYTHONPATH=ROOT)
-    log_path = os.path.join(work, "server.log")
     t_data = time.perf_counter() - t0
+    try:
+        blocks = [serve_and_drive(cfg_path, work, port, device, env, t_data,
+                                  smi, extra) for extra in ([], ["--shard"])]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if blocks[0] != blocks[1]:
+        raise AssertionError(f"serve.main --shard: recall/MRR {blocks[1]} "
+                             f"differ from the unsharded server's "
+                             f"{blocks[0]}")
+    log("shard", "serve.main --shard (the index warm-loaded and sharded "
+        "over every visible card) answered the client driver with the "
+        "unsharded server's recall/MRR block")
+
+
+def serve_and_drive(cfg_path, work, port, device, env, t_data, smi, extra):
+    """One server process (``serve.main`` with ``extra`` arguments) and the
+    client driver against it → the driver's recall and MRR lines."""
+    import re
+    import urllib.request
+
+    log_path = os.path.join(work, "server.log")
     with open(log_path, "wb") as logf:
         srv = subprocess.Popen(
             [sys.executable, "-m", "prefhetch_tpu_torch.serve.main",
              "--config", cfg_path, "--port", str(port), "--index-dir", work,
-             "--frontend", "native", "--device", device],
+             "--frontend", "native", "--device", device] + extra,
             stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
     ok = False
     try:
@@ -2858,33 +2916,44 @@ def http_two_processes(cfg, device: str):
             except OSError:
                 time.sleep(0.25)
         t_up = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        drv = subprocess.run(
-            [sys.executable, "-m", "prefhetch_tpu_torch.client.driver",
-             "--config", cfg_path, "--server",
-             f"http://127.0.0.1:{port}/"],
-            capture_output=True, text=True, cwd=ROOT, env=env, timeout=300)
-        t_drv = time.perf_counter() - t0
-        out = drv.stdout + drv.stderr
-        if drv.returncode != 0:
-            raise AssertionError(f"the client driver exited with "
-                                 f"{drv.returncode}:\n{out[-3000:]}")
-        taken = re.search(r"Time taken for client queries = (\d+) us "
-                          r"\((\d+) ms\)", out)
-        rec = re.search(r"Recall@1 = \S+, Recall@10 = \S+, Recall@100 = "
-                        r"\S+", out)
-        mrr = re.search(r"MRR@1 = \S+, MRR@10 = \S+, MRR@100 = \S+", out)
-        if not (taken and rec and mrr):
-            raise AssertionError(f"no timing or recall/MRR block in the "
-                                 f"driver's output:\n{out[-3000:]}")
-        log("http", f"two processes, {HTTP_PROC_NBASE:,} x {D} SIFT-style "
-            f"(data {t_data:.1f} s): server up (index built on the card) "
-            f"in {t_up:.1f} s, driver {t_drv:.1f} s: {taken.group(0)}; "
-            f"{rec.group(0)}; {mrr.group(0)}")
-        for line in out.splitlines():
-            if "stage " in line:
-                log("http", "  driver " + line.split("] ")[-1])
+        tag = "shard" if extra else "http"
+        how = f" (serve.main {' '.join(extra)})" if extra else ""
+        blocks = set()
+        for run in ("first", "warm"):
+            t0 = time.perf_counter()
+            drv = subprocess.run(
+                [sys.executable, "-m", "prefhetch_tpu_torch.client.driver",
+                 "--config", cfg_path, "--server",
+                 f"http://127.0.0.1:{port}/"],
+                capture_output=True, text=True, cwd=ROOT, env=env,
+                timeout=300)
+            t_drv = time.perf_counter() - t0
+            out = drv.stdout + drv.stderr
+            if drv.returncode != 0:
+                raise AssertionError(f"the client driver exited with "
+                                     f"{drv.returncode}:\n{out[-3000:]}")
+            taken = re.search(r"Time taken for client queries = (\d+) us "
+                              r"\((\d+) ms\)", out)
+            rec = re.search(r"Recall@1 = \S+, Recall@10 = \S+, "
+                            r"Recall@100 = \S+", out)
+            mrr = re.search(r"MRR@1 = \S+, MRR@10 = \S+, MRR@100 = \S+",
+                            out)
+            if not (taken and rec and mrr):
+                raise AssertionError(f"no timing or recall/MRR block in the "
+                                     f"driver's output:\n{out[-3000:]}")
+            blocks.add((rec.group(0), mrr.group(0)))
+            log(tag, f"{smi}: two processes{how}, {HTTP_PROC_NBASE:,} x {D} "
+                f"SIFT-style (data {t_data:.1f} s): server up (index "
+                f"{'loaded' if extra else 'built on the card'}) in "
+                f"{t_up:.1f} s; {run} driver run {t_drv:.1f} s (host "
+                f"clock): {taken.group(0)}; {rec.group(0)}; {mrr.group(0)}")
+            for line in out.splitlines():
+                if "stage " in line:
+                    log(tag, f"  {run} driver " + line.split("] ")[-1])
+        if len(blocks) != 1:
+            raise AssertionError(f"the two driver runs disagree: {blocks}")
         ok = True
+        return rec.group(0), mrr.group(0)
     finally:
         srv.kill()
         srv.wait(timeout=30)
@@ -2892,7 +2961,6 @@ def http_two_processes(cfg, device: str):
             with open(log_path, "rb") as f:
                 print(f.read()[-3000:].decode(errors="replace"),
                       file=sys.stderr)
-        shutil.rmtree(work, ignore_errors=True)
 
 
 def phase_http(engine, disp, data, queries, probes, smi) -> dict:
@@ -2927,9 +2995,360 @@ def phase_http(engine, disp, data, queries, probes, smi) -> dict:
                                                 sorted_coarse)
     finally:
         srv.shutdown()
-    http_two_processes(cfg, engine.device.type)
+    http_two_processes(cfg, engine.device.type, smi)
     log("http", f"phase wall {time.perf_counter() - t_phase:.1f} s")
     return conc
+
+
+def shard_requests(queries, probes, top_ids, k, cp):
+    """The [shard] phase's requests, in order: GET /query and /tiletable,
+    then per batch the binary POST /search, the JSON /coarsesearch of every
+    candidate, the binary tiled (q16) and top-``cp`` /coarsesearch kinds,
+    and the JSON /precisesearch and binary /precise-vector-pir of the
+    batch's /search ids, as (route tag, method, path, headers, body)."""
+    import numpy as np
+
+    from prefhetch_tpu_torch.utils import wire_bin
+
+    bin_hdr = {"content-type": wire_bin.CONTENT_TYPE}
+    reqs = [("/query", "GET", "/query", {}, b""),
+            ("/tiletable", "GET", "/tiletable", {}, b"")]
+    for b in range(N_BATCHES):
+        sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
+        q, p = queries[sl], probes[sl]
+        reqs += [
+            ("/search", "POST", "/search", bin_hdr, wire_bin.encode(
+                wire_bin.KIND_SEARCH_REQ, [q, p, np.array([k], np.uint32)])),
+            ("/coarsesearch", "POST", "/coarsesearch", {}, json.dumps(
+                {"preciseQuery": q.tolist(),
+                 "nearestCentroidIndexes": p.tolist()}).encode()),
+            ("/coarsesearch tiled", "POST", "/coarsesearch", bin_hdr,
+             wire_bin.encode(wire_bin.KIND_COARSE_REQ, [q, p])),
+            ("/coarsesearch top-k", "POST", "/coarsesearch", bin_hdr,
+             wire_bin.encode(wire_bin.KIND_COARSE_TOPK_REQ,
+                             [q, p, np.array([cp], np.uint32)])),
+            ("/precisesearch", "POST", "/precisesearch", {}, json.dumps(
+                {"preciseQuery": q.tolist(),
+                 "nearestCoarseVectorIndexes":
+                     top_ids[sl].tolist()}).encode()),
+            ("/precise-vector-pir", "POST", "/precise-vector-pir", bin_hdr,
+             wire_bin.encode(wire_bin.KIND_FETCH_REQ,
+                             [top_ids[sl].astype(np.int64)])),
+        ]
+    return reqs
+
+
+def run_requests(disp, reqs, reset_counts) -> tuple:
+    """Each request through the Dispatcher with the kernel counts set to 0
+    just before the /search requests and read just after them → (bodies,
+    host-clock ms by route, K1 launches over the /search requests)."""
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
+    from prefhetch_tpu_torch.ops import union_scan_min as usm
+
+    bodies, ms, k1 = [], {}, 0
+    for tag, method, path, hdr, body in reqs:
+        if tag == "/search":
+            reset_counts()
+        t0 = time.perf_counter()
+        status, _, out = disp.handle(method, path, hdr, body)
+        ms.setdefault(tag, []).append((time.perf_counter() - t0) * 1e3)
+        if tag == "/search":
+            k1 += usm.union_scan_min.launches
+            if usm.union_scan_min_reference.calls or k2s.ntt4_step_plain.calls:
+                raise AssertionError("a plain version ran on /search")
+        if status != 200:
+            raise AssertionError(f"{method} {path}: {status} {out[:300]!r}")
+        bodies.append(out)
+    return bodies, ms, k1
+
+
+def phase_shard(engine, disp, data, queries, probes, top_ids, cands,
+                reset_counts, smi) -> dict:
+    """Sharding on the engine, index and base of the main phase, run last
+    (it leaves the engine sharded): the unsharded engine's answers to
+    GET /query and /tiletable and N_BATCHES x (POST /search, JSON, tiled
+    and top-k /coarsesearch, JSON /precisesearch, binary
+    /precise-vector-pir); then enable_sharding() over every visible card (a
+    mesh of one) and over 4 shards of cuda:0, each answering the same
+    requests byte for byte, K1 launched once a shard a /search batch and
+    held against its plain version at every shard's union share of the
+    first batch, the card memory the shards add; the q1 MAC query-sharded
+    (64 queries x 256 candidates, meshes of 1 and 4) bit-equal to the one-
+    device program, decrypted exactly, K2 held against its plain version at
+    every shape it launched; the PIR answer with its database sharded at
+    the SIFT1M grid (meshes of 1 and 3, the smallest that divides g1 =
+    177) bit-equal to answer_2d and its row exact, a mesh of 4 refused; an NCCL world of one; the dry run on 4
+    shards of the card. Returns the numbers of the kernels line."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.client.he import HEClient
+    from prefhetch_tpu_torch.crypto.pir import PIRClient
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import union_scan_min as usm
+    from prefhetch_tpu_torch.ops.rerank import exact_rerank
+    from prefhetch_tpu_torch.ops.union_scan import (
+        union_probe_tiles, union_scan_pruned_fused,
+    )
+    from prefhetch_tpu_torch.parallel.dryrun import dryrun_multichip
+    from prefhetch_tpu_torch.parallel.mesh import make_mesh
+    from prefhetch_tpu_torch.parallel.multihost import (
+        init_multihost, shard_array_global, shard_index_multihost,
+        shutdown_multihost,
+    )
+    from prefhetch_tpu_torch.parallel.sharded import (
+        partition_union, shard_index, shard_rows, shard_tiled_view,
+        sharded_rerank, sharded_trunc_mac_q1, sharded_union_scan_pruned,
+    )
+
+    t_phase = time.perf_counter()
+    dev = engine.device
+    cfg = engine.config
+    k = cfg.protocol.k
+    out = {"k1": {}, "k2": {}}
+
+    # -- the plaintext routes: unsharded, then meshes of 1 and 4 ------------
+    reqs = shard_requests(queries, probes, top_ids, k,
+                          cfg.protocol.coarse_probe)
+    want, ms0, _ = run_requests(disp, reqs, reset_counts)
+    log("shard", f"{smi}: unsharded engine, {len(reqs)} requests (host "
+        f"clock, ms): " + "; ".join(
+            f"{t} {', '.join(f'{x:.1f}' for x in v)}"
+            for t, v in ms0.items()))
+    q0 = queries[:NQ_BATCH]
+    # what the fixed-shape products cost: union_distances (the f32 union
+    # scan of the JSON, tiled and top-k routes) on the first batch, at
+    # SCAN_CHUNK tiles a product and at one product over the whole union
+    view = engine._tiled_view
+    _, qd, union1, _, _ = engine._tiled_batch_prep(probes[:NQ_BATCH], q0)
+    args = (view.payload, view.norms, view.sizes, qd, union1)
+    chunk = usm.SCAN_CHUNK
+    t_chunk = cuda_time_ms(lambda: usm.union_distances(*args), iters=10)
+    usm.SCAN_CHUNK = union1.shape[0]
+    try:
+        t_one = cuda_time_ms(lambda: usm.union_distances(*args), iters=10)
+    finally:
+        usm.SCAN_CHUNK = chunk
+    log("shard", f"{smi}: union_distances at U={union1.shape[0]}, nq="
+        f"{NQ_BATCH}: {t_chunk:.4f} ms at {chunk} tiles a product, "
+        f"{t_one:.4f} ms as one product over the union (CUDA events)")
+    out["union_distances_ms"] = {"chunked": t_chunk, "one_product": t_one}
+    for name, kw in (("all visible cards", {}),
+                     ("4 shards of cuda:0", {"devices": [dev] * 4})):
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        engine.enable_sharding(**kw)
+        st = engine._sharded_tiled
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        mesh = engine._mesh
+        n = mesh.ndev
+        views = sum(
+            int(sh.data_ptr() == engine._tiled_view.payload[
+                gid * st.tpl].data_ptr())
+            for (gid, _), sh in zip(mesh.local_shards(), st.payload)
+            if gid * st.tpl < engine._tiled_view.payload.shape[0])
+        log("shard", f"mesh of {n} ({name}): card memory allocated "
+            f"{mem0 / 1e9:.3f} -> {mem1 / 1e9:.3f} GB after sharding the "
+            f"index, base and tiled view (+{(mem1 - mem0) / 1e6:.3f} MB; "
+            f"{views}/{len(st.payload)} payload shards are views of the "
+            f"unsharded payload, {st.tpl} tiles a shard)")
+        # K1 against its plain version at every shard's union share of the
+        # first batch
+        tile_idx, qd, union_dev, pos_dev, _ = engine._tiled_batch_prep(
+            probes[:NQ_BATCH], q0)
+        u_loc = union_dev.shape[1]
+        locs = []
+        for i, (gid, sdev) in enumerate(mesh.local_shards()):
+            loc = torch.from_numpy(union_dev[gid]).long()
+            locs.append((loc - gid * st.tpl).clamp(0, st.tpl - 1).to(
+                torch.int32).to(sdev))
+            check_union_scan_min(
+                f"shard{n}/s{gid}/batch0", st.payload[i], st.norms[i],
+                st.sizes[i], qd, locs[-1], min_atol=4.0)
+        got, ms, k1 = run_requests(disp, reqs, reset_counts)
+        for (tag, *_), a, b in zip(reqs, want, got):
+            if a != b:
+                raise AssertionError(f"mesh of {n}: {tag} differs from the "
+                                     f"unsharded engine's response")
+        if k1 != N_BATCHES * n:
+            raise AssertionError(f"mesh of {n}: K1 launched {k1} times for "
+                                 f"{N_BATCHES} batches")
+        out["k1"][f"mesh{n}"] = k1
+        log("shard", f"{smi}: mesh of {n}: all {len(reqs)} responses "
+            f"byte-identical to the unsharded engine's; K1 launches over "
+            f"the {N_BATCHES} /search requests {k1} (= {N_BATCHES} x {n}), "
+            f"union share u_loc {u_loc} tiles a shard; host clock, ms: "
+            + "; ".join(
+                f"{t} {', '.join(f'{x:.1f}' for x in v)}"
+                for t, v in ms.items()))
+        if n == 4:
+            # K1's time at one shard's share (the first), beside its bound
+            loc = locs[0]
+            args = (st.payload[0], st.norms[0], st.sizes[0], qd, loc)
+            ev = cuda_time_ms(lambda: usm.union_scan_min(*args))
+            shard_ms = kernel_ms(lambda: usm.union_scan_min(*args),
+                                 "union_scan_min_bf16_kernel", ev)
+            plain_ms = cuda_time_ms(
+                lambda: usm.union_scan_min_reference(*args), iters=5)
+            bnd, by, nbytes, _, _ = k1_bound(st.payload[0], st.sizes[0],
+                                             loc, NQ_BATCH)
+            out["k1_shard"] = {"mesh": n, "u_loc": u_loc, "ms": shard_ms,
+                               "ms_events": ev, "plain_ms": plain_ms,
+                               "bound_ms": bnd, "bound_by": by}
+            log("shard", f"{smi}: K1 on shard 0's share (U={u_loc}, nq="
+                f"{NQ_BATCH}): {shard_ms:.4f} ms device time (profiler; "
+                f"CUDA events over wrapper calls {ev:.4f}), plain "
+                f"{plain_ms:.4f} ms (CUDA events), bound {bnd:.4f} ms "
+                f"({by}, {nbytes / 1e6:.1f} MB)")
+
+    # -- the q1 MAC, query-sharded ------------------------------------------
+    svc = engine.he_service
+    he_q1 = dataclasses.replace(cfg.he, resp_mod="q1", sparse_h=Q1_SPARSE_H)
+    client = HEClient(he_q1, seed=12)
+    sl = slice((N_BATCHES - 1) * NQ_BATCH, N_BATCHES * NQ_BATCH)
+    qs, cand = queries[sl], cands[-1]
+    ctq, idx, norms = svc.prepare(
+        [svc.ctx.ct_from_wire(w) for w in client.encrypt_query_batch(qs)],
+        cand)
+    ctq_d, idx_d = svc.upload(ctq, idx)
+    one = svc._trunc_mac_q1(ctq_d, idx_d)
+    one_ms = cuda_time_ms(lambda: svc._trunc_mac_q1(ctq_d, idx_d),
+                          iters=5, warmup=1)
+    recorded = {}
+    for n in (1, 4):
+        mesh = make_mesh(devices=[dev] * n)
+        base_sh = shard_rows(svc._base_dev, mesh, pad=True)
+        reset_counts()
+        with recording_k2() as rec:
+            got = sharded_trunc_mac_q1(mesh, base_sh, ctq_d, idx_d,
+                                       svc.params)
+            torch.cuda.synchronize()
+        launches = k2.ntt4_transform.launches
+        if launches != 6 * n or len(rec) != launches:
+            raise AssertionError(f"q1 MAC over {n} shards: {launches} K2 "
+                                 f"launches, not {6 * n}")
+        if not torch.equal(got, one):
+            raise AssertionError(f"q1 MAC over {n} shards differs from the "
+                                 f"one-device program")
+        t_ms = cuda_time_ms(lambda: sharded_trunc_mac_q1(
+            mesh, base_sh, ctq_d, idx_d, svc.params), iters=5, warmup=1)
+        recorded[f"the q1 MAC over {n} shards"] = rec
+        out["k2"][f"q1_mac_mesh{n}"] = launches
+        log("shard", f"{smi}: q1 MAC, {NQ_BATCH} queries x "
+            f"{cand.shape[1]} candidates over {n} shard(s) of the card: "
+            f"bit-equal to the one-device program, {launches} K2 launches; "
+            f"{t_ms:.3f} ms (CUDA events) against {one_ms:.3f} on one "
+            f"device")
+        if n == 4:
+            c1w, c0w, nrm = svc.trunc_unbundle_q1(got.cpu().numpy(), norms)
+            dists = client.decrypt_scores_trunc_q1(c1w, c0w, nrm, qs)
+            if not np.array_equal(dists, engine.precise_search(qs, cand)):
+                raise AssertionError("the sharded q1 MAC does not decrypt "
+                                     "to precise_search")
+        del base_sh
+    del ctq_d, idx_d, one
+
+    # -- the PIR answer with its database sharded ---------------------------
+    pir = engine.pir2_service
+    nbase, d = data["base"].shape
+    pcl = PIRClient(pir.params, seed=13)
+    pir.register_galois_keys(pcl.key_id, pcl.galois_keys_wire_2d(nbase, d))
+    row = int(top_ids[0, 0])
+    w, r = pcl.build_query_2d(row, nbase, d)
+    pir.answer_2d(w, pcl.key_id)          # the new keys' first program
+    t0 = time.perf_counter()
+    want_pir = pir.answer_2d(w, pcl.key_id)
+    one_ms = (time.perf_counter() - t0) * 1e3
+    # the smallest mesh above 1 that divides g1 (3 at SIFT1M: g1 = 177 =
+    # 3·59) and one that does not (4)
+    div = next((n for n in range(2, pir.g1 + 1) if pir.g1 % n == 0))
+    bad = next(n for n in range(4, pir.g1 + 2) if pir.g1 % n)
+    for n in (1, div):
+        reset_counts()
+        with recording_k2() as rec:
+            t0 = time.perf_counter()
+            got_pir = pir.answer_2d_sharded(w, pcl.key_id,
+                                            make_mesh(devices=[dev] * n))
+            t_ms = (time.perf_counter() - t0) * 1e3
+        launches = k2.ntt4_transform.launches
+        if got_pir != want_pir:
+            raise AssertionError(f"PIR answer over {n} shards differs from "
+                                 f"answer_2d")
+        if not np.array_equal(pcl.decode_response_2d(got_pir, d, r),
+                              data["base"][row].astype(np.int64)):
+            raise AssertionError("the sharded PIR answer does not decode "
+                                 "to its row")
+        recorded[f"the PIR answer over {n} shards"] = rec
+        out["k2"][f"pir_mesh{n}"] = launches
+        log("shard", f"{smi}: PIR answer, grid {pir.g1} x {pir.g2}, "
+            f"database over {n} shard(s) ({pir.g1 // n} rows each): "
+            f"bit-equal to answer_2d, row {row} exact, {launches} K2 "
+            f"launches; {t_ms:.1f} ms (host clock) against {one_ms:.1f} "
+            f"for a warm answer_2d")
+    try:
+        pir.answer_2d_sharded(w, pcl.key_id, make_mesh(devices=[dev] * bad))
+        raise AssertionError(f"a mesh of {bad} was not refused")
+    except ValueError as e:
+        if f"not divisible by {bad} devices" not in str(e):
+            raise
+        log("shard", f"mesh of {bad} refused: {e}")
+    out["k2_err"] = check_k2_path("shard", recorded, dev)
+
+    # -- an NCCL world of one -------------------------------------------------
+    with socket.socket() as s_:
+        s_.bind(("127.0.0.1", 0))
+        port = s_.getsockname()[1]
+    wmesh = init_multihost(f"127.0.0.1:{port}", 1, 0,
+                           local_device_ids=[dev.index])
+    try:
+        import torch.distributed as dist
+
+        a = shard_index_multihost(engine.index, wmesh)
+        b = shard_index(engine.index, make_mesh(devices=[dev]))
+        for f in ("centroids", "list_ids", "list_sizes", "list_recon"):
+            if not torch.equal(getattr(a.shards[0], f),
+                               getattr(b.shards[0], f)):
+                raise AssertionError(f"shard_index_multihost {f} differs")
+        view = engine._tiled_view
+        st = shard_tiled_view(view, wmesh)
+        tiles, _ = view.expand_probes(
+            probes[:NQ_BATCH], min_t=engine._serve_mt[probes.shape[1]])
+        u_np, p_np = union_probe_tiles(tiles, view.empty_tile)
+        ud, pd, _ = partition_union(u_np, p_np, view.empty_tile, st.tpl, 1)
+        q0d = torch.from_numpy(q0).to(dev)
+        j = engine._serve_prune_j(tiles.shape[1])
+        got = sharded_union_scan_pruned(wmesh, st, q0d, ud, pd, j)
+        ref = union_scan_pruned_fused(
+            view.payload, view.norms, view.sizes, q0d,
+            torch.from_numpy(u_np.astype(np.int32)).to(dev),
+            torch.from_numpy(p_np).to(dev), j)
+        for x, y in zip(got, ref):
+            if not torch.equal(x, y):
+                raise AssertionError("the pruned scan through the world "
+                                     "differs from one device")
+        cand_t = torch.from_numpy(top_ids[:NQ_BATCH]).to(dev)
+        sc = sharded_rerank(wmesh, shard_array_global(data["base"], wmesh),
+                            q0d, cand_t)
+        if not torch.equal(sc, exact_rerank(engine.base, q0d, cand_t)):
+            raise AssertionError("the re-rank through the world differs")
+        log("shard", f"init_multihost: a world of 1 over "
+            f"{dist.get_backend()} (NCCL refuses two ranks on one card); "
+            f"shard_index_multihost = shard_index; the pruned scan (K1) "
+            f"and the re-rank through the world's collectives bit-equal "
+            f"to one device")
+    finally:
+        shutdown_multihost()
+
+    # -- the dry run on 4 shards of the card -----------------------------------
+    t0 = time.perf_counter()
+    dr = dryrun_multichip(4, device=dev)
+    log("shard", f"{smi}: dryrun_multichip(4) on {dev}: {json.dumps(dr)} "
+        f"in {time.perf_counter() - t0:.1f} s (host clock)")
+    log("shard", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3188,22 +3607,12 @@ def main() -> int:
     library_ms = cuda_time_ms(lambda: torch.matmul(qc, slab_t))
     library_dev = device_ms(lambda: torch.matmul(qc, slab_t))
     del slab_t
-    # the card's bound for the same work: each input byte read once (the
-    # valid payload rows and norms of the union tiles), each output byte
-    # written once; the product's FLOPs over the valid rows
-    nq1, T = q1.shape[0], view.tile
-    rows = int(sizes_u.sum())
-    esz = view.payload.element_size()
-    bytes_moved = (rows * D * esz + rows * 4 + U1 * 4 + U1 * 4
-                   + nq1 * D * esz + nq1 * 4
-                   + U1 * nq1 * T * 2 + U1 * nq1 * 4)
-    flops = 2.0 * nq1 * D * rows
-    bound_ms = max(bytes_moved / HBM_BYTES_S, flops / BF16_FLOPS) * 1e3
-    bound_by = ("bytes" if bytes_moved / HBM_BYTES_S >= flops / BF16_FLOPS
-                else "operations")
+    nq1 = q1.shape[0]
+    bound_ms, bound_by, bytes_moved, flops, rows = k1_bound(
+        view.payload, view.sizes, union1, nq1)
     log("timing", f"union_scan_min at U={U1} (real tiles {len(real)}, "
-        f"valid rows {rows}) nq={nq1} T={T} d={D}: kernel {dev_ms:.4f} ms "
-        f"on the device ({bytes_moved / dev_ms / 1e6:.0f} GB/s of the "
+        f"valid rows {rows}) nq={nq1} T={view.tile} d={D}: kernel "
+        f"{dev_ms:.4f} ms on the device ({bytes_moved / dev_ms / 1e6:.0f} GB/s of the "
         f"bound's bytes; CUDA events over wrapper calls {ms:.4f} / "
         f"{ms2:.4f}), plain {plain_ms:.4f} ms, torch.matmul cross term "
         f"{library_ms:.4f} ms (device {library_dev}), bound "
@@ -3221,6 +3630,11 @@ def main() -> int:
     k2_ckks = time_ntt4_transform(engine.ckks_service._tables[-1], 2048)
     profile_search(disp, queries, probes, k)
     phase_ablation(hold.pop("sq8"), hold.pop("slab"), svc._tables[0], nbatch)
+
+    # -- 6. sharding, last: it leaves the engine sharded ----------------------
+    shard = phase_shard(engine, disp, data, queries, probes,
+                        np.concatenate(ids_all), cands, reset_counts, smi)
+    k2_err = max(k2_err, shard["k2_err"])
     log("done", f"wall {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -3244,6 +3658,11 @@ def main() -> int:
         "path_http": f"POST /search x{http['requests']} over HTTP, native "
                      f"frontend, {http['fused_calls']} engine calls in "
                      f"{http['waves']} waves",
+        "launches_shard": shard["k1"],
+        "path_shard": f"POST /search x{N_BATCHES} on the engine sharded "
+                      f"over meshes of 1 and 4 shards of the card, one "
+                      f"launch a shard a batch",
+        "at_shard_shape": shard["k1_shard"],
     }, {
         "name": "ntt4_transform",
         "route": "cuda",
@@ -3267,6 +3686,10 @@ def main() -> int:
         "library_ms": None,
         "per": "transform (one launch)",
         "launches_http_per_request": http["k2_per_request"],
+        "launches_shard": shard["k2"],
+        "path_shard": "sharded_trunc_mac_q1 (64 queries x 256 candidates, "
+                      "meshes of 1 and 4) and DevicePIR2.answer_2d_sharded "
+                      "(SIFT1M grid, meshes of 1 and 3)",
         "library_call": "none: no single PyTorch call computes an exact "
                         "modular matrix product",
     }, {

@@ -133,21 +133,20 @@ class HEComputeService:
         self._base_dev = b.to(self.device)
         self._base_host = b.cpu().numpy()
 
-    def _mac_limbs(self, ctq: torch.Tensor, idx: torch.Tensor):
+    def _mac_limbs(self, ctq: torch.Tensor, rows: torch.Tensor):
         """The ct×pt MAC shared by both response wires. Yields, per limb,
         (tables, o0, o1): the c0 and c1 products [nq, nb, N] int64 in
         four-step NTT order.
 
         The incoming ciphertext is natural-order NTT and is permuted to
-        four-step order once; the idx rows are gathered from the parked
-        base, B rows per block, each REVERSED in its d-aligned window, and
-        negatives are lifted per limb before the forward transform."""
+        four-step order once; the candidate rows [nq, npad, d] int32 (B rows
+        a block) are each REVERSED in their d-aligned window, and negatives
+        are lifted per limb before the forward transform."""
         n = self.params.n
-        nq, npad = idx.shape
-        nb = npad * self._base_dev.shape[1] // n
+        nq, npad, d = rows.shape
+        nb = npad * d // n
         c0q = ctq[:, 0][..., self._perm]
         c1q = ctq[:, 1][..., self._perm]
-        rows = self._base_dev[idx.long()]                # [nq, npad, d] i32
         polys = rows.flip(-1).reshape(nq * nb, n)
         for i, tb in enumerate(self._tables):
             q = tb.q
@@ -156,11 +155,11 @@ class HEComputeService:
             yield (tb, modmul(c0q[:, None, i], pt, q),
                    modmul(c1q[:, None, i], pt, q))
 
-    def _ip_coeffs(self, o0: torch.Tensor, tb) -> torch.Tensor:
+    @staticmethod
+    def _ip_coeffs(o0: torch.Tensor, tb, d: int) -> torch.Tensor:
         """Inverse-NTT the c0 products and keep the B inner-product
         coefficients (positions j·d + d−1) of each block: [nq, nb, B] i32."""
         nq, nb, n = o0.shape
-        d = self._base_dev.shape[1]
         return intt4(o0.reshape(nq * nb, n), tb).reshape(
             nq, nb, n // d, d)[..., d - 1]
 
@@ -176,21 +175,35 @@ class HEComputeService:
 
         Transforms run in four-step order (ops/ntt4.py); the wire stays
         NATURAL NTT order via two device permutations, so clients are
-        unaffected."""
+        unaffected. The rows are gathered from the parked base."""
+        rows = self._base_dev[idx.long()]                # [nq, npad, d] i32
         out = []
-        for tb, o0, o1 in self._mac_limbs(ctq, idx):
+        for tb, o0, o1 in self._mac_limbs(ctq, rows):
             o1_nat = o1[..., self._inv_perm]             # wire: natural order
             out.append(torch.cat(
-                [o1_nat.to(torch.int32), self._ip_coeffs(o0, tb)], dim=-1))
+                [o1_nat.to(torch.int32),
+                 self._ip_coeffs(o0, tb, rows.shape[-1])], dim=-1))
         return torch.stack(out, dim=2)                   # [nq, nb, L, N+B]
 
     def _trunc_mac_q1(self, ctq: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Modulus-switched truncated MAC: same inputs as ``_trunc_mac``
-        → bundled [nq, nb, N+B] i32, everything mod q1.
+        → bundled [nq, nb, N+B] i32, everything mod q1, over the rows
+        gathered from the parked base (``trunc_mac_q1_rows``)."""
+        return self.trunc_mac_q1_rows(self._base_dev[idx.long()], ctq)
 
-        Same MAC, but the result ciphertext is RNS mod-switched down to the
-        FIRST limb before it leaves the device — the wire shrinks ~2× (c1 in
-        COEFFICIENT domain ‖ c0 inner-product coefficients, both mod q1).
+    def trunc_mac_q1_rows(self, rows: torch.Tensor,
+                          ctq: torch.Tensor) -> torch.Tensor:
+        """The q1 MAC core on given candidate rows: (rows [nq, npad, d] i32,
+        ctq [nq, 2, L, N] i32 natural-order NTT) → bundled [nq, nb, N+B]
+        i32, everything mod q1. The sharded path
+        (parallel/sharded.sharded_trunc_mac_q1) runs it a query shard at a
+        time; the arithmetic is exact, so the shards' results are bit-equal
+        to one device's.
+
+        Same MAC as ``_trunc_mac``, but the result ciphertext is RNS
+        mod-switched down to the FIRST limb before it leaves the device —
+        the wire shrinks ~2× (c1 in COEFFICIENT domain ‖ c0 inner-product
+        coefficients, both mod q1).
 
         Domain subtlety: RNS mod-down centers the q2-residue per
         coefficient, which is only meaningful in the COEFFICIENT domain —
@@ -207,9 +220,10 @@ class HEComputeService:
         q1, q2 = self.params.qs
         inv_q2 = pow(q2 % q1, -1, q1)
         c1c, c0ip = [], []
-        for tb, o0, o1 in self._mac_limbs(ctq, idx):
+        for tb, o0, o1 in self._mac_limbs(ctq, rows):
             nq, nb, n = o1.shape
-            c0ip.append(self._ip_coeffs(o0, tb).to(torch.int64))
+            c0ip.append(self._ip_coeffs(o0, tb, rows.shape[-1])
+                        .to(torch.int64))
             c1c.append(intt4(o1.reshape(nq * nb, n), tb)
                        .reshape(nq, nb, n).to(torch.int64))   # coeff domain
 

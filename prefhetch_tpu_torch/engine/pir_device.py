@@ -35,6 +35,11 @@ this module is in four-step order: the database (transformed on the device
 by K2, which emits that order) and the key stacks (host NTT, then
 ``fourstep_perm``); the wire stays in the natural coefficient domain.
 
+``answer_2d_sharded`` runs the dim-1 fold over the database sharded on a
+mesh (parallel/mesh.py), each shard folding its g1/ndev rows; the sum of the
+shards' canonical partials, reduced once mod q, is the single-device
+accumulator, so the response is bit-equal to ``answer_2d``.
+
 Not ported: the JAX module's disk caches (``cache_dir``: the transformed
 database and key stacks), its serialised TPU executables, its retry and
 blacklist of batch sizes after a compile failure, and its XLA batch
@@ -285,17 +290,21 @@ class DevicePIR2:
             del both1, ks1
         return c0s, c1s
 
-    def _fold_dim1(self, s1: torch.Tensor) -> torch.Tensor:
-        """s1 [S, g1, 2, L, N] NTT-domain selectors → [S, 2, g2, L, N]
+    def _fold_dim1(self, s1: torch.Tensor, db: torch.Tensor | None = None
+                   ) -> torch.Tensor:
+        """s1 [S, rows, 2, L, N] NTT-domain selectors → [S, 2, g2, L, N]
         int64 canonical: C_j = Σ_i s1_i ⊗ db[i, j], one pass over the
-        database for all S selector sets."""
-        S = s1.shape[0]
-        acc = torch.zeros((S, 2, self.g2) + tuple(self.db.shape[2:]),
-                          dtype=torch.int64, device=self.db.device)
-        for i in range(self.g1):
-            acc.addcmul_(s1[:, i, :, None], self.db[i])
-            if (i + 1) % _SUMS_PER_REDUCE == 0 or i + 1 == self.g1:
-                acc %= self._qs
+        database rows (default all g1, else a shard's) for all S selector
+        sets."""
+        db = self.db if db is None else db
+        S, rows = s1.shape[:2]
+        qs = self._qs.to(db.device)
+        acc = torch.zeros((S, 2, self.g2) + tuple(db.shape[2:]),
+                          dtype=torch.int64, device=db.device)
+        for i in range(rows):
+            acc.addcmul_(s1[:, i, :, None], db[i])
+            if (i + 1) % _SUMS_PER_REDUCE == 0 or i + 1 == rows:
+                acc %= qs
         return acc
 
     def _fold_dim2(self, digs: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
@@ -321,9 +330,10 @@ class DevicePIR2:
         return out
 
     def _program(self, c0: torch.Tensor, c1: torch.Tensor, kb, ka,
-                 n_rows: int) -> torch.Tensor:
+                 n_rows: int, fold1=None) -> torch.Tensor:
         """The answer program: c0, c1 [B, L, N] coefficient-domain query
-        cts → [B, n_rows, 2·nd, 2, N] int32 response residues mod q1."""
+        cts → [B, n_rows, 2·nd, 2, N] int32 response residues mod q1.
+        ``fold1`` replaces the dim-1 fold (the sharded answer's)."""
         B, L, n = c0.shape
         g1, g2, m = self.g1, self.g2, self.m
         nd = self._n_digits
@@ -336,7 +346,7 @@ class DevicePIR2:
             del c0s, c1s
             sel = self._transform(sel, False).view(B * n_rows, m, 2, L, n)
         with stage("dim-1 fold"):
-            C = self._fold_dim1(sel[:, :g1])                # [S, 2, g2, L, N]
+            C = (fold1 or self._fold_dim1)(sel[:, :g1])     # [S, 2, g2, L, N]
         with stage("dim-2 fold"):
             cd = self._mod_down(self._transform(C, True))   # [S, 2, g2, N]
             del C
@@ -435,7 +445,38 @@ class DevicePIR2:
         return self._answer(list(query_wires), key_id, n_rows)
 
     def answer_2d_sharded(self, query_wire: dict, key_id: str, mesh) -> dict:
-        raise NotImplementedError(
-            "answer_2d_sharded is not ported yet (it comes with sharding "
-            "over torch.distributed, ROADMAP queue 1 item 5)"
-        )
+        """Single-row answer with the packed database sharded over the mesh
+        (parallel/mesh.py): each shard folds its g1/ndev rows of the
+        hypercube in the dim-1 fold (the stage that reads the database),
+        and a sum of the shards' canonical partials (< ndev·q) with one
+        reduction mod q reassembles the accumulators bit-equal to
+        answer_2d. Expansion and the dim-2 fold run once, on the service's
+        device. A shard on that device is a view of the database. Requires
+        g1 % ndev == 0."""
+        ndev = mesh.ndev
+        if self.g1 % ndev:
+            raise ValueError(
+                f"g1={self.g1} not divisible by {ndev} devices"
+            )
+        chunk = self.g1 // ndev
+        dbs = [(gid, self.db[gid * chunk:(gid + 1) * chunk].to(dev))
+               for gid, dev in mesh.local_shards()]
+
+        def fold1(s1):
+            parts = [self._fold_dim1(s1[:, gid * chunk:(gid + 1) * chunk]
+                                     .to(db.device), db)
+                     for gid, db in dbs]
+            return (mesh.psum(parts).to(self.device)) % self._qs
+
+        kb, ka = self._keys[key_id]
+        with stage("wire decode"):
+            c0, c1 = self._query_c01(query_wire)
+        with self._lock:
+            with stage("upload"):
+                c0 = torch.from_numpy(c0[None]).to(self.device)
+                c1 = torch.from_numpy(c1[None]).to(self.device)
+            res = self._program(c0, c1, kb, ka, 1, fold1=fold1)
+            with stage("download"):
+                res = res.cpu().numpy()
+        with stage("pack_i32"):
+            return self._resp_wire(res[0, 0], self._depth(1))

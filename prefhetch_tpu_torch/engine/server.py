@@ -28,7 +28,17 @@
   the naive and 1-D packed ones through crypto/pir.py ``PIRServer``
   (numpy, as in the JAX engine), the 2-D hypercube and its multi-row form
   through engine/pir_device.py ``DevicePIR2`` on the engine's device.
-  enable_sharding raises NotImplementedError (one device).
+
+``enable_sharding`` shards the index over a mesh (parallel/): inverted lists
+along nlist, base rows along nbase, the tiled view along its tiles, each
+shard a view of the engine's own tensors on its device (a last shard that
+the rows do not fill is a zero-padded copy). From then on the
+plaintext services route to the sharded functions of parallel/sharded.py
+(the tiled scans, the fused route with K1 once a shard, the dense scan, the
+re-rank and the fetch) and answer byte for byte as the unsharded engine does.
+The encrypted and PIR routes run as on one device, as in the JAX engine; the
+sharded forms of their device programs are ``sharded_trunc_mac_q1`` and
+``DevicePIR2.answer_2d_sharded``.
 
 The coarse scans of the JSON and tiled wires are plain PyTorch: the JAX
 package computes them in XLA, outside its Pallas kernels. coarse_search
@@ -78,7 +88,8 @@ logger = logging.getLogger("prefhetch.engine")
 
 
 class QueryEngine:
-    """Holds the index + raw base matrix on one device; serves queries."""
+    """Holds the index + raw base matrix on a device, or sharded over a
+    mesh of devices (enable_sharding); serves queries."""
 
     # Tile size override for the tiled serving layout (None = the
     # index/tiling.py default). Tests use small tiles so tiny fixtures still
@@ -103,6 +114,8 @@ class QueryEngine:
         self._ckks_service = None
         self._pir_service = None
         self._pir2_service = None
+        self._mesh = None
+        self._sharded_tiled_cache = None
 
     # Reference singleton accessor (include/server/server_lib.h:20-23).
     @classmethod
@@ -124,12 +137,56 @@ class QueryEngine:
         with cls._instance_lock:
             cls._instance = None
 
-    def enable_sharding(self, n_devices: Optional[int] = None) -> None:
-        raise NotImplementedError(
-            "sharding is not ported yet (it comes with sharding over "
-            "torch.distributed, ROADMAP queue 1 item 5: parallel/mesh.py, "
-            "parallel/sharded.py)"
+    def enable_sharding(self, n_devices: Optional[int] = None,
+                        devices=None) -> None:
+        """Shard the index + base matrix over a mesh of the first n visible
+        devices of the engine's type (default: all) or of ``devices`` (a
+        device may repeat; parallel/mesh.make_mesh): inverted lists along
+        nlist, base rows along nbase (zero rows pad the last shard); queries
+        replicated. The services below then route to the sharded functions.
+        Net-new capability vs the reference (SURVEY §2.4). Call after the
+        index is loaded; set_index re-shards over the same mesh."""
+        from prefhetch_tpu_torch.parallel.mesh import make_mesh
+
+        if self.index is None:
+            raise RuntimeError("load or build the index before sharding it")
+        mesh = make_mesh(n_devices, device=self.device, devices=devices)
+        if mesh.leader != self.device:
+            raise ValueError(f"the mesh's first device {mesh.leader} is not "
+                             f"the engine's {self.device}")
+        self._shard(mesh)
+        logger.info("Sharded index across %d devices (%d lists/device)",
+                    mesh.ndev, self.index.nlist // mesh.ndev)
+
+    def _shard(self, mesh) -> None:
+        from prefhetch_tpu_torch.parallel.sharded import (
+            shard_index, shard_rows,
         )
+
+        sindex = shard_index(self.index, mesh)
+        self._base_shards = shard_rows(self.base, mesh, pad=True)
+        self._sharded_index = sindex
+        self._sharded_tiled_cache = None
+        self._mesh = mesh
+
+    @property
+    def is_sharded(self) -> bool:
+        return self._mesh is not None
+
+    @property
+    def _sharded_tiled(self):
+        """Tile-sharded twin of the tiled view (lazy, once per index):
+        payload, norms and sizes sharded by tile ranges, ids replicated
+        (parallel/sharded.shard_tiled_view)."""
+        if self._sharded_tiled_cache is None:
+            from prefhetch_tpu_torch.parallel.sharded import shard_tiled_view
+
+            view = self._tiled_view
+            with self._lock:
+                if self._sharded_tiled_cache is None:
+                    self._sharded_tiled_cache = shard_tiled_view(
+                        view, self._mesh)
+        return self._sharded_tiled_cache
 
     # ------------------------------------------------------------------
     def init_index(self) -> None:
@@ -186,6 +243,8 @@ class QueryEngine:
         self._ckks_service = None
         self._pir_service = None
         self._pir2_service = None
+        if self._mesh is not None:
+            self._shard(self._mesh)
 
     @property
     def _tiled_view(self) -> Optional[TiledView]:
@@ -212,7 +271,11 @@ class QueryEngine:
         any nprobe-probe set, as the JAX engine), dedupes the batch's tiles
         into the union (128-bucket, empty tile last) and uploads what the
         device needs. Returns (tile_idx np [nq, mt], q [nq, d],
-        union [U] i32, pos [nq, mt] i32, counts np [nq] i64)."""
+        union [U] i32, pos [nq, mt] i32, counts np [nq] i64). A sharded
+        engine splits the union across tile owners on the host instead
+        (parallel/sharded.partition_union): union is then union_dev np
+        [ndev, u_loc] and pos pos_dev np [nq, mt] into the shard-major
+        layout."""
         view = self._tiled_view
         nprobe = probes_np.shape[1]
         if nprobe not in self._serve_mt:
@@ -222,13 +285,58 @@ class QueryEngine:
         )
         union_np, pos_np = union_probe_tiles(tile_idx, view.empty_tile)
         dev = self.device
+        q = torch.tensor(q, dtype=torch.float32, device=dev)
+        if self.is_sharded:
+            from prefhetch_tpu_torch.parallel.sharded import partition_union
+
+            union_dev, pos_dev, _ = partition_union(
+                union_np, pos_np, view.empty_tile, self._sharded_tiled.tpl,
+                self._mesh.ndev)
+            return tile_idx, q, union_dev, pos_dev, counts
         return (
             tile_idx,
-            torch.tensor(q, dtype=torch.float32, device=dev),
+            q,
             torch.from_numpy(union_np.astype(np.int32)).to(dev),
             torch.from_numpy(pos_np).to(dev),
             counts,
         )
+
+    def _union_scan(self, q, union, pos) -> torch.Tensor:
+        """The f32 union scan [nq, mt·T] of ``_tiled_batch_prep``'s batch,
+        sharded on a sharded engine."""
+        if self.is_sharded:
+            from prefhetch_tpu_torch.parallel.sharded import (
+                sharded_union_scan,
+            )
+
+            return sharded_union_scan(self._mesh, self._sharded_tiled, q,
+                                      union, pos)
+        v = self._tiled_view
+        return union_scan_distances(v.payload, v.norms, v.sizes, q, union,
+                                    pos)
+
+    def _union_scan_pruned(self, q, union, pos, j: int):
+        """The pruned union scan on K1 → (dist bf16 [nq, j·T], sel [nq, j]),
+        K1 once a shard on a sharded engine."""
+        if self.is_sharded:
+            from prefhetch_tpu_torch.parallel.sharded import (
+                sharded_union_scan_pruned,
+            )
+
+            return sharded_union_scan_pruned(
+                self._mesh, self._sharded_tiled, q, union, pos, j)
+        v = self._tiled_view
+        return union_scan_pruned_fused(v.payload, v.norms, v.sizes, q,
+                                       union, pos, j)
+
+    def _rerank(self, q, cand) -> torch.Tensor:
+        """Exact re-rank [nq, P] against the base (row-sharded on a sharded
+        engine)."""
+        if self.is_sharded:
+            from prefhetch_tpu_torch.parallel.sharded import sharded_rerank
+
+            return sharded_rerank(self._mesh, self._base_shards, q, cand)
+        return exact_rerank(self.base, q, cand)
 
     def _serve_prune_j(self, mt: int) -> int:
         """Segment-pruning tile budget for the fused route (0 = off): J=24
@@ -289,9 +397,17 @@ class QueryEngine:
             np.asarray(nearest_centroid_idx, np.int64),
             np.asarray(precise_query, np.float32),
         )
-        qd, dmin, dstep = union_scan_distances_q16(
-            view.payload, view.norms, view.sizes, q, union, pos
-        )
+        if self.is_sharded:
+            from prefhetch_tpu_torch.parallel.sharded import (
+                sharded_union_scan_q16,
+            )
+
+            qd, dmin, dstep = sharded_union_scan_q16(
+                self._mesh, self._sharded_tiled, q, union, pos)
+        else:
+            qd, dmin, dstep = union_scan_distances_q16(
+                view.payload, view.norms, view.sizes, q, union, pos
+            )
 
         def resolve():
             return (tile_idx, qd.cpu().numpy(), dmin.cpu().numpy(),
@@ -325,9 +441,7 @@ class QueryEngine:
                 np.asarray(nearest_centroid_idx, np.int64),
                 np.asarray(precise_query, np.float32),
             )
-            dist = union_scan_distances(
-                view.payload, view.norms, view.sizes, q, union, pos
-            ).cpu().numpy()
+            dist = self._union_scan(q, union, pos).cpu().numpy()
             lane = np.arange(view.tile)
             tsz = view.tile_sizes_np[tile_idx]               # [nq, mt]
             mask = (lane[None, None, :] < tsz[:, :, None]).reshape(-1)
@@ -339,7 +453,13 @@ class QueryEngine:
                          device=self.device)
         p = torch.tensor(nearest_centroid_idx, dtype=torch.int64,
                          device=self.device)
-        if idx.list_sq is not None:
+        if self.is_sharded:
+            from prefhetch_tpu_torch.parallel.sharded import (
+                sharded_coarse_scan,
+            )
+
+            res = sharded_coarse_scan(self._mesh, self._sharded_index, q, p)
+        elif idx.list_sq is not None:
             res = coarse_scan_sq8(
                 idx.list_sq, idx.sq_vmin, idx.sq_scale,
                 idx.list_ids, idx.list_sizes, q, p,
@@ -389,7 +509,7 @@ class QueryEngine:
                          device=self.device)
         cand = torch.tensor(nearest_coarse_vector_idx, dtype=torch.int64,
                             device=self.device)
-        scores = exact_rerank(self.base, q, cand)
+        scores = self._rerank(q, cand)
         return lambda: scores.cpu().numpy()
 
     # -- service 4b: POST /pir-fetch (real PIR) ----------------------------
@@ -494,6 +614,11 @@ class QueryEngine:
         server_lib.cpp:169-196 — a PIR placeholder: ids arrive in cleartext
         at this protocol revision)."""
         t = torch.tensor(ids, dtype=torch.int64, device=self.device)
+        if self.is_sharded:
+            from prefhetch_tpu_torch.parallel.sharded import sharded_fetch
+
+            return sharded_fetch(self._mesh, self._base_shards,
+                                 t).cpu().numpy()
         return fetch_vectors(self.base, t).cpu().numpy()
 
     # -- POST /search ------------------------------------------------------
@@ -537,19 +662,14 @@ class QueryEngine:
         j = self._serve_prune_j(mt)
         tiles = torch.from_numpy(tile_idx).to(self.device)
         if j:
-            dist, sel = union_scan_pruned_fused(
-                view.payload, view.norms, view.sizes, q, union, pos, j
-            )
+            dist, sel = self._union_scan_pruned(q, union, pos, j)
             _, posk = topk_select_segmented(dist, cp, j, level1_bf16=True)
             tiles = torch.gather(tiles, 1, sel)
         else:
-            dist = union_scan_distances(
-                view.payload, view.norms, view.sizes, q, union, pos
-            )
+            dist = self._union_scan(q, union, pos)
             _, posk = topk_select(dist, cp)
         cand = resolve_topk_ids(posk, tiles, view.ids)
-        scores = exact_rerank(self.base, q, cand)
-        ids_k, dists_k = final_topk(scores, cand, k)
+        ids_k, dists_k = final_topk(self._rerank(q, cand), cand, k)
 
         def resolve():
             return ids_k.cpu().numpy(), dists_k.cpu().numpy()
@@ -596,10 +716,7 @@ class QueryEngine:
             raise ValueError(
                 f"probed lists hold {int(counts.min())} candidates < k={k}"
             )
-        dist = union_scan_distances(
-            view.payload, view.norms, view.sizes, q, union, pos
-        )
-        vals, posk = topk_select(dist, k)
+        vals, posk = topk_select(self._union_scan(q, union, pos), k)
         tiles = torch.from_numpy(tile_idx).to(self.device)
         ids = resolve_topk_ids(posk, tiles, view.ids)
 

@@ -105,7 +105,15 @@ def union_scan_distances_q16(
     valid lanes hold round((d − dmin)/dstep) ∈ [0, 65534], invalid lanes
     Q16_PAD. Selection-grade (error ≤ the query's distance spread/65534) at
     2 B a lane; the client rebuilds the mask from its cached tile table."""
-    out = union_scan_distances(payload, norms, sizes, queries, union, pos)
+    return quantize_q16(
+        union_scan_distances(payload, norms, sizes, queries, union, pos))
+
+
+def quantize_q16(
+    out: torch.Tensor,       # [nq, n] f32 distances, PAD at invalid lanes
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each query's u16 range quantization of its distances: (qdist u16,
+    dmin f32 [nq], dstep f32 [nq]), invalid lanes Q16_PAD."""
     # PAD sorts above any real distance, so the min is safe; the max needs
     # the mask
     vmask = out < PAD_DISTANCE

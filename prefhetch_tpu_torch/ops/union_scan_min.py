@@ -34,6 +34,13 @@ from prefhetch_tpu_torch.ops.topk import PAD_DISTANCE
 _LIB = "union_scan_min"
 _MAX_SMEM = 232448                  # bytes a block may opt into on sm_90
 
+# Union tiles one product of union_distances takes. The union is padded to a
+# multiple of it, so every product has the one shape [SCAN_CHUNK·T, d] ×
+# [d, nq] whatever the union's length: a library GEMM may sum in another
+# order at another shape, and a tile's distances must not depend on which
+# union, or which shard's share of one (parallel/sharded.py), it came in.
+SCAN_CHUNK = 128
+
 
 def _queries_for(payload: torch.Tensor, queries: torch.Tensor):
     """(‖q‖² f32 [nq] of the f32 queries, queries in the product's type)."""
@@ -52,13 +59,19 @@ def union_distances(
 ) -> torch.Tensor:
     """K1's distances in f32, tile-major [U, T, nq], PAD at t ≥ size: the
     plain formula that the kernel's plain version and the unfused f32 scans
-    of ops/union_scan.py share."""
+    of ops/union_scan.py share. The product runs SCAN_CHUNK tiles at a
+    time, the last chunk padded with the union's last tile."""
     T = payload.shape[1]
+    U = union.shape[0]
     u = union.long()
     qsq, qc = _queries_for(payload, queries)
-    slab = payload[u].to(torch.float32)                     # [U, T, d]
+    qt = qc.to(torch.float32).T
+    up = torch.cat([u, u[-1:].expand(-U % SCAN_CHUNK)])
     # bf16 x bf16 products are exact in f32; the sum runs in f32
-    cross = torch.matmul(slab, qc.to(torch.float32).T)      # [U, T, nq]
+    cross = torch.cat([
+        torch.matmul(payload[up[i:i + SCAN_CHUNK]].to(torch.float32), qt)
+        for i in range(0, up.shape[0], SCAN_CHUNK)
+    ])[:U]                                                  # [U, T, nq]
     d2 = qsq[None, None, :] + norms[u][:, :, None] - 2.0 * cross
     d2 = torch.clamp(d2, min=0.0)
     lane = torch.arange(T, device=payload.device)

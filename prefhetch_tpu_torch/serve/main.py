@@ -4,10 +4,12 @@ init logger → build engine → train/load index → run web server.
 
     python -m prefhetch_tpu_torch.serve.main --config cfg.json \\
         [--dataset-dir DIR --dataset-prefix P] [--port N] \\
-        [--frontend auto|threaded|aio|native] [--device cuda|cpu]
+        [--frontend auto|threaded|aio|native] [--device cuda|cpu] [--shard]
 
 The engine runs on the card (``--device cuda``, the default) and refuses to
-start without one unless ``--device cpu`` is given. ``--frontend auto`` is
+start without one unless ``--device cpu`` is given. ``--shard`` shards the
+index across every visible device of that type once it is loaded (a mesh of
+one on a one-card machine or on the CPU; parallel/mesh.py). ``--frontend auto`` is
 the native epoll frontend; a failed native build is an error, not a switch
 to another frontend.
 """
@@ -65,7 +67,7 @@ def main(argv=None) -> None:
     )
     parser.add_argument(
         "--shard", action="store_true",
-        help="shard the index across devices (not ported yet)",
+        help="shard the index across all visible devices (mesh mode)",
     )
     parser.add_argument(
         "--frontend", choices=("auto", "threaded", "aio", "native"),
@@ -85,11 +87,11 @@ def main(argv=None) -> None:
     try:
         engine = QueryEngine.get_instance(cfg, index_dir=args.index_dir,
                                           device=args.device)
-        if args.shard:
-            engine.enable_sharding()
-    except (RuntimeError, NotImplementedError) as e:
+    except RuntimeError as e:
         parser.exit(2, f"error: {e}\n")
     engine.init_index()
+    if args.shard:
+        engine.enable_sharding()
     port = args.port or cfg.port
     frontend = "native" if args.frontend == "auto" else args.frontend
     logger.info("frontend %s on %s", frontend, engine.device)

@@ -4,8 +4,11 @@ on the CPU, the encrypted re-rank service on CUDA against the service on
 the CPU (the packed response and its threefry expansion too), the CKKS
 device program on CUDA against the CPU (K2 at the CKKS primes too), the
 PIR device program on CUDA against the CPU (K2 at its key-switch and
-database shapes too), and the scan variants of query_pipeline on CUDA
-against the CPU. Without CUDA they skip (one CPU test here checks that
+database shapes too), the scan variants of query_pipeline on CUDA
+against the CPU, and sharding on the card: the engine over meshes of
+shards of the one card byte-identical to the unsharded engine (K1 once a
+shard), the q1 MAC and the PIR answer sharded, an NCCL world of one and the
+dry run. Without CUDA they skip (one CPU test here checks that
 ``DevicePIR2`` refuses the card when CUDA is absent). On a machine with an H100 and nvcc (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -861,3 +864,158 @@ def test_server_refuses_when_cuda_is_hidden(cuda):
         capture_output=True, env=env, cwd=root, timeout=120)
     assert run.returncode == 2
     assert b"torch.cuda.is_available() is False" in run.stderr
+
+
+def _sharded_cuda_engines(cuda, k):
+    """(unsharded, k-shard) engines on the card over one index (tile 64),
+    the k shards all on ``cuda``; the queries and probes."""
+    data = make_clustered_dataset(nbase=2048, ntrain=4000, nquery=8, d=32,
+                                  n_clusters=40, gt_k=50, seed=9)
+    cfg = PipelineConfig(
+        index=IndexParams(d=32, nlist=16, pq_m=8, pq_nbits=8,
+                          kmeans_iters=8, pq_kmeans_iters=8),
+        protocol=ProtocolParams(nprobe=6, coarse_probe=40, k=10, nquery=4),
+        nbase=2048,
+    )
+    idx = build_ivf_index(data["train"], data["base"], cfg.index,
+                          device=cuda)
+    engines = []
+    for shards in (0, k):
+        e = QueryEngine(cfg, device=cuda)
+        e.serve_tile = 64
+        e.set_index(idx, data["base"])
+        if shards:
+            e.enable_sharding(devices=[cuda] * shards)
+        engines.append(e)
+    q = data["query"][:4]
+    cents = engines[0].retrieve_centroids()
+    probes = np.argsort(((q[:, None] - cents[None]) ** 2).sum(-1), axis=1,
+                        kind="stable")[:, :6]
+    return engines, q, probes
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_sharded_engine_on_cuda_matches_unsharded(cuda, monkeypatch, k):
+    """A mesh of k shards on the one card: every plaintext route of the
+    sharded engine bit-equal to the unsharded engine on the card (the f32
+    union scan multiplies a fixed number of tiles at a time, so a library
+    product at a shard's shape cannot sum otherwise); the pruned fused
+    route launches K1 once a shard."""
+    monkeypatch.setenv("PFH_SERVE_PRUNE_J", "4")
+    (plain, sharded), q, probes = _sharded_cuda_engines(cuda, k)
+    for name, args in (("coarse_search", (q, probes)),
+                       ("coarse_search_tiled", (q, probes)),
+                       ("coarse_search_topk", (q, probes, 40)),
+                       ("precise_search",
+                        (q, np.arange(160).reshape(4, 40))),
+                       ("precise_vector_pir",
+                        (np.arange(24).reshape(4, 6),))):
+        a, b = getattr(plain, name)(*args), getattr(sharded, name)(*args)
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            np.testing.assert_array_equal(x, y, err_msg=name)
+    want = plain.search_fused(q, probes, 10)
+    before = usm.union_scan_min.launches
+    got = sharded.search_fused(q, probes, 10)
+    torch.cuda.synchronize()
+    assert usm.union_scan_min.launches - before == k
+    for x, y in zip(want, got):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_sharded_encrypted_on_cuda_matches_one_device(cuda, k):
+    """The q1 MAC query-sharded over k shards of the card (K2, 6 launches a
+    shard) and the PIR answer with its database sharded (g1=8), at N=4096
+    (the smallest ring K2 takes): bit-equal to one device and to the numpy
+    twin."""
+    from prefhetch_tpu_torch.crypto.params import pir_params_for
+    from prefhetch_tpu_torch.crypto.pir import PIRClient
+    from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
+    from prefhetch_tpu_torch.parallel.mesh import make_mesh
+    from prefhetch_tpu_torch.parallel.sharded import (
+        pad_rows_for_mesh, shard_rows, sharded_trunc_mac_q1,
+    )
+
+    mesh = make_mesh(devices=[cuda] * k)
+    rng = np.random.default_rng(11)
+    base = rng.integers(0, 256, (400, 32)).astype(np.float32)
+    queries = rng.integers(0, 256, (8, 32)).astype(np.float32)
+    idx = np.stack([rng.permutation(400)[:32] for _ in range(8)])
+    hc = HEClient(HEParams(n=4096, sparse_h=48, resp_mod="q1"), seed=5)
+    svc = HEComputeService(hc.params, device=cuda)
+    svc.set_base(base)
+    ctq, pad_idx, _ = svc._prepare(
+        [svc.ctx.ct_from_wire(w) for w in hc.encrypt_query_batch(queries)],
+        idx)
+    want = svc._trunc_mac_q1_numpy(ctq[:, 0], ctq[:, 1], pad_idx)
+    before = k2.ntt4_transform.launches
+    got = sharded_trunc_mac_q1(
+        mesh, shard_rows(torch.from_numpy(pad_rows_for_mesh(
+            svc._base_host, k)).to(cuda), mesh), ctq, pad_idx, svc.params)
+    torch.cuda.synchronize()
+    assert k2.ntt4_transform.launches - before == 6 * k
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+    p = pir_params_for(4096, 257, 2)
+    pb = rng.integers(0, 256, (8192, 32)).astype(np.float32)     # g1 = 8
+    cl = PIRClient(p, seed=9)
+    dev = DevicePIR2(pb, p, device=cuda)
+    assert dev.g1 == 8
+    dev.register_galois_keys(cl.key_id, cl.galois_keys_wire_2d(8192, 32))
+    w, r = cl.build_query_2d(301, 8192, 32)
+    got = dev.answer_2d_sharded(w, cl.key_id, mesh)
+    assert got == dev.answer_2d(w, cl.key_id)
+    np.testing.assert_array_equal(cl.decode_response_2d(got, 32, r),
+                                  pb[301].astype(np.int64))
+
+
+def test_init_multihost_nccl_world_of_one(cuda):
+    """NCCL refuses two ranks on one GPU: the card runs a world of one. Its
+    mesh's collectives go through NCCL; shard_index_multihost holds the
+    shards shard_index does; a sharded re-rank through the world equals the
+    unsharded one."""
+    import socket
+
+    import torch.distributed as dist
+
+    from prefhetch_tpu_torch.ops.rerank import exact_rerank
+    from prefhetch_tpu_torch.parallel.multihost import (
+        init_multihost, shard_array_global, shard_index_multihost,
+        shutdown_multihost,
+    )
+    from prefhetch_tpu_torch.parallel.sharded import (
+        shard_index, sharded_rerank,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    mesh = init_multihost(f"127.0.0.1:{port}", 1, 0, local_device_ids=[0])
+    try:
+        assert dist.get_backend() == "nccl" and mesh.ndev == 1
+        data = make_clustered_dataset(nbase=2048, ntrain=4000, nquery=8,
+                                      d=32, n_clusters=40, gt_k=50, seed=9)
+        idx = build_ivf_index(
+            data["train"], data["base"],
+            IndexParams(d=32, nlist=16, pq_m=8, kmeans_iters=4,
+                        pq_kmeans_iters=4), device=cuda)
+        a, b = shard_index_multihost(idx, mesh), shard_index(idx, mesh)
+        for sa, sb in zip(a.shards, b.shards):
+            assert torch.equal(sa.list_ids, sb.list_ids)
+        q = torch.from_numpy(data["query"]).to(cuda)
+        cand = torch.arange(320, device=cuda).reshape(8, 40)
+        got = sharded_rerank(mesh, shard_array_global(data["base"], mesh), q,
+                             cand)
+        want = exact_rerank(torch.from_numpy(data["base"]).to(cuda), q, cand)
+        assert torch.equal(got, want)
+    finally:
+        shutdown_multihost()
+
+
+def test_dryrun_multichip_on_cuda(cuda):
+    from prefhetch_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    out = dryrun_multichip(4, device=cuda)
+    assert out["ok"] and out["k1_pruned_scan"] == 4
+    assert out["k2_q1_mac"] == 24

@@ -406,11 +406,26 @@ def test_device_refuses_unusable_keys(setup, bad):
     assert not dev.has_keys("bad-" + bad)
 
 
-def test_device_sharded_raises(setup):
-    _, _, client, dev, _ = setup
-    w, _ = client.build_query_2d(1, NBASE, D)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        dev.answer_2d_sharded(w, "single", None)
+@pytest.mark.parametrize("k", [1, 7])
+def test_device_answer_2d_sharded_matches_answer_2d(setup, monkeypatch, k):
+    """The database sharded over the dim-1 fold (g1=7 rows; meshes of 1
+    and 7 CPU shards): the answer equals answer_2d, with as many K2
+    transforms, and decodes to its row; a mesh of 2 is refused with the JAX
+    package's text."""
+    from prefhetch_tpu_torch.parallel.mesh import make_mesh
+
+    _, base, client, dev, _ = setup
+    dev.register_galois_keys("single", client.galois_keys_wire_2d(NBASE, D))
+    w, r = client.build_query_2d(200, NBASE, D)
+    want = dev.answer_2d(w, "single")
+    calls = _count_transforms(monkeypatch)
+    got = dev.answer_2d_sharded(w, "single", make_mesh(devices=["cpu"] * k))
+    assert calls[0] == 6 * 4 + 4 * 2
+    assert got == want
+    np.testing.assert_array_equal(client.decode_response_2d(got, D, r),
+                                  base[200])
+    with pytest.raises(ValueError, match="g1=7 not divisible by 2 devices"):
+        dev.answer_2d_sharded(w, "single", make_mesh(devices=["cpu"] * 2))
 
 
 def test_device_answer_at_served_ring():

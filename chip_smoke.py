@@ -9,8 +9,9 @@ reporting on lines of its own; any failure exits non-zero:
 
 1. card     — the card's name and power limit (nvidia-smi) and torch's name;
 2. build    — compiles every kernel of the port from csrc/ with nvcc (and
-              the host C++ libraries of the HTTP phase, native/*.cpp, with
-              g++ beside them), and
+              the host C++ libraries, native/*.cpp: the host NTT and vecs
+              reader, the JSON codec and the epoll frontend, with g++
+              beside them), and
               checks that K1's and K2's machine code multiply on the tensor
               cores (HMMA or HGMMA for K1's bf16, IMMA for K2's int8 digit
               products, in cuobjdump -sass);
@@ -35,6 +36,14 @@ reporting on lines of its own; any failure exits non-zero:
               equality, forward and inverse, N=4096 (64x64) and N=8192
               (64x128), B in {1, 33, 512}, canonical, lazy, all-(q-1) and
               near-2^31 inputs, int32 and int64;
+   native   — the host NTT (native/host_lib.cpp, under every host
+              transform) bit-equal to the numpy butterfly at every prime of
+              the HEParams defaults and PIR (N=4096) and config 3 (N=8192),
+              forward and inverse, canonical, negative and >= q inputs; the
+              vecs reader bit-equal to numpy on a generated fvecs and ivecs
+              file; host-clock times of the butterfly and the native
+              transform at [1, 4096], [128, 4096] and [2048, 8192], and of
+              the library with its negative-input lift taken out, in turns;
 4. main     — the SIFT1M operating point (1M x 128 base, 100K train,
               IVF1024 + PQ32x8 with a bf16 reconstruction payload,
               nprobe=16, COARSE_PROBE=256, K=100): synthetic SIFT-style data
@@ -56,6 +65,17 @@ reporting on lines of its own; any failure exits non-zero:
               launch counts are read around the requests only; decrypted
               distances must equal the plaintext precise_search scores
               exactly; recall as above; then where one request's time goes;
+   scores   — BFV whole-ciphertext per-block scores on the same service,
+              the first batch's 64 queries and 256 candidates: the client
+              encrypts, HEComputeService.encrypted_scores_batch runs on the
+              card (one K2 launch a limb over the 512 (query, block) rows),
+              HEClient.decrypt_scores_batch decrypts; distances equal
+              precise_search exactly, the result ciphertexts bit-equal to
+              _mac_numpy on every query, one query's encrypted_scores its
+              row of the batch (8 blocks, 2 launches); K2 against its plain
+              version at [512, 4096] and [8, 4096]; the stages (pack,
+              upload, device program, download) and the client's on the
+              host clock;
    packed   — the packed BFV response (respMod "packed", seedTf queries:
               the c1 mask regenerated on the card) on the same candidates:
               HEClient(resp_mod="packed"), K2 against its plain version at
@@ -173,7 +193,10 @@ reporting on lines of its own; any failure exits non-zero:
               refused; K2 against its plain version at every shape those
               launched; init_multihost as an NCCL world of one; the dry run
               dryrun_multichip(4) on cuda:0; times with their clock beside
-              them;
+              them; then the host stages that run host NTTs (ct_from_wire,
+              the CKKS first request and client encryption, the PIR
+              client's decoding), as the phases above timed them on the
+              native transform, each beside its figure on the butterfly;
 7. result   — the last line, {"ok": true, "device": {...}}.
 
 Without CUDA, or without the port beside it, it exits non-zero and prints no
@@ -216,6 +239,16 @@ CKKS_MAX_REL = 0.01             # bench.py's ckks_max_rel_err, config 3
 # key or rotation errs by the order of the inner products (~1e6).
 CKKS_COMBINED_MAX_ABS = 2.0 ** 17
 Q1_SPARSE_H = 32                # sparse secret for the "q1" response wire
+# host stages that run host NTTs, re-timed by the phases on the native
+# transform, beside their figures on the numpy butterfly (PERF.md § 5,
+# earlier runs of this script, NVIDIA H100 80GB HBM3, 700.00 W)
+BUTTERFLY_FIGURES = {
+    "ct_from_wire in a 64-query full request": "136.6 ms",
+    "CKKS first combined request with its keys": "1,011.7 ms",
+    "CKKS client encrypting 64 queries": "1.4-1.7 s",
+    "PIR client decoding 100 rows": "2,092 ms",
+}
+HOST_STAGES: dict = {}
 
 
 def log(phase: str, msg: str) -> None:
@@ -478,12 +511,13 @@ def phase_ntt() -> None:
                     check_transform(f"ntt4 {tag}", xc, tb, False)
                     check_transform(f"intt4 {tag}", xc, tb, True)
                 fwd = n4.ntt4(xc, tb)
-                host = hostntt.ntt(x % q, host_tb)
+                host = hostntt.ntt_plain(x % q, host_tb)
                 if not np.array_equal(fwd.cpu().numpy(), host[:, perm]):
                     raise AssertionError(f"ntt4 n={n} B={bsz} {kind}: differs "
                                          f"from the host butterfly NTT")
                 inv = n4.intt4(xc, tb)
-                host_inv = hostntt.intt((x % q)[:, inv_perm], host_tb)
+                host_inv = hostntt.intt_plain((x % q)[:, inv_perm],
+                                              host_tb)
                 if not np.array_equal(inv.cpu().numpy(), host_inv):
                     raise AssertionError(f"intt4 n={n} B={bsz} {kind}: "
                                          f"differs from the host butterfly")
@@ -495,6 +529,166 @@ def phase_ntt() -> None:
             f"butterfly, forward and inverse, B in (1, 33, 512), canonical, "
             f"lazy, all-(q-1) and near-2^31 inputs, int32 and int64: ok "
             f"(max |err| 0)")
+
+
+def host_ntt_primes() -> dict:
+    """{N: primes} of the parameter sets whose host transforms the served
+    paths and clients run: the HEParams defaults (BFV N=4096, 2 limbs, the
+    packed key switch's special prime) and PIR at N=4096, config 3 (CKKS
+    N=8192, 3 limbs and its special prime) at N=8192."""
+    from prefhetch_tpu_torch.crypto.bfv import BFVContext
+    from prefhetch_tpu_torch.crypto.params import (
+        bfv_params_for, find_ntt_primes, pir_params_for,
+    )
+
+    p4 = set()
+    for p in (bfv_params_for(4096, 24, 2), pir_params_for(4096, 257, 2)):
+        p4 |= set(p.qs) | {BFVContext(p)._special_p}
+    return {4096: sorted(p4), 8192: find_ntt_primes(8192, 30, 4)}
+
+
+def host_ms(fn, reps: int) -> float:
+    """Least host-clock ms of ``reps`` calls of fn()."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def build_host_lib_without_lift(work: str):
+    """The host library rebuilt with the negative-input lift taken out
+    (every value read as its uint64 bit pattern, as the JAX package's copy
+    reads it), bound for pfh_ntt_batch: what the lift costs on canonical
+    input, where both give the same transform."""
+    import ctypes
+
+    from prefhetch_tpu_torch import native
+
+    src = (native.SRC / f"{native.HOST}.cpp").read_text()
+    body = "return (uint64_t)v + (v < 0 ? up : 0);"
+    if src.count(body) != 1:
+        raise AssertionError("host_lib.cpp: the lift to take out is not "
+                             "where the smoke expects it")
+    path = os.path.join(work, "host_lib_nolift.cpp")
+    with open(path, "w") as f:
+        f.write(src.replace(body, "(void)up; return (uint64_t)v;"))
+    so = os.path.join(work, "libhost_lib_nolift.so")
+    subprocess.run(["g++", *native.CXX_FLAGS, path, "-o", so], check=True,
+                   capture_output=True, timeout=300)
+    lib = ctypes.CDLL(so)
+    native._bind_host(lib)
+    return lib
+
+
+def phase_native(smi: str) -> None:
+    """The port's host C++ library (native/host_lib.cpp): the Shoup NTT
+    bit-equal to the numpy butterfly at every prime of the served parameter
+    sets, N=4096 and 8192, forward and inverse, on canonical, negative and
+    >= q inputs; the vecs reader bit-equal to numpy on a generated file;
+    host-clock times of the butterfly and the native transform at the
+    shapes the paths run, and of the lift of negative inputs against the
+    same library without it."""
+    import numpy as np
+
+    from prefhetch_tpu_torch import native
+    from prefhetch_tpu_torch.crypto import ntt as hostntt
+    from prefhetch_tpu_torch.data.io import (
+        read_fvecs, read_ivecs, write_fvecs, write_ivecs,
+    )
+
+    n_checked = 0
+    for n, primes in host_ntt_primes().items():
+        for q in primes:
+            tb = hostntt.build_tables(q, n)
+            rng = np.random.default_rng(q % 1009)
+            for kind, x in (
+                    ("canonical", rng.integers(0, q, (16, n))),
+                    ("negative", rng.integers(-4 * q, 0, (16, n))),
+                    (">= q", rng.integers(q, 8 * q, (16, n)))):
+                for inverse in (False, True):
+                    got = (hostntt.intt if inverse else hostntt.ntt)(x, tb)
+                    want = (hostntt.intt_plain if inverse
+                            else hostntt.ntt_plain)(x, tb)
+                    if not np.array_equal(got, want):
+                        raise AssertionError(
+                            f"native {'inverse' if inverse else 'forward'} "
+                            f"NTT N={n} q={q} {kind}: differs from the "
+                            f"butterfly")
+                    n_checked += 1
+        log("native", f"N={n}, primes {primes}: native NTT = butterfly, "
+            f"forward and inverse, canonical, negative and >= q inputs "
+            f"(16 rows each): ok (bit-equal)")
+
+    work = os.path.join(ROOT, "prefhetch_tpu_torch", "build", "smoke_native")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        rng = np.random.default_rng(12)
+        xf = rng.integers(0, 256, (100_000, 128)).astype(np.float32)
+        xi = rng.integers(0, 1_000_000, (10_000, 100)).astype(np.int32)
+        pf, pi = os.path.join(work, "x.fvecs"), os.path.join(work, "x.ivecs")
+        write_fvecs(pf, xf)
+        write_ivecs(pi, xi)
+        for path, arr, read, dt in ((pf, xf, read_fvecs, np.float32),
+                                    (pi, xi, read_ivecs, np.int32)):
+            rows = np.fromfile(path, "<i4").reshape(arr.shape[0], -1)
+            want = rows[:, 1:].copy().view(dt)
+            got = read(path)
+            if not (np.array_equal(got, want) and np.array_equal(got, arr)
+                    and got.dtype == dt):
+                raise AssertionError(f"{path}: the native reader differs "
+                                     f"from numpy")
+        t_nat = host_ms(lambda: read_fvecs(pf), 3)
+        t_np = host_ms(lambda: np.fromfile(pf, "<i4").reshape(
+            100_000, 129)[:, 1:].copy().view(np.float32), 3)
+        log("native", f"vecs reader: fvecs [100,000, 128] and ivecs "
+            f"[10,000, 100] bit-equal to numpy; fvecs read {t_nat:.2f} ms "
+            f"native, {t_np:.2f} ms numpy (host clock, least of 3)")
+
+        nolift = build_host_lib_without_lift(work)
+        q4, q8 = host_ntt_primes()[4096][0], host_ntt_primes()[8192][0]
+        for rows_n, n, q in ((1, 4096, q4), (NQ_BATCH * 2, 4096, q4),
+                             (2048, 8192, q8)):
+            tb = hostntt.build_tables(q, n)
+            x = np.random.default_rng(rows_n).integers(0, q, (rows_n, n))
+            fn = hostntt._native(tb, False)
+            plain_reps = 1 if rows_n * n > 1 << 22 else 3
+            t_plain = host_ms(lambda: hostntt.ntt_plain(x, tb), plain_reps)
+            t_nat = host_ms(lambda: hostntt.ntt(x, tb), 5)
+            t_inv = host_ms(lambda: hostntt.intt(x, tb), 5)
+            t_inv_plain = host_ms(lambda: hostntt.intt_plain(x, tb),
+                                  plain_reps)
+
+            def without_lift():
+                out = np.array(x, np.int64)
+                nolift.pfh_ntt_batch(
+                    native._ptr(out), rows_n, n, q, native._ptr(fn.psi),
+                    native._ptr(fn.psi_sh), native._ptr(fn.tw),
+                    native._ptr(fn.tw_sh), native._ptr(fn.bitrev), 1,
+                    fn.n_threads)
+                return out
+
+            if not np.array_equal(without_lift(), hostntt.ntt(x, tb)):
+                raise AssertionError("the library without the lift differs "
+                                     "on canonical input")
+            # in turns: with, without, without, with
+            t_l1 = host_ms(lambda: hostntt.ntt(x, tb), 5)
+            t_n1 = host_ms(without_lift, 5)
+            t_n2 = host_ms(without_lift, 5)
+            t_l2 = host_ms(lambda: hostntt.ntt(x, tb), 5)
+            log("native", f"{smi}, host clock (the host NTT is host work): "
+                f"[{rows_n}, {n}] q={q}: forward butterfly {t_plain:.3f} "
+                f"ms, native {t_nat:.3f} ms ({t_plain / t_nat:.1f}x); inverse "
+                f"butterfly {t_inv_plain:.3f} ms, native {t_inv:.3f} ms "
+                f"({t_inv_plain / t_inv:.1f}x); the lift of negative "
+                f"inputs: with {t_l1:.3f} / {t_l2:.3f} ms, without "
+                f"{t_n1:.3f} / {t_n2:.3f} ms ({fn.n_threads} threads, least "
+                f"of 5 each)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("native", f"{n_checked} transforms checked")
 
 
 def check_k2_at_request_shape(svc, ctq, idx) -> int:
@@ -628,6 +822,9 @@ def encrypted_breakdown(disp, client, queries, cand, mode) -> dict:
         raise AssertionError(f"stages recorded: {list(times)}, expected "
                              f"{expected}")
     total = sum(times.values())
+    if mode == "full":
+        HOST_STAGES["ct_from_wire in a 64-query full request"] = \
+            f"{times['ct_from_wire (c1 expansion + host NTT)']:.1f} ms"
     tag = "ckks" if mode == "combined" else "encrypted"
     log(tag, f"one {len(queries)}-query request, respMod={mode}, "
         f"stage by stage on the served path: wall {wall:.1f} ms, stages "
@@ -689,7 +886,7 @@ def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
     c1_4, c0_4 = svc._trunc_mac_numpy(ctq0[:4, 0], ctq0[:4, 1], idx0[:4])
     if not np.array_equal(got4, np.concatenate([c1_4, c0_4], axis=-1)):
         raise AssertionError("the device program differs from its numpy twin")
-    log("encrypted", "device program = numpy twin (butterfly NTT) on 4 "
+    log("encrypted", "device program = numpy twin (host NTT) on 4 "
         "queries x 8 blocks: ok (bit-equal)")
     del ctq0_d, idx0_d
 
@@ -762,6 +959,126 @@ def phase_encrypted(engine, disp, data, queries, probes, reset_counts):
         f"one warm /encryptedsearch request (full, {NQ_BATCH} queries)",
         lambda: disp.handle("POST", "/encryptedsearch", {}, raw))
     return enc_launches, per_request, k2_err, cands, rep_e
+
+
+def phase_scores(engine, data, queries, cands, reset_counts, smi) -> tuple:
+    """BFV whole-ciphertext per-block scores on the engine's HE service
+    (HEParams defaults: N=4096, 2 limbs, t=2^24), the encrypted phase's
+    first 64 queries and their 256 coarse-round candidates: the client
+    encrypts, ``encrypted_scores_batch`` runs on the card (one K2 launch a
+    limb over all 512 (query, block) rows), the client decrypts with
+    ``decrypt_scores_batch``; distances equal precise_search exactly, the
+    ciphertexts bit-equal to ``_mac_numpy``; one query's
+    ``encrypted_scores`` is its row of the batch. K2 against its plain
+    version at the rows it was launched on, after the counts are read.
+    Returns (K2 launches, {"scores batch": [n], "scores single": [n]}, K2's
+    max |err|)."""
+    import numpy as np
+
+    from prefhetch_tpu_torch.client.he import HEClient
+    from prefhetch_tpu_torch.crypto.packing import pack_candidates
+    from prefhetch_tpu_torch.ops import ntt4_fused as k2
+    from prefhetch_tpu_torch.ops import ntt4_step as k2s
+    from prefhetch_tpu_torch.utils.stages import record_stages
+
+    cfg = engine.config
+    svc = engine.he_service
+    L = len(svc.params.qs)
+    client = HEClient(cfg.he)
+    q = queries[:NQ_BATCH]
+    cand = cands[0]
+    vecs = data["base"][cand]                         # [64, 256, 128] f32
+    t0 = time.perf_counter()
+    wires = client.encrypt_query_batch(q)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cts = [svc.ctx.ct_from_wire(w) for w in wires]
+    ct_ms = (time.perf_counter() - t0) * 1e3
+    svc.encrypted_scores_batch(cts[:2], vecs[:2])      # warm
+
+    reset_counts()
+    with recording_k2(keep_inputs=True) as seen, record_stages() as times:
+        t0 = time.perf_counter()
+        blocks, norms = svc.encrypted_scores_batch(cts, vecs)
+        wall = (time.perf_counter() - t0) * 1e3
+    batch_launches = k2.ntt4_transform.launches
+    with recording_k2(keep_inputs=True) as seen1:
+        one, norms1 = svc.encrypted_scores(cts[5], vecs[5])
+    single_launches = k2.ntt4_transform.launches - batch_launches
+    plain_calls = k2s.ntt4_step_plain.calls
+    nb = len(blocks[0])
+    shapes = [(r, str(dt)[6:], "inverse" if inv else "forward")
+              for r, dt, inv, _, _ in seen]
+    log("scores", f"encrypted_scores_batch: {NQ_BATCH} queries x "
+        f"{cand.shape[1]} candidates -> {NQ_BATCH} x {nb} result cts; K2 "
+        f"launches {batch_launches} (expected {L}), shapes {shapes}"
+        f"; one query's encrypted_scores {single_launches} (expected {L}) at "
+        f"{[r for r, *_ in seen1]} rows; plain-version calls {plain_calls}")
+    if batch_launches != L or single_launches != L or plain_calls != 0:
+        raise AssertionError("whole-ciphertext scores: K2 launches "
+                             f"{batch_launches}, {single_launches}, plain "
+                             f"calls {plain_calls}")
+    if [r for r, *_ in seen] != [NQ_BATCH * nb] * L or \
+            [r for r, *_ in seen1] != [nb] * L:
+        raise AssertionError("K2 ran at other shapes than one forward "
+                             "transform a limb over every (query, block)")
+
+    # the client's decryption: exact distances
+    t0 = time.perf_counter()
+    out_wires = [[ct.to_wire() for ct in per_q] for per_q in blocks]
+    wire_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    dists = client.decrypt_scores_batch(out_wires, norms, q)
+    dec_ms = (time.perf_counter() - t0) * 1e3
+    plain = engine.precise_search(q, cand)
+    err = float(np.abs(dists - plain).max())
+    if not np.array_equal(dists, plain):
+        raise AssertionError(f"whole-ciphertext scores decrypt to other "
+                             f"distances than precise_search (max |err| "
+                             f"{err})")
+    # the numpy twin on every query, and the single query's row
+    t0 = time.perf_counter()
+    for qi in range(NQ_BATCH):
+        polys, _ = pack_candidates(vecs[qi], svc.params)
+        o0, o1 = svc._mac_numpy(cts[qi].c0, cts[qi].c1, polys)
+        for b, ct in enumerate(blocks[qi]):
+            if not (ct.is_ntt and np.array_equal(ct.c0, o0[b])
+                    and np.array_equal(ct.c1, o1[b])):
+                raise AssertionError(f"query {qi} block {b}: the device "
+                                     f"program differs from _mac_numpy")
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    if len(one) != nb or not np.array_equal(norms1, norms[5]) or not all(
+            a.c0.shape == (L, svc.params.n) and np.array_equal(a.c0, b.c0)
+            and np.array_equal(a.c1, b.c1) for a, b in zip(one, blocks[5])):
+        raise AssertionError("one query's encrypted_scores is not its row "
+                             "of the batch")
+    log("scores", f"decrypt_scores_batch = precise_search on {NQ_BATCH} x "
+        f"{cand.shape[1]}: max |err| {err}; result cts = _mac_numpy on "
+        f"every query ({twin_ms:.0f} ms of host twin): ok (bit-equal); one "
+        f"query's encrypted_scores [{len(one)} cts of {list(one[0].c0.shape)}]"
+        f" = its row of the batch: ok")
+
+    # K2 against its plain version at the rows it ran on (not counted)
+    k2_err = 0
+    for tag, rec in (("batch", seen), ("single", seen1)):
+        for r, _, inverse, tb, x in rec:
+            k2_err = max(k2_err, check_transform(
+                f"scores {tag} [{r}, {tb.n}]", x, tb, inverse))
+    log("kernel", f"ntt4_transform at the whole-ciphertext MAC's rows "
+        f"[{NQ_BATCH * nb}, {svc.params.n}] and [{nb}, {svc.params.n}] "
+        f"int32, {L} primes: = plain version (max |err| {k2_err})")
+
+    stage_line = ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+    b64 = sum(len(w["c0"]) + len(w["c1"]) for pq in out_wires for w in pq)
+    log("scores", f"{smi}: one batch, host clock around "
+        f"encrypted_scores_batch with the device synchronised at each "
+        f"stage's end: {stage_line}; wall {wall:.3f} ms. Client (host "
+        f"clock): encrypt {enc_ms:.1f} ms, ct_from_wire {ct_ms:.1f} ms, "
+        f"to_wire {wire_ms:.1f} ms, decrypt_scores_batch {dec_ms:.1f} ms "
+        f"({NQ_BATCH * nb} cts, {b64 / 1e6:.2f} MB of base64)")
+    return (batch_launches + single_launches,
+            {"scores batch": [batch_launches],
+             "scores single": [single_launches]}, k2_err)
 
 
 def check_k2_packed(svc, nq: int, nb: int, n_out: int) -> int:
@@ -898,7 +1215,7 @@ def phase_packed(engine, disp, data, queries, cands, rep_full, reset_counts):
     if got.shape != twin.shape or not np.array_equal(got, twin):
         raise AssertionError("the packed device program differs from its "
                              "numpy twin")
-    log("packed", f"device program (seedTf entry) = numpy twin (butterfly "
+    log("packed", f"device program (seedTf entry) = numpy twin (host "
         f"NTT, host key switch; {(time.perf_counter() - t0):.1f} s) on "
         f"{g0} queries x {nb} blocks: ok (bit-equal, c0 and c1)")
 
@@ -1207,7 +1524,7 @@ def phase_ckks(engine, disp, data, queries, cands, reset_counts, smi):
 
     # the main path: N_BATCHES combined requests, then one per-block one
     reset_counts()
-    per_request, rows, ids = [], [], []
+    per_request, rows, ids, enc_all = [], [], [], []
     err, err_abs = 0.0, 0.0
     for b in range(N_BATCHES):
         sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
@@ -1220,10 +1537,16 @@ def phase_ckks(engine, disp, data, queries, cands, reset_counts, smi):
         err, err_abs = max(err, rel), max(err_abs, abs_)
         order = np.argsort(dists, axis=1, kind="stable")[:, :k]
         ids.append(np.take_along_axis(cands[b], order, axis=1))
+        if b == 0:
+            HOST_STAGES["CKKS first combined request with its keys"] = \
+                f"{req:.1f} ms"
+        enc_all.append(enc_t)
         rows.append(f"{req:.1f} ms (request {up / 1e6:.2f} MB"
                     f"{' with the Galois keys' if b == 0 else ''}, response "
                     f"{down / 1e6:.3f} MB, {n_cts} cts; client encrypt "
                     f"{enc_t:.0f} ms, decrypt {dec_t:.0f} ms)")
+    HOST_STAGES["CKKS client encrypting 64 queries"] = \
+        f"{min(enc_all):.0f}-{max(enc_all):.0f} ms"
     pb_client = HEClient(dataclasses.replace(he, resp_mod="full"))
     pb_gks = pb_client.galois_keys_wire(D)
     nq_pb = 8
@@ -1631,6 +1954,7 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     for resp in res[:k]:
         mclient.decode_response_2d(resp, d, 0)
     dec_ms = (time.perf_counter() - t0) * 1e3
+    HOST_STAGES[f"PIR client decoding {k} rows"] = f"{dec_ms:.0f} ms"
     log("pir", f"client (host) for that fetch: {n_cts} multi-row queries "
         f"{enc_ms:.0f} ms, decoding {k} rows {dec_ms:.0f} ms")
 
@@ -3411,17 +3735,18 @@ def main() -> int:
                "tile_schedule"]
     for name in kernels:                  # always compile from the sources
         cuda_build.library_path(name).unlink(missing_ok=True)
-    # the host C++ libraries of the HTTP phase, built beside nvcc
-    for name in (native.CODEC, native.HTTP):
+    # the host C++ libraries (host NTT and vecs reader, JSON codec, epoll
+    # frontend), built beside nvcc
+    host_names = (native.HOST, native.CODEC, native.HTTP)
+    for name in host_names:
         native.library_path(name).unlink(missing_ok=True)
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(len(host_names)) as pool:
         t0 = time.perf_counter()
-        host_libs = [pool.submit(native.build, n)
-                     for n in (native.CODEC, native.HTTP)]
+        host_libs = [pool.submit(native.build, n) for n in host_names]
         built = cuda_build.build(kernels)
         for f in host_libs:
             f.result()
-        log("build", f"host libraries {native.CODEC}, {native.HTTP} (g++): "
+        log("build", f"host libraries {', '.join(host_names)} (g++): "
             f"{time.perf_counter() - t0:.2f} s with nvcc beside them")
     for name, info in built.items():
         ptxas = [ln.strip() for ln in info["log"].splitlines()
@@ -3436,6 +3761,7 @@ def main() -> int:
     phase_edges()
     phase_variant_edges()
     phase_ntt()
+    phase_native(smi)
 
     # -- 4. main path at the SIFT1M preset ----------------------------------
     t0 = time.perf_counter()
@@ -3571,6 +3897,10 @@ def main() -> int:
     # -- 4b. the encrypted re-rank at the same operating point ---------------
     enc_launches, k2_per_request, k2_err, cands, rep_e = phase_encrypted(
         engine, disp, data, queries, probes, reset_counts)
+    scores_launches, scores_per_call, k2_err_s = phase_scores(
+        engine, data, queries, cands, reset_counts, smi)
+    k2_per_request.update(scores_per_call)
+    k2_err = max(k2_err, k2_err_s)
     packed_launches, k2_per_request["packed"], k2_err_p = phase_packed(
         engine, disp, data, queries, cands, rep_e, reset_counts)
     ckks_launches, ckks_per_request, k2_err_c = phase_ckks(
@@ -3628,6 +3958,8 @@ def main() -> int:
     # the CKKS key switch's largest transform: [2048, 8192] on the special
     # prime (512 block rows x 4 digit components, pre-combine)
     k2_ckks = time_ntt4_transform(engine.ckks_service._tables[-1], 2048)
+    # one query's whole-ciphertext scores: its 8 blocks a limb
+    k2_scores1 = time_ntt4_transform(svc._tables[0], nbatch // NQ_BATCH)
     profile_search(disp, queries, probes, k)
     phase_ablation(hold.pop("sq8"), hold.pop("slab"), svc._tables[0], nbatch)
 
@@ -3635,6 +3967,10 @@ def main() -> int:
     shard = phase_shard(engine, disp, data, queries, probes,
                         np.concatenate(ids_all), cands, reset_counts, smi)
     k2_err = max(k2_err, shard["k2_err"])
+    for name, was in BUTTERFLY_FIGURES.items():
+        log("native", f"{smi}: re-timed on the native host NTT (host "
+            f"clock): {name} {HOST_STAGES.get(name, 'not measured')}; on "
+            f"the butterfly {was}")
     log("done", f"wall {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -3668,11 +4004,14 @@ def main() -> int:
         "route": "cuda",
         "source": "prefhetch_tpu_torch/csrc/ntt4_step.cu",
         "replaces": "prefhetch_tpu/ops/ntt_pallas.py:246",
-        "launches": (enc_launches["ntt4_transform"] + packed_launches
-                     + ckks_launches + pir_launches),
+        "launches": (enc_launches["ntt4_transform"] + scores_launches
+                     + packed_launches + ckks_launches + pir_launches),
         "launches_per_request": k2_per_request,
         "path": f"POST /encryptedsearch x{N_BATCHES} "
-                f"({N_BATCHES - 1} full, 1 q1) + x{N_BATCHES} packed "
+                f"({N_BATCHES - 1} full, 1 q1) + encrypted_scores_batch "
+                f"({NQ_BATCH} x {cfg.protocol.coarse_probe}) and "
+                f"encrypted_scores (1 x {cfg.protocol.coarse_probe}) + "
+                f"x{N_BATCHES} packed "
                 f"(seedTf) + x{N_BATCHES} ckks combined (seedTf) + 1 ckks "
                 f"per-block + {pir_path}",
         "max_abs_err": k2_err,
@@ -3683,6 +4022,10 @@ def main() -> int:
         "at_ckks_key_switch_shape": {
             "shape": [2048, 8192], **k2_ckks},
         "at_pir_key_switch_shape": k2_pir,
+        "at_scores_single_shape": {
+            "shape": [nbatch // NQ_BATCH, svc.params.n],
+            **{key: k2_scores1["forward"][key] for key in
+               ("ms", "ms_events", "plain_ms", "bound_ms", "bound_by")}},
         "library_ms": None,
         "per": "transform (one launch)",
         "launches_http_per_request": http["k2_per_request"],

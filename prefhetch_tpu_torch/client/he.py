@@ -291,11 +291,22 @@ class HEClient:
         norms: np.ndarray,                            # [nq, P]
         queries: np.ndarray,                          # [nq, d]
     ) -> np.ndarray:
-        """Decrypt the CKKS per-block response, one query at a time →
-        approximate squared-L2 distances [nq, P]."""
-        return np.stack([
-            self.decrypt_scores(w, norms[i], queries[i])
-            for i, w in enumerate(score_ct_wires_per_query)])
+        """Decrypt every query's per-block result ciphertexts → squared-L2
+        distances [nq, P]: BFV exactly, in one batched decryption over all
+        queries' blocks (HEComputeService.encrypted_scores_batch); CKKS
+        approximately, one query at a time."""
+        if self.scheme != "bfv":
+            return np.stack([
+                self.decrypt_scores(w, norms[i], queries[i])
+                for i, w in enumerate(score_ct_wires_per_query)])
+        nq = len(score_ct_wires_per_query)
+        d = queries.shape[1]
+        cts = [Ciphertext.from_wire(w)
+               for per_q in score_ct_wires_per_query for w in per_q]
+        prods = self.ctx.decrypt_batch(self.sk, cts)      # [nq·nb, N]
+        # candidate j of a block at coefficient j·d + d − 1
+        ips = prods[:, d - 1::d].reshape(nq, -1)
+        return self._distances(ips, np.asarray(norms), queries)
 
     def decrypt_scores(
         self,
@@ -303,14 +314,12 @@ class HEClient:
         norms: np.ndarray,              # [P] candidate squared norms
         q: np.ndarray,                  # [d] the plaintext query (local)
     ) -> np.ndarray:
-        """Decrypt one query's CKKS Enc(⟨q,x⟩) blocks (slot j·d of block b
-        holds candidate b·per_ct + j) → squared-L2 distances [P]. The BFV
-        form of whole result ciphertexts is served by neither package's
-        routes and is not ported."""
-        if self.scheme != "ckks":
-            raise NotImplementedError(
-                "whole BFV result ciphertexts are not ported; BFV responses "
-                "decrypt with decrypt_scores_trunc(_q1) / _packed")
+        """Decrypt one query's Enc(⟨q,x⟩) blocks → squared-L2 distances
+        [P]: BFV exactly (``decrypt_scores_batch`` of one query); CKKS
+        approximately (slot j·d of block b holds candidate b·per_ct + j)."""
+        if self.scheme == "bfv":
+            return self.decrypt_scores_batch(
+                [score_ct_wires], np.asarray(norms)[None], q[None])[0]
         d = q.shape[0]
         P = norms.shape[0]
         per_ct = (self.params.n // 2) // d

@@ -1,14 +1,23 @@
 """Negacyclic number-theoretic transform over Z_q[X]/(X^N+1), on the host.
 
-The port of prefhetch_tpu/crypto/ntt.py, numpy only: the butterfly network
-the client party uses (keygen, encrypt, decrypt) and the exact oracle for the
-device's four-step transform (ops/ntt4.py, kernel K2). The JAX module also
-traces this code under jit and can route through its native C++ library;
-the port keeps neither: the device path is ops/ntt4.py.
+The port of prefhetch_tpu/crypto/ntt.py. ``ntt`` and ``intt`` are every
+host transform of the port (the clients' keygen, encrypt and decrypt, the
+server's ``ct_from_wire``, key tables, the host twins): each runs the C++
+Shoup transform of native/host_lib.cpp (``native.NativeNTT``, one per
+prime, size and direction, made once and shared by every thread). It takes
+any int64 value as its residue mod q and returns canonical int64 in the
+input's shape, natural order. A failed build of the library raises; there
+is no switch back to numpy. The JAX module also traces this code under jit;
+the port's device transform is ops/ntt4.py (kernel K2).
+
+``ntt_plain`` and ``intt_plain`` keep the numpy butterfly as the oracle
+the native transform and K2 are held against:
 
 - One precomputed bit-reversal permutation up front, then log2(N) stages of
   reshapes + elementwise modular arithmetic over the whole [batch, N] array.
-- Modular products run in int64 (operands < 2^31 ⇒ products < 2^62).
+- Modular products run in int64 (operands < 2^31 ⇒ products < 2^62; an
+  input beyond ±2^32 overflows the first product, where the native
+  transform stays exact).
 - The negacyclic twist (multiply by ψ^i / ψ^{-i}) is folded around a standard
   cyclic NTT with ω = ψ². Output is in natural order.
 """
@@ -16,10 +25,12 @@ the port keeps neither: the device path is ops/ntt4.py.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+import threading
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 
+from prefhetch_tpu_torch import native
 from prefhetch_tpu_torch.crypto.params import root_of_unity
 
 
@@ -90,17 +101,51 @@ def _cyclic_ntt_core(x: np.ndarray, tables: NTTTables, inverse: bool):
     return x
 
 
-def ntt(x: np.ndarray, tables: NTTTables) -> np.ndarray:
-    """Forward negacyclic NTT along the last axis (residues in [0, q))."""
+def ntt_plain(x: np.ndarray, tables: NTTTables) -> np.ndarray:
+    """Forward negacyclic NTT along the last axis, numpy butterfly."""
     x = np.asarray(x, np.int64)
     return _cyclic_ntt_core(x * tables.psi_pows % tables.q, tables,
                             inverse=False)
 
 
-def intt(x: np.ndarray, tables: NTTTables) -> np.ndarray:
-    """Inverse negacyclic NTT along the last axis."""
+def intt_plain(x: np.ndarray, tables: NTTTables) -> np.ndarray:
+    """Inverse negacyclic NTT along the last axis, numpy butterfly."""
     y = _cyclic_ntt_core(np.asarray(x, np.int64), tables, inverse=True)
     return y * tables.ipsi_pows % tables.q
+
+
+_native_lock = threading.Lock()
+_native_ntts: Dict[tuple, native.NativeNTT] = {}
+
+
+def _native(tables: NTTTables, inverse: bool) -> native.NativeNTT:
+    key = (tables.q, tables.n, inverse)
+    fn = _native_ntts.get(key)
+    if fn is None:
+        with _native_lock:
+            fn = _native_ntts.get(key)
+            if fn is None:
+                fn = native.NativeNTT(tables, inverse=inverse)
+                _native_ntts[key] = fn
+    return fn
+
+
+def ntt(x: np.ndarray, tables: NTTTables) -> np.ndarray:
+    """Forward negacyclic NTT along the last axis (native; any int64 value
+    taken as its residue mod q) → canonical int64."""
+    return _native(tables, inverse=False)(x)
+
+
+def intt(x: np.ndarray, tables: NTTTables) -> np.ndarray:
+    """Inverse negacyclic NTT along the last axis (native)."""
+    return _native(tables, inverse=True)(x)
+
+
+def negacyclic_polymul(a: np.ndarray, b: np.ndarray,
+                       tables: NTTTables) -> np.ndarray:
+    """a·b in Z_q[X]/(X^N+1) via NTT ∘ pointwise ∘ INTT."""
+    q = tables.q
+    return intt(ntt(a, tables) * ntt(b, tables) % q, tables)
 
 
 def naive_negacyclic_polymul(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:

@@ -39,7 +39,7 @@ def candidates_per_block(params: BFVParams, d: int) -> int:
     return params.n // d
 
 
-def _as_plain_ints(x: np.ndarray, t: int, what: str) -> np.ndarray:
+def plain_ints(x: np.ndarray, t: int, what: str) -> np.ndarray:
     """Validate integer-valued input with |x| < t/2; returns signed int64."""
     xi = np.round(x).astype(np.int64)
     if not np.allclose(np.asarray(x, np.float64), xi, atol=1e-6):
@@ -63,7 +63,7 @@ def encode_query_poly(q: np.ndarray, params: BFVParams) -> np.ndarray:
     message magnitude does not multiply encryption noise."""
     d = q.shape[0]
     out = np.zeros(params.n, np.int64)
-    out[:d] = _as_plain_ints(q, params.t, "query") % params.t
+    out[:d] = plain_ints(q, params.t, "query") % params.t
     return out
 
 
@@ -78,7 +78,7 @@ def pack_candidate_block(x_block: np.ndarray, params: BFVParams) -> np.ndarray:
     B, d = x_block.shape
     assert B * d <= params.n
     out = np.zeros(params.n, np.int64)
-    rev = _as_plain_ints(x_block[:, ::-1], params.t, "candidates")  # [B, d]
+    rev = plain_ints(x_block[:, ::-1], params.t, "candidates")  # [B, d]
     out[: B * d] = rev.reshape(-1)
     return out
 

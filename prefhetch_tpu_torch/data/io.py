@@ -4,11 +4,13 @@ The data contract of the reference's ``vecs_read<T>`` loader (reference:
 include/common/client_server_utils.h:24-56): TEXMEX-style .fvecs/.ivecs files
 where every row is a little-endian int32 dimension header followed by ``d``
 4-byte payload values (float32 for fvecs, int32 for ivecs). The reference
-strips the per-row headers in place with memmove; here the same result is a
-zero-copy numpy stride trick over a memory-mapped file.
+strips the per-row headers in place with memmove; here the native reader
+(native/host_lib.cpp, ``native.read_vecs_native``) copies the payload out of
+a memory-mapped file and checks every row's header.
 
-Copy of prefhetch_tpu/data/io.py without its native C++ reader: the port
-reads with numpy only.
+The port of prefhetch_tpu/data/io.py: the file's size and first header are
+checked up front with the reference's messages, then the native reader
+copies; it has no numpy fallback.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 from typing import Tuple
 
 import numpy as np
+
+from prefhetch_tpu_torch import native
 
 
 def _read_vecs(path: str, dtype: np.dtype) -> np.ndarray:
@@ -36,15 +40,10 @@ def _read_vecs(path: str, dtype: np.dtype) -> np.ndarray:
     row_bytes = (d + 1) * 4
     if size % row_bytes != 0:
         raise ValueError(f"{path}: incorrect file size {size} for d={d}")
-    n = size // row_bytes
-    raw = np.memmap(path, dtype="<i4", mode="r").reshape(n, d + 1)
-    # Every row must carry the same dimension header.
-    if not np.all(raw[:, 0] == d):
-        raise ValueError(f"{path}: inconsistent per-row dimension headers")
-    out = raw[:, 1:].view("<i4")
-    if dtype == np.float32:
-        out = out.view("<f4")
-    return np.ascontiguousarray(out).astype(dtype, copy=False)
+    # the native reader checks every row's header (error -5 when one
+    # differs) and copies the payloads
+    base = np.float32 if dtype == np.float32 else np.int32
+    return native.read_vecs_native(path, base).astype(dtype, copy=False)
 
 
 def read_fvecs(path: str) -> np.ndarray:

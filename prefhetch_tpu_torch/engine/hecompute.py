@@ -25,15 +25,17 @@ program's.
 ``device`` takes the place of the JAX service's ``backend``: on a card the
 program runs there with K2; with ``device="cpu"`` the same program runs on
 CPU tensors, where K2's wrapper takes its plain version. The numpy host
-twins (``_trunc_mac_numpy``, ``_trunc_mac_q1_numpy``, ``_packed_mac_numpy``:
-butterfly NTT, natural order) are the independent oracle the tests hold the
-program against; no served path falls back to them.
+twins (``_trunc_mac_numpy``, ``_trunc_mac_q1_numpy``, ``_packed_mac_numpy``,
+``_mac_numpy``: the host NTT, natural order) are the independent oracle
+the tests hold the program against; no served path falls back to them.
+
+``encrypted_scores_batch`` and ``encrypted_scores`` return the whole
+result ciphertexts of the same MAC (one K2 launch a limb; host twin
+``_mac_numpy``); no route of either package serves them.
 
 ``CKKSComputeService`` (numpy) is the host twin and oracle of the CKKS
 device program (engine/ckks_device.py), which shares ``key_switch`` with
-the packed program. Not ported: the BFV ``encrypted_scores`` /
-``encrypted_scores_batch`` (whole result ciphertexts), which no served
-path of either package calls.
+the packed program.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from prefhetch_tpu_torch.crypto.ckks import (
     CKKSContext, GaloisKey, combine_window, rotation_steps,
 )
 from prefhetch_tpu_torch.crypto.ntt import build_tables, intt, ntt
+from prefhetch_tpu_torch.crypto.packing import candidates_per_block, plain_ints
 from prefhetch_tpu_torch.crypto.params import BFVParams
 from prefhetch_tpu_torch.device import resolve_device
 from prefhetch_tpu_torch.ops.ntt4 import (
@@ -241,7 +244,7 @@ class HEComputeService:
 
     # -- host twins: the independent oracle --------------------------------
     def _mac_limbs_numpy(self, c0q, c1q, idx):
-        """Host twin of ``_mac_limbs`` (butterfly NTT, natural order):
+        """Host twin of ``_mac_limbs`` (host NTT, natural order):
         yields (tables, o0, o1) with the products [nq, nb, N] int64."""
         n = self.params.n
         nq, npad = idx.shape
@@ -298,12 +301,16 @@ class HEComputeService:
             return self._prepare(cts, cand_idx)
 
     def _prepare(self, cts: List[Ciphertext], cand_idx: np.ndarray):
+        return (self._stack_cts(cts),) + self._pad_and_norms(cand_idx)
+
+    def _stack_cts(self, cts: List[Ciphertext]) -> np.ndarray:
+        """Query ciphertexts → ctq [nq, 2, L, N] i32, natural-order NTT
+        (a coefficient-domain ct is transformed on the host)."""
         cts = [self.ctx.to_ntt(c) if not c.is_ntt else c for c in cts]
-        ctq = np.stack(
+        return np.stack(
             [np.stack([c.c0 for c in cts]), np.stack([c.c1 for c in cts])],
             axis=1,
-        ).astype(np.int32)                                # [nq, 2, L, N]
-        return (ctq,) + self._pad_and_norms(cand_idx)
+        ).astype(np.int32)
 
     def _pad_and_norms(self, cand_idx: np.ndarray):
         """(pad_idx [nq, nb·B] i32 padded with the zero row, candidate
@@ -380,6 +387,65 @@ class HEComputeService:
         """[nq, nb, N+B] → (c1_q1 [nq,nb,N], c0_ip [nq,nb,B], norms)."""
         n = self.params.n
         return bundled[..., :n], bundled[..., n:], norms
+
+    # -- whole result ciphertexts -------------------------------------------
+    # Enc(⟨q, x⟩) per candidate block as a whole 2-limb NTT-domain
+    # ciphertext: the MAC of the response wires without their truncation.
+    # No route serves it (in either package); the service and the client
+    # (HEClient.decrypt_scores(_batch)) are called directly.
+
+    def encrypted_scores_batch(
+        self,
+        cts: List[Ciphertext],        # [nq] encrypted queries
+        candidates: np.ndarray,       # [nq, P, d] integer-valued vectors
+    ) -> Tuple[List[List[Ciphertext]], np.ndarray]:
+        """Batched MACs on the service's device: one forward transform (one
+        K2 launch) a limb over all (query, block) plaintexts. Returns
+        ([nq][n_blocks] result cts, natural-order NTT, int32 residues;
+        squared norms [nq, P] i64)."""
+        nq, P, d = candidates.shape
+        B = candidates_per_block(self.params, d)
+        nb = -(-P // B)
+        with stage("pack (stack, check, pad, norms)"):
+            ctq = self._stack_cts(cts)
+            rows = np.zeros((nq, nb * B, d), np.int32)
+            rows[:, :P] = plain_ints(candidates, self.params.t, "candidates")
+            norms = (rows[:, :P].astype(np.int64) ** 2).sum(-1)
+        ctq_d, rows_d = self.upload(ctq, rows)
+        with stage("device program"):
+            out = self._whole_mac(ctq_d, rows_d)
+        with stage("download"):
+            host = out.cpu().numpy()
+        return [[Ciphertext(c0=host[qi, b, 0], c1=host[qi, b, 1], is_ntt=True)
+                 for b in range(nb)] for qi in range(nq)], norms
+
+    def encrypted_scores(
+        self, ct: Ciphertext, candidates: np.ndarray,   # [P, d]
+    ) -> Tuple[List[Ciphertext], np.ndarray]:
+        """One query's ``encrypted_scores_batch``: (result cts a block,
+        squared norms [P])."""
+        blocks, norms = self.encrypted_scores_batch([ct], candidates[None])
+        return blocks[0], norms[0]
+
+    def _whole_mac(self, ctq: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """(ctq [nq, 2, L, N] i32 natural-order NTT, rows [nq, nb·B, d] i32)
+        → [nq, nb, 2, L, N] i32: (c0, c1) of every result ciphertext,
+        natural-order NTT (the four-step products permuted back)."""
+        out = [torch.stack([o0, o1], 2)[..., self._inv_perm]
+               for _, o0, o1 in self._mac_limbs(ctq, rows)]
+        return torch.stack(out, 3).to(torch.int32)
+
+    def _mac_numpy(self, c0, c1, pt_polys):
+        """Host twin of the whole-ciphertext MAC: (c0, c1 [L, N] NTT domain,
+        pt_polys [B, N] packed signed ints, crypto/packing.pack_candidates)
+        → ([B, L, N], [B, L, N]) int64."""
+        outs0, outs1 = [], []
+        for i, tb in enumerate(self.ctx.tables):
+            q = tb.q
+            pt_ntt = ntt(pt_polys % q, tb)              # [B, N]
+            outs0.append(c0[i][None, :].astype(np.int64) * pt_ntt % q)
+            outs1.append(c1[i][None, :].astype(np.int64) * pt_ntt % q)
+        return np.stack(outs0, axis=1), np.stack(outs1, axis=1)
 
     # -- packed single-ct response ----------------------------------------
     # The q1 wire still ships one full c1 poly per (query, block). This mode
@@ -539,7 +605,7 @@ class HEComputeService:
     def _packed_mac_numpy(
         self, ctq: np.ndarray, pad_idx: np.ndarray, gks: dict
     ) -> np.ndarray:
-        """Host twin of the packed program (butterfly NTT, natural order;
+        """Host twin of the packed program (host NTT, natural order;
         ctq [nq, 2, L, N] natural-order NTT domain) → [n_out, 2, L, N]
         int64 coeff-domain residues."""
         p = self.params

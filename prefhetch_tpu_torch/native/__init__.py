@@ -1,8 +1,13 @@
 """ctypes bindings to the port's host C++ libraries — the port of
-prefhetch_tpu/native/__init__.py (the parts the served path needs).
+prefhetch_tpu/native/__init__.py.
 
-Two libraries, each built from a source in this directory:
+Three libraries, each built from a source in this directory:
 
+- ``host_lib.cpp``: the fvecs/ivecs reader and the negacyclic NTT with
+  Shoup multiplication (a copy of sections 1 and 3 of
+  native/prefhetch_native.cpp that takes any int64 residue), under every
+  host transform of the port (crypto/ntt.py) and its dataset reader
+  (data/io.py);
 - ``json_codec.cpp``: the JSON number-array codec (a copy of section 2 of
   native/prefhetch_native.cpp), which writes the ragged ``/coarsesearch``
   response (~10^4-10^5 numbers a query) and the other number arrays of the
@@ -23,7 +28,7 @@ JAX loader, both on purpose:
   processes that build at once (test workers) never load a half-written
   file;
 - a failed build raises with the compiler's output; nothing returns None and
-  nothing on the served path carries on without the library.
+  nothing carries on without the library (there is no ``PFH_NO_NATIVE``).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ SRC = Path(__file__).resolve().parent
 BUILD = SRC.parent / "build"
 CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC",
              "-pthread"]
-CODEC, HTTP = "json_codec", "pfh_http"
+HOST, CODEC, HTTP = "host_lib", "json_codec", "pfh_http"
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -107,6 +112,110 @@ def _load(name: str, bind) -> ctypes.CDLL:
             bind(lib)
             _libs[name] = lib
         return lib
+
+
+# ---------------------------------------------------------------------------
+# vecs reader and host NTT
+# ---------------------------------------------------------------------------
+def _bind_host(lib: ctypes.CDLL) -> None:
+    i64, vp = ctypes.c_int64, ctypes.c_void_p
+    lib.pfh_vecs_header.argtypes = [ctypes.c_char_p, ctypes.POINTER(i64),
+                                    ctypes.POINTER(i64)]
+    lib.pfh_vecs_header.restype = ctypes.c_int
+    lib.pfh_vecs_read.argtypes = [ctypes.c_char_p, vp, i64, i64]
+    lib.pfh_vecs_read.restype = ctypes.c_int
+    lib.pfh_ntt_batch.argtypes = [vp, i64, i64, i64, vp, vp, vp, vp, vp,
+                                  ctypes.c_int, ctypes.c_int]
+    lib.pfh_ntt_batch.restype = None
+    lib.pfh_pointwise_mulmod.argtypes = [vp, vp, vp, vp, i64, i64]
+    lib.pfh_pointwise_mulmod.restype = None
+
+
+def host_lib() -> ctypes.CDLL:
+    """The vecs-reader and host-NTT library, built on first use."""
+    return _load(HOST, _bind_host)
+
+
+def _ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return a.ctypes.data_as(ctypes.c_void_p)
+
+
+def read_vecs_native(path: str, dtype) -> np.ndarray:
+    """Read a .fvecs/.ivecs file into an [n, d] array of ``dtype`` (a 4-byte
+    type: float32 or int32), the per-row headers checked and stripped. A
+    native error code raises ValueError naming it."""
+    lib = host_lib()
+    d, n = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.pfh_vecs_header(path.encode(), ctypes.byref(d), ctypes.byref(n))
+    if rc != 0:
+        raise ValueError(f"{path}: native header error {rc}")
+    out = np.empty((n.value, d.value), dtype=dtype)
+    rc = lib.pfh_vecs_read(path.encode(), _ptr(out), n.value, d.value)
+    if rc != 0:
+        raise ValueError(f"{path}: native read error {rc}")
+    return out
+
+
+def shoup(w: np.ndarray, q: int) -> np.ndarray:
+    """floor(w·2^64 / q) for residues w in [0, q), q < 2^31, as the int64
+    bit pattern the C side reads as uint64. Two exact int64 divisions:
+    ⌊w·2^32/q⌋·2^32 + ⌊(w·2^32 mod q)·2^32/q⌋."""
+    if not 1 < q < 1 << 31:
+        raise ValueError(f"Shoup constants need 1 < q < 2^31, got {q}")
+    w = np.asarray(w, np.int64)
+    hi, r = np.divmod(w << 32, q)
+    lo = (r << 32) // q
+    return ((hi.astype(np.uint64) << np.uint64(32))
+            + lo.astype(np.uint64)).view(np.int64)
+
+
+class NativeNTT:
+    """Shoup-multiplication negacyclic NTT (threaded) for one prime: the
+    forward transform, or the inverse with ``inverse=True``, of ``tables``
+    (crypto/ntt.NTTTables). Any int64 value is taken as its residue mod q;
+    the output is canonical int64 in the input's shape, and the input is
+    never written. A call keeps no state, so threads may share one."""
+
+    def __init__(self, tables, inverse: bool = False):
+        q = tables.q
+        self.q, self.n, self.inverse = q, tables.n, inverse
+        tw = np.concatenate(tables.stage_itw if inverse else tables.stage_tw)
+        psi = tables.ipsi_pows if inverse else tables.psi_pows
+        self.tw = np.ascontiguousarray(tw, np.int64)
+        self.tw_sh = shoup(self.tw, q)
+        self.psi = np.ascontiguousarray(psi, np.int64)
+        self.psi_sh = shoup(self.psi, q)
+        self.bitrev = np.ascontiguousarray(tables.bitrev, np.int64)
+        self.n_threads = min(4, os.cpu_count() or 1)
+        self._lib = host_lib()
+
+    def __call__(self, x: np.ndarray) -> np.ndarray:
+        x = np.asarray(x)
+        if x.shape[-1:] != (self.n,):
+            raise ValueError(f"NTT of length {self.n} over the last axis, "
+                             f"got shape {x.shape}")
+        out = np.array(x, np.int64, order="C")          # a copy, always
+        self._lib.pfh_ntt_batch(
+            _ptr(out), out.size // self.n, self.n, self.q,
+            _ptr(self.psi), _ptr(self.psi_sh), _ptr(self.tw),
+            _ptr(self.tw_sh), _ptr(self.bitrev),
+            0 if self.inverse else 1,   # twist_first: fwd twists before
+            self.n_threads,
+        )
+        return out
+
+
+def pointwise_mulmod(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
+    """(a·b) mod q elementwise, int64 in a's shape: a any int64, b taken as
+    its residue (Shoup constants of b mod q)."""
+    a = np.ascontiguousarray(a, np.int64)
+    b = np.ascontiguousarray(np.broadcast_to(np.asarray(b, np.int64) % q,
+                                             a.shape))
+    b_sh = shoup(b, q)
+    out = np.empty_like(a)
+    host_lib().pfh_pointwise_mulmod(_ptr(out), _ptr(a), _ptr(b), _ptr(b_sh),
+                                    a.size, q)
+    return out
 
 
 # ---------------------------------------------------------------------------

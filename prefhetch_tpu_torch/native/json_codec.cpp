@@ -3,8 +3,8 @@
 // A copy of section 2 of native/prefhetch_native.cpp (the JAX package's
 // host library), kept byte for byte so that both packages write the same
 // JSON for the same arrays and either package's client decodes the other's
-// responses. The port's host NTT is numpy and its vecs IO is Python, so
-// sections 1 and 3 of that file are left out.
+// responses. Sections 1 and 3 of that file (the vecs reader and the host
+// NTT) are host_lib.cpp.
 //
 // Built as a shared library with g++ at first use, bound with ctypes
 // (prefhetch_tpu_torch/native/__init__.py).

@@ -33,6 +33,17 @@ def topk_select(
     return topk_smallest(distances, k)
 
 
+def masked_topk_smallest(
+    distances: torch.Tensor,   # [..., n]
+    mask: torch.Tensor,        # [..., n] bool — True = valid
+    k: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(k smallest valid distances ascending, their positions); invalid
+    lanes hold PAD_DISTANCE. The JAX package's convenience form for small
+    widths."""
+    return topk_smallest(torch.where(mask, distances, PAD_DISTANCE), k)
+
+
 def topk_select_segmented(
     distances: torch.Tensor,   # [nq, n_segments·seg] — PAD at invalid lanes
     k: int,

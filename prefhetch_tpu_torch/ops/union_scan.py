@@ -11,7 +11,8 @@ The main path is ``union_scan_pruned_fused``: kernel K1
 its epilogue, then each query keeps only its j_keep tiles with the smallest
 minimum (the minimum bounds every candidate of the tile from below) before
 the wide top-k. ``union_scan_distances`` and ``union_scan_pruned`` are the
-f32 formulations the JAX package runs through XLA; they stay plain PyTorch
+f32 formulations the JAX package runs through XLA, and
+``union_scan_pruned_qm`` its bf16 query-major one; they stay plain PyTorch
 (the unpruned route, the JSON coarse wire and the test oracle), as does
 ``union_scan_distances_q16``, the tiled binary coarse wire's scan.
 
@@ -219,6 +220,27 @@ def union_scan_pruned(
     d2m = union_distances(payload, norms, sizes, queries, union)
     d2m = d2m.permute(2, 0, 1)                              # [nq, U, T]
     dmin = torch.amin(d2m, dim=2)                           # [nq, U]
+    return _prune(d2m, dmin, pos, j_keep, nq)
+
+
+def union_scan_pruned_qm(
+    payload: torch.Tensor,   # [ntiles+1, T, d] f32/bf16
+    norms: torch.Tensor,     # [ntiles+1, T] f32
+    sizes: torch.Tensor,     # [ntiles+1] int32
+    queries: torch.Tensor,   # [nq, d] f32
+    union: torch.Tensor,     # [U] int32 tile ids
+    pos: torch.Tensor,       # [nq, max_t] int32 positions into union
+    j_keep: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's query-major formulation, which it keeps as a
+    profiler and oracle form only: union_scan_pruned with the distances
+    stored bf16 before the tile minimum (PAD lanes +inf), so the kept tiles
+    are a top-j of the bf16 minima. (dist bf16 [nq, j_keep·T], sel
+    [nq, j_keep])."""
+    nq = queries.shape[0]
+    d2m = union_distances(payload, norms, sizes, queries, union)
+    d2m = d2m.to(torch.bfloat16).permute(2, 0, 1)          # [nq, U, T]
+    dmin = torch.amin(d2m, dim=2).to(torch.float32)         # [nq, U]
     return _prune(d2m, dmin, pos, j_keep, nq)
 
 

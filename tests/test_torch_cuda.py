@@ -1,7 +1,8 @@
 """Tests that need the card: kernels K1 to K5 and the tile schedule of K4
 and K5 against their plain versions, the engine on CUDA against the engine
 on the CPU, the encrypted re-rank service on CUDA against the service on
-the CPU (the packed response and its threefry expansion too), the CKKS
+the CPU (the packed response and its threefry expansion too, and whole
+result ciphertexts), the CKKS
 device program on CUDA against the CPU (K2 at the CKKS primes too), the
 PIR device program on CUDA against the CPU (K2 at its key-switch and
 database shapes too), the scan variants of query_pipeline on CUDA
@@ -240,6 +241,66 @@ def test_he_service_on_cuda_matches_cpu(cuda, mode):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(
         got, ((base[cand] - q[:, None]) ** 2).sum(-1))
+
+
+def test_whole_scores_on_cuda_match_numpy_twin(cuda):
+    """BFV whole result ciphertexts on the card: one K2 launch a limb over
+    all (query, block) rows, K2 against its plain version on those rows,
+    the ciphertexts bit-equal (values) to ``_mac_numpy`` and to the CPU
+    program, the client's decryption exact, one query's
+    ``encrypted_scores`` its row of the batch."""
+    from prefhetch_tpu_torch.crypto.packing import pack_candidates
+
+    client = HEClient(HEParams(), seed=6)
+    rng = np.random.default_rng(9)
+    q = rng.integers(0, 256, (3, 128)).astype(np.float32)
+    cand = rng.integers(0, 256, (3, 70, 128)).astype(np.float32)
+    cand[1, 4] = -cand[1, 4]
+    gpu = HEComputeService(client.params, device=cuda)
+    cpu = HEComputeService(client.params, device="cpu")
+    cts = [cpu.ctx.ct_from_wire(w) for w in client.encrypt_query_batch(q)]
+    before = k2.ntt4_transform.launches
+    rg, ng = gpu.encrypted_scores_batch(cts, cand)
+    assert k2.ntt4_transform.launches == before + len(client.params.qs)
+    rc, nc = cpu.encrypted_scores_batch(cts, cand)
+    np.testing.assert_array_equal(ng, nc)
+    for qi in range(3):
+        polys, _ = pack_candidates(cand[qi], client.params)
+        o0, o1 = gpu._mac_numpy(cts[qi].c0, cts[qi].c1, polys)
+        for b, (a, c) in enumerate(zip(rg[qi], rc[qi])):
+            for x in (a.c0, c.c0, o0[b]):
+                np.testing.assert_array_equal(a.c0, x)
+            for x in (a.c1, c.c1, o1[b]):
+                np.testing.assert_array_equal(a.c1, x)
+    rows = torch.from_numpy(np.stack(
+        [pack_candidates(c, client.params)[0] for c in cand]
+    ).reshape(-1, 4096)).to(cuda, torch.int32)
+    for tb in gpu._tables:
+        lifted = torch.where(rows < 0, rows + tb.q, rows)
+        assert torch.equal(ntt4(lifted, tb), transform_plain(lifted, tb,
+                                                             False))
+    wires = [[ct.to_wire() for ct in per_q] for per_q in rg]
+    got = client.decrypt_scores_batch(wires, ng, q)
+    np.testing.assert_array_equal(got, ((cand - q[:, None]) ** 2).sum(-1))
+    one, _ = gpu.encrypted_scores(cts[2], cand[2])
+    for a, b in zip(one, rg[2]):
+        np.testing.assert_array_equal(a.c0, b.c0)
+        np.testing.assert_array_equal(a.c1, b.c1)
+
+
+def test_whole_scores_on_cuda_refuse_a_ring_k2_cannot_take(cuda):
+    """At N=256 the CPU program runs (K2's plain version), the card raises
+    through K2's check: no drop to the plain version or numpy."""
+    client = HEClient(HEParams(n=256), seed=2)
+    rng = np.random.default_rng(3)
+    q = rng.integers(0, 256, (1, 32)).astype(np.float32)
+    cand = rng.integers(0, 256, (1, 10, 32)).astype(np.float32)
+    gpu = HEComputeService(client.params, device=cuda)
+    cts = [gpu.ctx.ct_from_wire(w) for w in client.encrypt_query_batch(q)]
+    before = k2.ntt4_transform.launches
+    with pytest.raises(ValueError, match="64 x n2"):
+        gpu.encrypted_scores_batch(cts, cand)
+    assert k2.ntt4_transform.launches == before
 
 
 def test_threefry_on_cuda_matches_numpy(cuda):

@@ -211,6 +211,58 @@ def test_topk_select_segmented_both_branches(data, views, dtype, k):
     np.testing.assert_array_equal(ti2.numpy(), np.asarray(ji2))
 
 
+@pytest.mark.parametrize("kind", ["bf16", "f32"])
+def test_union_scan_pruned_qm_matches_jax(data, views, kind):
+    """The query-major bf16 pruned scan (plain PyTorch here, XLA in the JAX
+    package) against JAX, as tests/test_union_scan.py holds the JAX one to
+    its oracle: the kept tiles are a top-j of the port's own bf16 minima
+    and their sorted minima are JAX's within one bf16 ulp; every tile both
+    keep has the same PAD lanes and distances within one bf16 ulp."""
+    jv, tv, _, _, union, pos = views[kind]
+    q = data["query"]
+    T = jv.tile
+    for j in (2, pos.shape[1]):
+        jd, jsel = j_us.union_scan_pruned_qm(*_j_args(jv, q, union, pos), j)
+        td, tsel = t_us.union_scan_pruned_qm(*_t_args(tv, q, union, pos), j)
+        assert td.dtype == torch.bfloat16 and td.shape == jd.shape
+        jd, jsel, tsel = _as_f32(jd), np.asarray(jsel), tsel.numpy()
+        td = _as_f32(td)
+        full, _ = t_us.union_scan_pruned_qm(*_t_args(tv, q, union, pos),
+                                            pos.shape[1])
+        for qi in range(q.shape[0]):
+            bt = td[qi].reshape(j, T)
+            bj = jd[qi].reshape(j, T)
+            assert len(set(tsel[qi])) == j
+            mins_t, mins_j = bt.min(1), bj.min(1)
+            all_mins = np.sort(_as_f32(full)[qi].reshape(-1, T).min(1))
+            np.testing.assert_array_equal(np.sort(mins_t), all_mins[:j])
+            np.testing.assert_allclose(np.sort(mins_t), np.sort(mins_j),
+                                       rtol=1e-2, atol=0.5)
+            for s in set(tsel[qi]) & set(jsel[qi]):
+                a = bt[list(tsel[qi]).index(s)]
+                b = bj[list(jsel[qi]).index(s)]
+                np.testing.assert_array_equal(np.isinf(a), np.isinf(b))
+                ok = ~np.isinf(b)
+                np.testing.assert_allclose(a[ok], b[ok], rtol=1e-2, atol=0.5)
+
+
+@pytest.mark.parametrize("k", [5, 50])
+def test_masked_topk_smallest_matches_jax(k):
+    """Integer-valued distances with many ties: the same values and
+    positions as the JAX form (ties toward the lower index), masked lanes
+    PAD."""
+    rng = np.random.default_rng(7)
+    d = rng.integers(0, 20, (8, 50)).astype(np.float32)
+    mask = rng.random((8, 50)) < 0.7
+    jv_, ji = j_topk.masked_topk_smallest(jnp.asarray(d), jnp.asarray(mask),
+                                          k)
+    tv_, ti = t_topk.masked_topk_smallest(torch.from_numpy(d),
+                                          torch.from_numpy(mask), k)
+    assert tv_.dtype == torch.float32
+    np.testing.assert_array_equal(tv_.numpy(), np.asarray(jv_))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+
+
 def test_resolve_rerank_final_topk_match(data, views):
     """Id resolve, exact re-rank (with a -1 pad id, which both gathers wrap
     to the last row) and the final top-k: exact on SIFT-style integer data,

@@ -197,7 +197,29 @@ reporting on lines of its own; any failure exits non-zero:
               the CKKS first request and client encryption, the PIR
               client's decoding), as the phases above timed them on the
               native transform, each beside its figure on the butterfly;
-7. result   — the last line, {"ok": true, "device": {...}}.
+7. bench    — the benchmark entry point, python -m
+              prefhetch_tpu_torch.bench's main, in two processes at once
+              (each this script run as a bench child, its cache under
+              prefhetch_tpu_torch/build/bench_cache/, kept between runs):
+              at the full SIFT1M point the sections no earlier phase drives
+              (the headline with its numpy baseline, angular and hard,
+              three 1M datasets and indexes), and at PFH_BENCH_NBASE=100000
+              the headline with encrypted (and its HTTP wire), http (256
+              closed-loop clients), ckks, pq and pir; each must exit 0 with
+              one line holding every section's keys, no error and only the
+              sections left out skipped; from the bench's stderr, K1
+              launched in core, angular and hard, K3 in pq, K2 in
+              encrypted, ckks and pir, and no plain version anywhere; in
+              each section K1's first and widest launch and K3's first
+              held against their plain versions on those launches' inputs,
+              K2's first launch on its input and K2 at every shape the
+              section gave it; the headline's recall at the limits above,
+              hard's under its exact-IVF oracle, the encrypted distances
+              over HTTP exact, CKKS within the bench's CKKS_MAX_REL; the
+              figures (two runs sharing the card: not measurements) and
+              each section's seconds printed; the kernels line gains each
+              kernel's launches and checks there;
+8. result   — the last line, {"ok": true, "device": {...}}.
 
 Without CUDA, or without the port beside it, it exits non-zero and prints no
 result.
@@ -251,8 +273,13 @@ BUTTERFLY_FIGURES = {
 HOST_STAGES: dict = {}
 
 
+# where log writes: stdout, or stderr in a bench child (its stdout is the
+# bench's line)
+LOG_TO = None
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    print(f"[{phase}] {msg}", file=LOG_TO, flush=True)
 
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -332,7 +359,7 @@ def k1_bound(payload, sizes, union, nq: int):
 
 
 def check_union_scan_min(name, payload, norms, sizes, q, union,
-                         min_atol: float) -> float:
+                         min_atol: float, d2_atol: float = 0.5) -> float:
     """K1 against its plain version on the same card tensors. Returns the
     max |d2 difference| over non-PAD lanes (in bf16 values)."""
     import torch
@@ -352,7 +379,7 @@ def check_union_scan_min(name, payload, norms, sizes, q, union,
     # d2 is stored bf16: within one bf16 ulp (2^-8 relative) of the plain
     # version, whose f32 sum runs in another order before the same rounding
     ok = ~pad_r
-    torch.testing.assert_close(d2k[ok], d2r[ok], rtol=1e-2, atol=0.5)
+    torch.testing.assert_close(d2k[ok], d2r[ok], rtol=1e-2, atol=d2_atol)
     # the min is f32 before the cast; the two f32 sums of d products differ
     # only in order (a few ulp of the largest term, min_atol)
     torch.testing.assert_close(mink, minr, rtol=1e-5, atol=min_atol)
@@ -2163,24 +2190,9 @@ def check_answers(tag, ids, dists, base64, q64, groundtruth, k):
 def kernel_counters():
     """({name: wrapper with .launches}, [plain versions with .calls]) of
     every kernel of the port."""
-    from prefhetch_tpu_torch.ops import ntt4_fused as k2
-    from prefhetch_tpu_torch.ops import ntt4_step as k2s
-    from prefhetch_tpu_torch.ops import pq_onehot as k3
-    from prefhetch_tpu_torch.ops import slab_scan as k45
-    from prefhetch_tpu_torch.ops import union_scan_min as usm
+    from prefhetch_tpu_torch.ops import kernel_counters as counters
 
-    wrappers = {
-        "union_scan_min": usm.union_scan_min,
-        "ntt4_transform": k2.ntt4_transform,
-        "pq_probed_distances": k3.pq_probed_distances,
-        "slab_distances_sq8": k45.slab_distances_sq8,
-        "slab_distances": k45.slab_distances,
-        "tile_schedule": k45.tile_schedule,
-    }
-    plains = [usm.union_scan_min_reference, k2s.ntt4_step_plain,
-              k3.pq_probed_distances_plain, k45.slab_distances_sq8_plain,
-              k45.slab_distances_plain, k45.tile_schedule_plain]
-    return wrappers, plains
+    return counters()
 
 
 def check_slab(name, kernel, plain, args) -> float:
@@ -3675,6 +3687,314 @@ def phase_shard(engine, disp, data, queries, probes, top_ids, cands,
     return out
 
 
+# the bench's keys a section must print (bench.py's names; PERF.md § 4)
+BENCH_KEYS = {
+    "core": ("recall_at_10", "recall_at_100", "numpy_recall_at_100",
+             "numpy_recall_gap_at_100", "scan_bytes_per_query",
+             "batch_p50_ms", "batch_p99_ms", "stage_ms",
+             "numpy_baseline_qps"),
+    "encrypted": ("encrypted_rerank_qps", "encrypted_mac_device_qps",
+                  "encrypted_mac_kernel_qps",
+                  "encrypted_wire_bytes_per_query", "http_encrypted_qps",
+                  "http_encrypted_p50_ms", "http_encrypted_max_err"),
+    "http": ("http_qps", "http_p50_ms", "http_p99_ms",
+             "http_multiround_qps", "http_multiround_p99_ms",
+             "http_allcand_qps", "http_frontend", "http_server_phases",
+             "http_mean_wave"),
+    "ckks": ("ckks_scoring_qps", "ckks_max_rel_err", "ckks_device_qps",
+             "ckks_wire_kb_per_query"),
+    "pq": ("pq_onehot_qps", "pq_recall_at_10", "pq_recall_at_100",
+           "pq_numpy_recall_gap_at_100", "pq_scan_bytes_per_query"),
+    "pir": ("pir_nbase", "pir_multi100_ms_per_row", "pir_rows_per_ct",
+            "pir_multi_upload_bytes_per_row"),
+    "angular": ("angular_qps", "angular_recall_at_10",
+                "angular_recall_at_100", "angular_numpy_recall_gap_at_100"),
+    "hard": ("hard_recall_at_10", "hard_recall_at_100",
+             "hard_oracle_recall_at_10", "hard_oracle_recall_at_100",
+             "hard_numpy_recall_gap_at_100", "hard_frontier",
+             "hard_best_recall_at_100"),
+}
+# the kernel each section must launch: K1, K2 or K3
+BENCH_KERNELS = {"core": "union_scan_min", "angular": "union_scan_min",
+                 "hard": "union_scan_min", "pq": "pq_probed_distances",
+                 "encrypted": "ntt4_transform", "ckks": "ntt4_transform",
+                 "pir": "ntt4_transform"}
+# two runs, side by side: at the full SIFT1M point the sections no earlier
+# phase drives (the headline with its numpy baseline, angular, hard); at
+# 100K the others
+BENCH_RUNS = {
+    "sift1m": ({}, ("core", "angular", "hard")),
+    "100k": ({"PFH_BENCH_NBASE": "100000"},
+             ("core", "encrypted", "http", "ckks", "pq", "pir")),
+}
+
+
+def check_k1_at_bench(name: str, args) -> dict:
+    """K1 against its plain version on the inputs a bench launch had. The
+    tolerances are the SIFT-scale ones of check_union_scan_min (0.5 and
+    4.0 at a largest term of ~6e6) as shares of the inputs' largest term
+    (|q|^2 + the largest norm): 2^-23 of it for d2, 2^-20 for the tile
+    minimum, so unit vectors (angular) are held as tightly."""
+    payload, norms, sizes, q, union = args
+    scale = float((q.float() ** 2).sum(-1).max() + norms.max())
+    err = check_union_scan_min(name, payload, norms, sizes, q, union,
+                               min_atol=scale * 2.0 ** -20,
+                               d2_atol=scale * 2.0 ** -23)
+    return {"shape": {"U": union.shape[0], "nq": q.shape[0],
+                      "T": payload.shape[1], "d": payload.shape[2],
+                      "dtype": str(payload.dtype)[6:]},
+            "max_abs_err": err, "d2_atol": scale * 2.0 ** -23}
+
+
+def bench_child(argv) -> int:
+    """``python chip_smoke.py --bench-child [bench arguments]``: the bench's
+    main in this process, with each section's first K1 launch and its
+    widest (most queries), its first K3 launch, and every K2 launch's shape
+    (the first one's input and output kept) recorded through the names the
+    bench's path calls (ops/union_scan's, ops/ntt4's), so no wrapper's
+    count moves. After each section (its launches already printed) each
+    recorded K1 and K3 launch is held against its plain version on its
+    inputs, the first K2 launch's output against the plain version of its
+    input, and K2 at every other recorded shape on fresh residues; a line
+    ``[bench-check] {json}`` a kernel and section goes to stderr. Exits 3
+    when a check failed, else with the bench's code."""
+    global LOG_TO
+    import torch
+
+    from prefhetch_tpu_torch.bench import __main__ as bm
+    from prefhetch_tpu_torch.ops import ntt4 as n4
+    from prefhetch_tpu_torch.ops import union_scan as us
+
+    LOG_TO = sys.stderr
+    rec: dict = {"section": None}
+    k1s: dict = {}                # section -> {"first": args, "widest": args}
+    k3s: dict = {}                # section -> args
+    k2s: dict = {}                # section -> {"shapes": {...}, "first": ...}
+    real_k1, real_k3 = us.union_scan_min, us.pq_probed_distances
+    real_k2 = n4.ntt4_transform
+
+    def k1(*args):
+        if rec["section"] is None:            # a check's own launch
+            return real_k1(*args)
+        got = k1s.setdefault(rec["section"], {"first": args, "widest": args})
+        if args[3].shape[0] > got["widest"][3].shape[0]:
+            got["widest"] = args
+        return real_k1(*args)
+
+    def k3(*args):
+        if rec["section"] is None:
+            return real_k3(*args)
+        k3s.setdefault(rec["section"], args)
+        return real_k3(*args)
+
+    def k2(x, tb, inverse):
+        out = real_k2(x, tb, inverse)
+        if rec["section"] is None:
+            return out
+        got = k2s.get(rec["section"])
+        if got is None:
+            got = k2s[rec["section"]] = {"shapes": {}, "first": (
+                x.clone(), tb, bool(inverse), out.clone())}
+        got["shapes"].setdefault(
+            (x.shape[0], x.dtype, bool(inverse), tb.q), tb)
+        return out
+
+    def check(name: str) -> list:
+        entries = []
+        got = k1s.pop(name, None)
+        for which in ("first", "widest") if got else ():
+            if which == "widest" and got["widest"] is got["first"]:
+                continue
+            entries.append({"kernel": "union_scan_min", "launch": which,
+                            **check_k1_at_bench(f"bench/{name}/{which}",
+                                                got[which])})
+        if name in k3s:
+            args = k3s.pop(name)
+            err = check_pq_probed(f"bench/{name}", *args)
+            entries.append({"kernel": "pq_probed_distances",
+                            "launch": "first", "shape": {
+                                "nq": args[6].shape[0],
+                                "max_t": args[6].shape[1],
+                                "T": args[0].shape[1],
+                                "M": args[0].shape[2]},
+                            "max_abs_err": err})
+        if name in k2s:
+            got = k2s.pop(name)
+            x, tb, inverse, out = got.pop("first")
+            dev = x.device
+            err = check_transform(f"bench/{name}/first", x, tb, inverse,
+                                  got=out)
+            del x, out
+            gen = torch.Generator(device=dev).manual_seed(17)
+            for (rows, dtype, inv, q), tbi in sorted(
+                    got["shapes"].items(), key=lambda kv: kv[0][0]):
+                xr = torch.randint(0, q, (rows, tbi.n), generator=gen,
+                                   device=dev, dtype=dtype)
+                err = max(err, check_transform(
+                    f"bench/{name}/[{rows}] {str(dtype)[6:]} "
+                    f"{'inverse' if inv else 'forward'} mod {q}", xr, tbi,
+                    inv))
+                del xr
+            entries.append({"kernel": "ntt4_transform",
+                            "launch": "first, and every shape",
+                            "shapes": len(got["shapes"]),
+                            "widest_rows": max(r for r, *_ in
+                                               got["shapes"]),
+                            "max_abs_err": err})
+        return entries
+
+    failures = []
+    real_section = bm.Bench.section
+
+    def section(self, name, fn, est_s=None):
+        rec["section"] = name
+        try:
+            real_section(self, name, fn, est_s)
+        finally:
+            rec["section"] = None
+        try:
+            for entry in check(name):
+                print("[bench-check] " + json.dumps({"section": name,
+                                                     **entry}),
+                      file=sys.stderr, flush=True)
+        except Exception as e:            # noqa: BLE001 — reported
+            failures.append(name)
+            print("[bench-check] " + json.dumps({
+                "section": name, "error": f"{type(e).__name__}: {e}"[:400]}),
+                file=sys.stderr, flush=True)
+        finally:
+            k1s.pop(name, None), k3s.pop(name, None), k2s.pop(name, None)
+            torch.cuda.empty_cache()
+
+    us.union_scan_min, us.pq_probed_distances = k1, k3
+    n4.ntt4_transform = k2
+    bm.Bench.section = section
+    try:
+        code = bm.main(argv)
+    finally:
+        us.union_scan_min, us.pq_probed_distances = real_k1, real_k3
+        n4.ntt4_transform = real_k2
+        bm.Bench.section = real_section
+    return 3 if failures else code
+
+
+def phase_bench(smi: str) -> dict:
+    """python -m prefhetch_tpu_torch.bench's main in two processes at once
+    (each a bench child of this script; the caches under
+    prefhetch_tpu_torch/build/bench_cache/, kept between runs): exit 0, one
+    line with every section's keys, no error, only the sections left out
+    skipped; each section's kernel launched by its wrapper, no plain
+    version run, and each kernel held against its plain version at the
+    section's own shapes (bench_child). The two runs share the card, so
+    their figures are not measurements (PERF.md takes the bench's figures
+    from a run of its own). Returns {"launches": each kernel's launches
+    summed over the runs' sections, "at_shape": {kernel: {run/section:
+    check}}}."""
+    from prefhetch_tpu_torch.bench.data import SECTIONS
+    from prefhetch_tpu_torch.bench.encrypted import (
+        CKKS_MAX_REL as BENCH_CKKS_MAX_REL,
+    )
+
+    t_phase = time.perf_counter()
+    procs = {}
+    for tag, (env_add, run) in BENCH_RUNS.items():
+        cache = os.path.join(ROOT, "prefhetch_tpu_torch", "build",
+                             "bench_cache", tag)
+        env = {**os.environ, **env_add,
+               **{var: "1" for name, var in SECTIONS if name not in run}}
+        procs[tag] = (subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--bench-child", "--cache", cache],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            env=env, cwd=ROOT), run)
+    totals: dict = {}
+    at_shape: dict = {}
+    try:
+        for tag, (proc, run) in procs.items():
+            out, err = proc.communicate(timeout=900)
+            err = err.decode(errors="replace")
+            launches, checks = {}, []
+            for ln in err.splitlines():
+                if ln.startswith("[bench] launches "):
+                    name, _, js = ln[len("[bench] launches "):].partition(" ")
+                    launches[name] = json.loads(js)
+                elif ln.startswith("[bench] section "):
+                    log("bench", f"{tag}: {ln[len('[bench] '):]}")
+                elif ln.startswith("[bench-check] "):
+                    checks.append(json.loads(ln[len("[bench-check] "):]))
+            if proc.returncode != 0:
+                print(err[-6000:], file=sys.stderr)
+                raise AssertionError(f"bench {tag} exited {proc.returncode}")
+            line = json.loads(out.decode().strip().splitlines()[-1])
+            extra = line["extra"]
+            skipped = [n for n, _ in SECTIONS if n not in run]
+            if extra.get("failed") or extra.get("skipped") != skipped:
+                raise AssertionError(f"bench {tag}: failed "
+                                     f"{extra.get('failed')}, skipped "
+                                     f"{extra.get('skipped')}")
+            errors = [k for k in extra if k.endswith("_error")]
+            missing = [k for name in run for k in BENCH_KEYS[name]
+                       if k not in extra]
+            if errors or missing or line["value"] <= 0:
+                raise AssertionError(f"bench {tag}: errors {errors}, "
+                                     f"missing keys {missing}")
+            for name in run:
+                got = launches[name]
+                kernel = BENCH_KERNELS.get(name)
+                if kernel and got["launches"][kernel] <= 0:
+                    raise AssertionError(f"bench {tag}: {kernel} never "
+                                         f"launched in {name}")
+                if got["plain_calls"]:
+                    raise AssertionError(f"bench {tag}: a plain version "
+                                         f"ran in {name}")
+                if kernel and not any(c["section"] == name
+                                      and c.get("kernel") == kernel
+                                      for c in checks):
+                    raise AssertionError(f"bench {tag}: {kernel} not held "
+                                         f"to its plain version in {name}")
+                for k, v in got["launches"].items():
+                    totals[k] = totals.get(k, 0) + v
+                log("bench", f"{tag} {name}: launches "
+                    f"{ {k: v for k, v in got['launches'].items() if v} }")
+            for c in checks:
+                log("bench", f"{tag}: held to the plain version: "
+                    f"{json.dumps(c)}")
+                at_shape.setdefault(c["kernel"], {})[
+                    f"{tag}/{c['section']}/{c['launch']}"] = {
+                    k: v for k, v in c.items()
+                    if k not in ("kernel", "section", "launch")}
+            if "hard" in run:
+                for at in ("10", "100"):
+                    if (extra[f"hard_recall_at_{at}"]
+                            > extra[f"hard_oracle_recall_at_{at}"]):
+                        raise AssertionError("hard recall above its oracle")
+            if tag == "sift1m" and (extra["recall_at_10"] < RECALL10_MIN
+                                    or extra["recall_at_100"]
+                                    < RECALL100_MIN):
+                raise AssertionError(f"bench core recall {extra}")
+            if "encrypted" in run and extra["http_encrypted_max_err"] != 0:
+                raise AssertionError("encrypted distances over HTTP inexact")
+            if "ckks" in run and not (extra["ckks_max_rel_err"]
+                                      <= BENCH_CKKS_MAX_REL):
+                raise AssertionError("ckks_max_rel_err above its limit")
+            figures = {k: extra[k] for name in run for k in BENCH_KEYS[name]
+                       if not isinstance(extra[k], (dict, list))}
+            log("bench", f"{tag} ({smi}; two runs sharing the card: not "
+                f"measurements): value {line['value']:.1f} q/s, "
+                f"vs_baseline {line['vs_baseline']:.2f}, "
+                f"{json.dumps(figures)}")
+            log("bench", f"{tag}: section seconds "
+                f"{json.dumps(extra['section_s'])}, wall "
+                f"{extra['bench_wall_s']:.1f} s")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    log("bench", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": totals, "at_shape": at_shape}
+
+
 def main() -> int:
     try:
         import torch
@@ -3971,6 +4291,12 @@ def main() -> int:
         log("native", f"{smi}: re-timed on the native host NTT (host "
             f"clock): {name} {HOST_STAGES.get(name, 'not measured')}; on "
             f"the butterfly {was}")
+
+    # -- 7. the benchmark entry point, python -m prefhetch_tpu_torch.bench --
+    bench = phase_bench(smi)
+    bench_launches = bench["launches"]
+    bench_path = ("python -m prefhetch_tpu_torch.bench: SIFT1M core, "
+                  "angular, hard; 100K core, encrypted, http, ckks, pq, pir")
     log("done", f"wall {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -3999,6 +4325,9 @@ def main() -> int:
                       f"over meshes of 1 and 4 shards of the card, one "
                       f"launch a shard a batch",
         "at_shard_shape": shard["k1_shard"],
+        "launches_bench": bench_launches["union_scan_min"],
+        "path_bench": bench_path,
+        "at_bench_shape": bench["at_shape"]["union_scan_min"],
     }, {
         "name": "ntt4_transform",
         "route": "cuda",
@@ -4035,12 +4364,18 @@ def main() -> int:
                       "(SIFT1M grid, meshes of 1 and 3)",
         "library_call": "none: no single PyTorch call computes an exact "
                         "modular matrix product",
+        "launches_bench": bench_launches["ntt4_transform"],
+        "path_bench": bench_path,
+        "at_bench_shape": bench["at_shape"]["ntt4_transform"],
     }, {
         "name": "pq_probed_distances",
         "route": "cuda",
         "source": "prefhetch_tpu_torch/csrc/pq_onehot.cu",
         "replaces": "prefhetch_tpu/ops/pallas_scan.py:358",
         **variant_rows["pq_probed_distances"],
+        "launches_bench": bench_launches["pq_probed_distances"],
+        "path_bench": bench_path,
+        "at_bench_shape": bench["at_shape"]["pq_probed_distances"],
     }, {
         "name": "slab_distances_sq8",
         "route": "cuda",
@@ -4072,4 +4407,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--bench-child"]:
+        sys.exit(bench_child(sys.argv[2:]))
     sys.exit(main())

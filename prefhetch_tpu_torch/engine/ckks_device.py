@@ -475,7 +475,9 @@ class DeviceCKKS:
         uploaded slot rows).
 
         Returns a resolver → ([nq] CKKSCiphertext, norms [nq, P]);
-        ``resolver.dev_out`` is the device result [nq, 2, L_in−2, N]."""
+        ``resolver.dev_out`` is the device result [nq, 2, L_in−2, N];
+        ``resolver.program_repeat()`` runs the device work again on the
+        same uploaded inputs."""
         self._check_keys(key_id)
         ctx = self.ctx
         n = self.params.n
@@ -558,6 +560,7 @@ class DeviceCKKS:
             lead_d = [torch.from_numpy(x).to(self.device) for x in lead]
             pt_d = torch.from_numpy(pt_host).to(self.device)
         norms_dev = None
+        pt_in = pt_d
         if gather or dev_encode:
             with stage("gather and encode"):
                 if gather:
@@ -569,6 +572,15 @@ class DeviceCKKS:
             ct_d = self._seeded_ct(*lead_d) if seed_mode else lead_d[0]
             dev_out = self._score_combined(ct_d, pt_d, pre, mask_ntt, tree,
                                            post)
+
+        def program_repeat():
+            """The device work again (gather, encode, program) on the
+            same uploaded inputs: no host work, no upload."""
+            pt = pt_in
+            if gather or dev_encode:
+                pt = self._encode(self._gather(pt)[0] if gather else pt)
+            ct = self._seeded_ct(*lead_d) if seed_mode else lead_d[0]
+            return self._score_combined(ct, pt, pre, mask_ntt, tree, post)
 
         scale1 = scale_in * ctx.scale / self.ext[level_in - 1]
         scale2 = scale1 * MASK_SCALE / self.ext[level - 1]
@@ -585,4 +597,5 @@ class DeviceCKKS:
             return result, nrm
 
         resolve.dev_out = dev_out
+        resolve.program_repeat = program_repeat
         return resolve

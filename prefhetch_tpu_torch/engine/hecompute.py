@@ -539,16 +539,21 @@ class HEComputeService:
         a zero-arg resolver → (packed cts, norms, G) that downloads the
         result, so callers can overlap the download with the next batch's
         host work. ``resolver.dev_out`` is the device result
-        [n_out, 2, L, N] int32."""
+        [n_out, 2, L, N] int32; ``resolver.program_repeat()`` runs the
+        device program again on the same uploaded inputs."""
         nb, G = self._packed_layout(key_id, len(cts), cand_idx)
         ctq, pad_idx, norms = self.prepare(cts, cand_idx)
         ctq_d, idx_d = self.upload(ctq, pad_idx)
         args = self._packed_args(key_id, nb, G)
+
+        def program():
+            return self._packed_program(ctq_d[:, 0][..., self._perm],
+                                        ctq_d[:, 1][..., self._perm],
+                                        idx_d, *args)
+
         with stage("device program"):
-            out = self._packed_program(ctq_d[:, 0][..., self._perm],
-                                       ctq_d[:, 1][..., self._perm],
-                                       idx_d, *args)
-        return self._packed_resolver(out, norms, G)
+            out = program()
+        return self._packed_resolver(out, norms, G, program)
 
     def encrypted_scores_packed_wire(
         self, wires: List[dict], cand_idx: np.ndarray, key_id: str
@@ -586,12 +591,17 @@ class HEComputeService:
             c0_d, seeds_d, idx_d = (torch.from_numpy(x).to(self.device)
                                     for x in (c0s, seeds, pad_idx))
         args = self._packed_args(key_id, nb, G)
+
+        def program():
+            return self._packed_seeded(c0_d, seeds_d, idx_d, *args)
+
         with stage("device program"):
-            out = self._packed_seeded(c0_d, seeds_d, idx_d, *args)
-        return self._packed_resolver(out, norms, G)
+            out = program()
+        return self._packed_resolver(out, norms, G, program)
 
     @staticmethod
-    def _packed_resolver(dev_out: torch.Tensor, norms: np.ndarray, G: int):
+    def _packed_resolver(dev_out: torch.Tensor, norms: np.ndarray, G: int,
+                         program):
         def resolve():
             with stage("download"):
                 packed = dev_out.cpu().numpy().astype(np.int64)
@@ -599,6 +609,7 @@ class HEComputeService:
                      for c in packed], norms, G)
 
         resolve.dev_out = dev_out
+        resolve.program_repeat = program
         return resolve
 
     # -- packed response: host oracle --------------------------------------

@@ -748,6 +748,13 @@ class QueryEngine:
                     self._he_service = svc
         return self._he_service
 
+    @he_service.setter
+    def he_service(self, svc) -> None:
+        """Serve with ``svc``, a service built (and warmed) elsewhere over
+        this engine's base and parameters."""
+        with self._lock:
+            self._he_service = svc
+
     @property
     def ckks_service(self):
         """Lazily-built CKKS slot-packed scoring service (engine/

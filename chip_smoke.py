@@ -162,11 +162,33 @@ reporting on lines of its own; any failure exits non-zero:
               bound, then the same 4 batches of 64 queries with every
               kernel's launch count read around them, exact returned
               distances and recall;
+   entry    — the dense-layout path, which runs no hand-written kernel
+              (XLA in the JAX package): entry.entry() at its own shape (the
+              JAX entry's contract, and the same query_step on the same
+              tensors on the CPU: ids equal where distances do not tie,
+              distances to rtol 1e-5); query_step at the preset (nprobe
+              16, COARSE_PROBE 256, K 100) over the engine's bf16
+              list_recon for the same 4 batches (recall limits, exact
+              float64 distances); the models' search at the same point:
+              IVFPQ on list_recon (its ids the step's top-256 cut to 100,
+              as sets, where distances do not tie) and on its PQ codes
+              alone (the LUT scan within bf16 rounding of the list_recon
+              scan; its ADC recall printed), FlatL2 (recall 1.0), IVFFlat
+              and IVFSQ8 assembled from the engine's own lists (exact and
+              decoded-vector distances; SQ8 recall@100 within 0.02 of
+              IVFFlat's); the engine's dense coarse branch (no tiled view:
+              an SQ8 index, then PQ codes alone) through JSON
+              /coarsesearch, byte-equal to the model's masked scan; each
+              search's host clock a batch, device time (torch.profiler)
+              and byte bound with the card's name and power limit; no
+              kernel launched in the phase;
 5. timings  — each kernel's own device time at the main-path shape
               (torch.profiler; the CUDA-event time of a loop of wrapper
               calls beside it, which the host's pace can set for a fast
               kernel), beside its plain version, a PyTorch library call and
-              the card's bound for the same work; printed as one JSON line
+              the card's bound for the same work, and K1 alone at the
+              bench headline's shape (the index in tiles of 1,024, the
+              256 queries in one batch); printed as one JSON line
               {"kernels": [...]}; then torch.profiler over warm /search
               requests: device time by kernel and the device's busy share;
    ablation — K4, K5 and K2 rebuilt with one part taken out or one
@@ -2789,6 +2811,463 @@ def phase_variants(engine, data, queries, reset_counts, sm_mhz,
     return out
 
 
+# the dense-layout family's scans run in f32 over rows widened from their
+# payload (bf16, f32 or uint8): the card's f32 rate bounds their products
+def dense_bound(sizes, probes, row_bytes: int, other_bytes: int,
+                flops: float):
+    """The card's bound for a dense-layout search: each probed list's valid
+    rows read once (``row_bytes`` a row: its payload and any stored norm),
+    ``other_bytes`` beside them (queries, centroids, tables, the re-rank's
+    base rows, outputs), the ``flops`` over the f32 rate → (bound_ms,
+    bound_by, bytes, probed rows)."""
+    import torch
+
+    rows = int(sizes[torch.unique(probes)].sum())
+    nbytes = rows * row_bytes + other_bytes
+    t_b, t_o = nbytes / HBM_BYTES_S, flops / F32_FLOPS
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            nbytes, rows)
+
+
+def untied(d, rtol: float):
+    """Lanes of an ascending [nq, k] row whose distance ties with no
+    neighbour within ``rtol`` relative."""
+    import numpy as np
+
+    near = np.abs(np.diff(d, axis=1)) <= rtol * np.abs(d[:, 1:])
+    tied = np.zeros(d.shape, bool)
+    tied[:, 1:] |= near
+    tied[:, :-1] |= near
+    return ~tied
+
+
+def scan_atol(q, norms) -> float:
+    """The dense scans' f32 tolerance, as for the slab scans: 1e-5 of
+    (max ‖q‖² + max ‖x‖²). Their distances are ‖q‖² + ‖x‖² − 2⟨q, x⟩ summed
+    in f32 in different orders, so the error scales with the norms."""
+    return 1e-5 * float((q.double() ** 2).sum(-1).max() + norms.max())
+
+
+def phase_entry(engine, data, queries, reset_counts, smi, search_recall,
+                base64, q64) -> None:
+    """The dense-layout path on the card: entry.entry() at its own shape
+    (the JAX contract, and the same step on the CPU); entry.query_step at
+    the preset over the engine's bf16 list_recon; the four models (FlatL2,
+    IVFFlat and IVFSQ8 assembled from the engine's own lists, IVFPQ on its
+    list_recon and on its codes alone) with their searches' checks; the
+    engine's dense coarse branch (SQ8, then PQ codes) through JSON
+    /coarsesearch, byte-equal to the model's masked scan. Kernel launch
+    counts are read around the whole phase: the dense family runs none (in
+    the JAX package it is XLA, no Pallas)."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch import native
+    from prefhetch_tpu_torch.entry import entry, query_step
+    from prefhetch_tpu_torch.index.build import index_from_numpy, sq8_encode
+    from prefhetch_tpu_torch.metrics import benchmark_results
+    from prefhetch_tpu_torch.models import FlatL2, IVFFlat, IVFPQ, IVFSQ8
+    from prefhetch_tpu_torch.ops.distances import rank_centroids
+    from prefhetch_tpu_torch.ops.scan import coarse_scan_flat
+    from prefhetch_tpu_torch.ops.topk import topk_select
+    from prefhetch_tpu_torch.serve.handlers import Dispatcher
+
+    t_phase = time.perf_counter()
+    cfg = engine.config
+    proto = cfg.protocol
+    nprobe, cp, k = proto.nprobe, proto.coarse_probe, proto.k
+    index = engine.index
+    dev = index.device
+    wrappers, plains = kernel_counters()
+    reset_counts()
+
+    # -- 1. entry() at its own shape, on the card and on the CPU ----------
+    t0 = time.perf_counter()
+    fn, args = entry(device=dev)
+    if any(a.device != dev for a in args):
+        raise AssertionError("entry(): example args not on the card")
+    d_g, i_g = (t.cpu().numpy() for t in fn(*args))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if d_g.shape != (8, 32) or i_g.shape != (8, 32):
+        raise AssertionError(f"entry(): shapes {d_g.shape} {i_g.shape}")
+    if not np.isfinite(d_g).all() or (np.diff(d_g, axis=1) < -1e-3).any():
+        raise AssertionError("entry(): distances not finite and ascending")
+    if i_g.min() < 0:
+        raise AssertionError("entry(): negative ids")
+    d_c, i_c = (t.numpy() for t in fn(*(a.cpu() for a in args)))
+    np.testing.assert_allclose(d_g, d_c, rtol=1e-5, atol=0)
+    keep = untied(d_c, 1e-5)
+    if not np.array_equal(i_g[keep], i_c[keep]):
+        raise AssertionError("entry(): ids on the card differ from the "
+                             "CPU's where no distances tie")
+    log("entry", f"{smi}: entry() (tiny index built on the card, "
+        f"{build_s:.1f} s with its first step): (8, 32) finite, ascending, "
+        f"ids >= 0; the same query_step on the CPU: ids equal on all "
+        f"{int(keep.sum())} lanes of {keep.size} whose distance ties with "
+        f"no neighbour within 1e-5, max |distance "
+        f"diff| {float(np.abs(d_g - d_c).max())}")
+    del fn, args
+
+    # -- 2. the step at the preset over the engine's index ----------------
+    q_all = torch.from_numpy(queries).to(dev)
+    batches = [q_all[b * NQ_BATCH:(b + 1) * NQ_BATCH]
+               for b in range(N_BATCHES)]
+    probes = [rank_centroids(q, index.centroids, nprobe)[1] for q in batches]
+    recon = index.list_recon
+    step_args = (index.centroids, recon, index.list_ids, index.list_sizes,
+                 engine.base)
+
+    def step(q):
+        return query_step(*step_args, q, nprobe=nprobe, coarse_probe=cp,
+                          k=k)
+
+    def timed(fn_b):
+        """fn_b(b) over the batches → (outputs, host ms a batch)."""
+        outs, ms = [], []
+        for b in range(N_BATCHES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            o = fn_b(b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            outs.append(o)
+        return outs, ms
+
+    def as_np(outs):
+        """[(dists, ids)] a batch, tensors or numpy → (ids, dists)."""
+        def cat(j):
+            return np.concatenate([o[j].cpu().numpy() if torch.is_tensor(
+                o[j]) else o[j] for o in outs])
+        return cat(1), cat(0)
+
+    step(batches[0])                      # warm-up
+    outs, ms = timed(lambda b: step(batches[b]))
+    ids, dists = as_np(outs)
+    rep, err = check_answers("entry/step", ids, dists, base64, q64,
+                             data["groundtruth"], k)
+    dev_step = device_ms(lambda: step(batches[0]), iters=5, warmup=1)
+    nl, lmax, d = recon.shape
+    pair_rows = int(index.list_sizes[probes[0]].sum())
+    bound = dense_bound(
+        index.list_sizes, probes[0], d * recon.element_size(),
+        NQ_BATCH * d * 4 + nl * d * 4 + NQ_BATCH * cp * d * 4
+        + NQ_BATCH * k * 8,
+        2.0 * d * (pair_rows + NQ_BATCH * (nl + cp)))
+    gathered = NQ_BATCH * nprobe * lmax * d * recon.element_size()
+    log("entry", f"{smi}: query_step at nprobe={nprobe} coarse_probe={cp} "
+        f"k={k} over list_recon [{nl}, {lmax}, {d}] {recon.dtype} "
+        f"(no list_norms: the norms from the payload, the whole index a "
+        f"call), x{N_BATCHES} of {NQ_BATCH}: host clock "
+        f"{', '.join(f'{t:.2f}' for t in ms)} ms a batch, device "
+        f"{dev_step} ms a call (torch.profiler, all its device work); "
+        f"bound {bound[0]:.4f} ms ({bound[1]}: {bound[2] / 1e6:.1f} MB, the "
+        f"probed lists' {bound[3]} rows read once); the per-probe gather "
+        f"reads {gathered / 1e6:.1f} MB (lmax rows a (query, probe)) and "
+        f"the norm pass {recon.numel() * recon.element_size() / 1e6:.1f} MB")
+    log("entry", f"query_step: recall@10 {rep.recall_10} recall@100 "
+        f"{rep.recall_100} (/search: {search_recall.recall_10} / "
+        f"{search_recall.recall_100}); returned distances = exact float64 "
+        f"distances of the returned ids, max |err| {err}")
+
+    # the step's coarse top-coarse_probe, cut to k: what IVFPQ.search
+    # returns on the same list_recon
+    coarse = []
+    for q, p in zip(batches, probes):
+        res = coarse_scan_flat(recon, index.list_ids, index.list_sizes, q, p)
+        cd, pos = topk_select(res.distances, cp)
+        coarse.append((cd[:, :k].cpu().numpy(),
+                       torch.gather(res.ids, 1, pos)[:, :k].cpu().numpy()))
+        del res
+    del outs
+
+    def model_run(tag, model, row_bytes, other_bytes, flops):
+        """model.search over the batches, timed → (ids, dists) numpy."""
+        model.nprobe = nprobe
+
+        def search(b):
+            return model.search(queries[b * NQ_BATCH:(b + 1) * NQ_BATCH],
+                                k=k, coarse_probe=cp)
+
+        search(0)                         # warm-up
+        outs, ms = timed(search)
+        dev_ms = device_ms(lambda: search(0), iters=5, warmup=1)
+        bnd = dense_bound(index.list_sizes, probes[0], row_bytes,
+                          other_bytes, flops)
+        log("entry", f"{smi}: {tag}.search(k={k}, coarse_probe={cp}) at "
+            f"nprobe={nprobe}, x{N_BATCHES} of {NQ_BATCH}: host clock "
+            f"{', '.join(f'{t:.2f}' for t in ms)} ms a batch, device "
+            f"{dev_ms} ms a call (torch.profiler); bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}: {bnd[2] / 1e6:.1f} MB)")
+        return as_np(outs)
+
+    qio = NQ_BATCH * d * 4 + nl * d * 4 + NQ_BATCH * k * 8
+    flops_scan = 2.0 * d * (pair_rows + NQ_BATCH * nl)
+
+    # -- 3. IVFPQ on list_recon: the step's coarse candidates ------------
+    pq = IVFPQ(cfg.index, device=dev)
+    pq.index = index
+    ids, dists = model_run("IVFPQ", pq, d * recon.element_size() + 4, qio,
+                           flops_scan)
+    c_d = np.concatenate([c[0] for c in coarse])
+    c_i = np.concatenate([c[1] for c in coarse])
+    tol = scan_atol(q_all, index.list_norms)
+    n_swap = 0
+    for qi in range(ids.shape[0]):
+        kth = dists[qi, -1]
+        a = dict(zip(ids[qi].tolist(), dists[qi].tolist()))
+        b = dict(zip(c_i[qi].tolist(), c_d[qi].tolist()))
+        for x in a.keys() & b.keys():
+            if abs(a[x] - b[x]) > tol:
+                raise AssertionError(f"IVFPQ: query {qi} id {x}: distance "
+                                     f"{a[x]} against the step's {b[x]}")
+        for x, dx in [(x, a[x]) for x in a.keys() - b.keys()] + [
+                (x, b[x]) for x in b.keys() - a.keys()]:
+            if abs(dx - kth) > tol:
+                raise AssertionError(f"IVFPQ: query {qi}: id {x} at "
+                                     f"{dx} differs from the step's top-{k} "
+                                     f"beyond a tie at {kth}")
+            n_swap += 1
+    log("entry", f"IVFPQ (list_recon): ids equal as sets to the step's "
+        f"top-{cp} cut to {k} on every query ({n_swap // 2} swaps, each a "
+        f"tie within {tol:.1f} at the {k}-th distance)")
+
+    # -- 4. IVFPQ on its codes alone: the LUT scan (coarse_scan_pq) --------
+    codes_idx = dataclasses.replace(index, list_recon=None, host_arrays={
+        n: a for n, a in index.host_arrays.items() if n != "payload"})
+    pq_lut = IVFPQ(cfg.index, device=dev)
+    pq_lut.index = codes_idx
+    res_r = pq.coarse_scan(batches[0], probes[0])
+    res_l = pq_lut.coarse_scan(batches[0], probes[0])
+    for f in ("ids", "mask", "counts"):
+        if not torch.equal(getattr(res_r, f), getattr(res_l, f)):
+            raise AssertionError(f"IVFPQ LUT scan: {f} differ from the "
+                                 f"list_recon scan")
+    # bf16 rounding of z: |‖q−ẑ‖² − ‖q−z‖²| ≤ 2‖q−z‖·e‖z‖ + (e‖z‖)², e =
+    # 2^-9 (round to nearest), beside the scans' f32 tolerance
+    e = 2.0 ** -9
+    p0 = probes[0].long()
+    zn = (index.list_norms[p0].reshape(NQ_BATCH, -1).double().sqrt()
+          / (1 - e))
+    m = res_r.mask
+    dl = res_l.distances.double()
+    allow = 2 * dl.clamp(min=0).sqrt() * e * zn + (e * zn) ** 2 + tol
+    gap = (res_r.distances.double() - dl).abs()
+    if bool((gap > allow)[m].any()):
+        raise AssertionError("IVFPQ LUT scan: distances beyond bf16 rounding "
+                             "of the list_recon scan's")
+    log("entry", f"IVFPQ LUT scan (coarse_scan_pq, codes only) against the "
+        f"list_recon scan at batch 0: ids, mask and counts equal; max "
+        f"|distance diff| {float(gap[m].max()):.2f}, at most "
+        f"{float((gap / allow)[m].max()):.3f} of the bf16 bound")
+    del res_r, res_l, dl, gap, allow, zn, m
+    M = index.codebooks.shape[0]
+    ids, dists = model_run(
+        "IVFPQ-LUT", pq_lut, M, qio + index.codebooks.numel() * 4,
+        2.0 * M * pair_rows + NQ_BATCH * nprobe * index.codebooks.numel() * 2)
+    if not np.isfinite(dists).all() or (np.diff(dists, axis=1) < 0).any():
+        raise AssertionError("IVFPQ-LUT: distances not finite and ascending")
+    rep_l = benchmark_results(ids, data["groundtruth"], k=k)
+    log("entry", f"IVFPQ-LUT: ADC distances only (no re-rank): recall@10 "
+        f"{rep_l.recall_10} recall@100 {rep_l.recall_100} (no limit)")
+
+    # -- 5. FlatL2: brute force over the base -----------------------------
+    base_np = data["base"]
+    flat = FlatL2(d, device=dev)
+    flat.add(base_np)
+
+    def flat_search(b):
+        return flat.search(queries[b * NQ_BATCH:(b + 1) * NQ_BATCH], k)
+
+    flat_search(0)
+    outs, t_flat = timed(flat_search)
+    dev_flat = device_ms(lambda: flat_search(0), iters=5, warmup=1)
+    ids, dists = as_np(outs)
+    rep_f, err = check_answers("entry/FlatL2", ids, dists, base64, q64,
+                               data["groundtruth"], k)
+    if rep_f.recall_10 != 1.0 or rep_f.recall_100 != 1.0:
+        raise AssertionError(f"FlatL2: recall {rep_f.recall_10} / "
+                             f"{rep_f.recall_100}, not 1.0")
+    nb = base_np.shape[0]
+    fb = nb * d * 4 + NQ_BATCH * d * 4 + NQ_BATCH * k * 8
+    ff = 2.0 * d * nb * NQ_BATCH
+    flat_bound = max(fb / HBM_BYTES_S, ff / F32_FLOPS) * 1e3
+    log("entry", f"{smi}: FlatL2.search(k={k}) over {nb} rows, "
+        f"x{N_BATCHES} of {NQ_BATCH}: host clock "
+        f"{', '.join(f'{t:.2f}' for t in t_flat)} ms a batch, device "
+        f"{dev_flat} ms a call (torch.profiler); bound {flat_bound:.4f} ms "
+        f"({'bytes' if fb / HBM_BYTES_S >= ff / F32_FLOPS else 'operations'}"
+        f": {fb / 1e6:.1f} MB, {ff / 1e9:.2f} GFLOP f32); recall@10 "
+        f"{rep_f.recall_10} recall@100 {rep_f.recall_100}, distances exact "
+        f"(max |err| {err})")
+    del flat, outs
+    torch.cuda.empty_cache()
+
+    # -- 6. IVFFlat and IVFSQ8, assembled from the engine's lists ----------
+    lids = index.list_ids.cpu().numpy()
+    valid = lids >= 0
+    rows = lids[valid]
+    arrays = {"centroids": index.centroids.cpu().numpy(), "list_ids": lids,
+              "list_sizes": index.list_sizes.cpu().numpy()}
+    t0 = time.perf_counter()
+    vecs = np.zeros(lids.shape + (d,), np.float32)
+    vecs[valid] = base_np[rows]
+    norms = np.zeros(lids.shape, np.float32)
+    norms[valid] = (base_np.astype(np.float64) ** 2).sum(-1)[rows]
+    p_flat = dataclasses.replace(cfg.index, pq_m=0)
+    ivf = IVFFlat(p_flat, device=dev)
+    ivf.index = index_from_numpy(dict(arrays, list_vectors=vecs,
+                                      list_norms=norms), p_flat, dev)
+    del vecs, norms
+    log("entry", f"IVFFlat index from the engine's lists: "
+        f"{time.perf_counter() - t0:.1f} s, list_vectors "
+        f"{ivf.index.list_vectors.numel() * 4 / 1e9:.3f} GB f32 "
+        f"(lmax {lmax})")
+    ids, dists = model_run("IVFFlat", ivf, d * 4 + 4, qio, flops_scan)
+    rep_v, err = check_answers("entry/IVFFlat", ids, dists, base64, q64,
+                               data["groundtruth"], k)
+    log("entry", f"IVFFlat: recall@10 {rep_v.recall_10} recall@100 "
+        f"{rep_v.recall_100}; distances exact (max |err| {err})")
+    del ivf
+    torch.cuda.empty_cache()
+
+    # the index build's SQ8 quantizer, trained on the smoke's train set
+    codes8, vmin, scale = sq8_encode(data["train"], base_np)
+    list_sq = np.zeros(lids.shape + (d,), np.uint8)
+    list_sq[valid] = codes8[rows]
+    p_sq8 = dataclasses.replace(cfg.index, pq_m=0, quantizer="sq8")
+    sq8 = IVFSQ8(p_sq8, device=dev)
+    sq8_idx = index_from_numpy(dict(arrays, list_sq=list_sq, sq_vmin=vmin,
+                                    sq_scale=scale), p_sq8, dev)
+    sq8.index = sq8_idx
+    del list_sq
+    ids, dists = model_run("IVFSQ8", sq8, d, qio, flops_scan)
+    if not np.isfinite(dists).all() or (np.diff(dists, axis=1) < 0).any():
+        raise AssertionError("IVFSQ8: distances not finite and ascending")
+    dec = (torch.from_numpy(vmin).to(dev, torch.float64)
+           + (torch.from_numpy(codes8).to(dev)[torch.from_numpy(ids).to(
+               dev).long()].double() + 0.5)
+           * torch.from_numpy(scale).to(dev, torch.float64))
+    exact = ((dec - q64[:, None]) ** 2).sum(-1)
+    tol8 = scan_atol(q_all, (dec ** 2).sum(-1))
+    err8 = float((torch.from_numpy(dists).to(dev) - exact).abs().max())
+    if err8 > tol8:
+        raise AssertionError(f"IVFSQ8: distances {err8} from the decoded "
+                             f"vectors' (tolerance {tol8})")
+    rep_s = benchmark_results(ids, data["groundtruth"], k=k)
+    if abs(rep_s.recall_100 - rep_v.recall_100) > 0.02:
+        raise AssertionError(f"IVFSQ8: recall@100 {rep_s.recall_100}, "
+                             f"IVFFlat's {rep_v.recall_100}")
+    log("entry", f"IVFSQ8: distances = the decoded vectors' float64 "
+        f"distances within {tol8:.1f} (max |err| {err8:.3f}); recall@10 "
+        f"{rep_s.recall_10} recall@100 {rep_s.recall_100} (IVFFlat "
+        f"{rep_v.recall_100}, within 0.02)")
+    del dec, exact, codes8
+
+    # -- 7. the engine's dense coarse branch: JSON /coarsesearch ----------
+    eng = type(engine)(cfg, device=dev)
+    for tag, idx, model in (("IVFSQ8", sq8_idx, sq8),
+                            ("PQ codes", codes_idx, pq_lut)):
+        eng.set_index(idx, base_np)
+        if eng._tiled_view is not None:
+            raise AssertionError(f"engine ({tag}): a tiled view was built")
+        disp = Dispatcher(eng)
+        req_ms, nbytes = [], 0
+        for b, (q, p) in enumerate(zip(batches, probes)):
+            sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
+            body = json.dumps({"preciseQuery": queries[sl].tolist(),
+                               "nearestCentroidIndexes":
+                                   p.cpu().numpy().tolist()}).encode()
+            t0 = time.perf_counter()
+            status, _, resp = disp.handle("POST", "/coarsesearch", {},
+                                              body)
+            req_ms.append((time.perf_counter() - t0) * 1e3)
+            if status != 200:
+                raise AssertionError(f"/coarsesearch ({tag}): {status} "
+                                     f"{resp[:200]!r}")
+            res = model.coarse_scan(q, p)
+            mask = res.mask.cpu().numpy().reshape(-1)
+            want = (b'{"coarseDistanceScores":' + native.json_encode_f32(
+                res.distances.cpu().numpy().reshape(-1)[mask])
+                + b',"coarseVectorIndexes":' + native.json_encode_i64(
+                    res.ids.cpu().numpy().reshape(-1)[mask].astype(
+                        np.int64))
+                + b',"listSizesPerQuery":' + native.json_encode_i64(
+                    res.counts.cpu().numpy().astype(np.int64)) + b"}")
+            if resp != want:
+                raise AssertionError(f"/coarsesearch ({tag}) batch {b}: "
+                                     f"not byte-equal to {type(model).__name__}"
+                                     f".coarse_scan under its mask")
+            nbytes += len(resp)
+            del res
+        log("entry", f"{smi}: engine dense branch ({tag}, no tiled view): "
+            f"JSON /coarsesearch x{N_BATCHES} of {NQ_BATCH} queries "
+            f"byte-equal to {type(model).__name__}.coarse_scan under its "
+            f"mask (scores, ids, listSizesPerQuery); host clock "
+            f"{', '.join(f'{t:.1f}' for t in req_ms)} ms a request, "
+            f"{nbytes / N_BATCHES / 1e6:.1f} MB a response")
+    del eng, disp, sq8, sq8_idx, pq_lut, codes_idx
+    torch.cuda.empty_cache()
+
+    launches = {n: w.launches for n, w in wrappers.items()}
+    plain_calls = sum(p.calls for p in plains)
+    if any(launches.values()) or plain_calls:
+        raise AssertionError(f"the dense family launched {launches}, plain "
+                             f"versions {plain_calls}: it runs no kernel")
+    log("entry", f"launches over the phase {launches}, plain-version calls "
+        f"{plain_calls} (the dense family is plain PyTorch, as it is XLA "
+        f"in the JAX package); phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def time_k1_headline(index, queries, nprobe: int, smi) -> dict:
+    """K1 alone at the bench headline's shape (PERF.md § 4, core): the
+    engine's index in tiles of 1,024, all N_BATCHES x NQ_BATCH queries in
+    one batch at ``nprobe``, the union of their probed tiles. Held against
+    its plain version first (check_k1_at_bench's tolerances); then its
+    device time (torch.profiler; CUDA events beside it), the torch.matmul
+    cross term at the same shape and the card's bound."""
+    import numpy as np
+    import torch
+
+    from prefhetch_tpu_torch.index.tiling import build_tiled_view
+    from prefhetch_tpu_torch.ops import union_scan_min as usm
+    from prefhetch_tpu_torch.ops.distances import rank_centroids
+    from prefhetch_tpu_torch.ops.union_scan import union_probe_tiles
+
+    view = build_tiled_view(index, tile=1024)
+    q = torch.from_numpy(queries).to(index.device)
+    _, probes = rank_centroids(q, index.centroids, nprobe)
+    tiles, _ = view.expand_probes(probes.cpu().numpy())
+    union_np, _ = union_probe_tiles(tiles, view.empty_tile)
+    union = torch.from_numpy(union_np.astype(np.int32)).to(index.device)
+    args = (view.payload, view.norms, view.sizes, q, union)
+    checked = check_k1_at_bench("timing/headline", args)
+
+    def k1():
+        return usm.union_scan_min(*args)
+
+    ev = cuda_time_ms(k1)
+    dev_ms = kernel_ms(k1, "union_scan_min_bf16_kernel", ev)
+    real = union[view.sizes[union.long()] > 0].long()
+    slab_t = view.payload[real].reshape(-1, D).T.contiguous()
+    qc = q.to(view.payload.dtype)
+    lib_ms = cuda_time_ms(lambda: torch.matmul(qc, slab_t))
+    lib_dev = device_ms(lambda: torch.matmul(qc, slab_t))
+    bound_ms, bound_by, nbytes, flops, rows = k1_bound(
+        view.payload, view.sizes, union, q.shape[0])
+    U, T = union.shape[0], view.tile
+    log("timing", f"{smi}: union_scan_min at the bench headline's shape "
+        f"[U {U}, nq {q.shape[0]}, T {T}] (real tiles {len(real)}, valid "
+        f"rows {rows}, d={D}): kernel {dev_ms:.4f} ms on the device "
+        f"({nbytes / dev_ms / 1e6:.0f} GB/s of the bound's bytes; CUDA "
+        f"events over wrapper calls {ev:.4f}), torch.matmul cross term "
+        f"{lib_ms:.4f} ms (device {lib_dev}), bound {bound_ms:.4f} ms "
+        f"({bound_by}: {nbytes / 1e6:.1f} MB, of it the d2 write "
+        f"{U * q.shape[0] * T * 2 / 1e6:.1f} MB; {flops / 1e9:.2f} GFLOP)")
+    return {**checked, "ms": dev_ms, "ms_events": ev, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib_ms}
+
 def phase_ablation(k4args, k5args, tb, nbatch: int) -> None:
     """K4 and K5 on the first sq8 and slab batches' own arguments and K2 at
     the request's shape under every variant of tools/kernel_ablation.py."""
@@ -4239,6 +4718,9 @@ def main() -> int:
     hold = {}
     variant_rows = phase_variants(engine, data, queries, reset_counts, sm_mhz,
                                   rep, base64, q64, hold)
+
+    # -- 4e. the dense-layout path: entry(), the models, the dense branch ----
+    phase_entry(engine, data, queries, reset_counts, smi, rep, base64, q64)
     del base64, q64
 
     # -- 5. timings at the main-path shape (first batch) ---------------------
@@ -4268,6 +4750,8 @@ def main() -> int:
         f"{library_ms:.4f} ms (device {library_dev}), bound "
         f"{bound_ms:.4f} ms ({bound_by}: "
         f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+    k1_headline = time_k1_headline(engine.index, queries,
+                                   cfg.protocol.nprobe, smi)
     svc = engine.he_service
     nbatch = NQ_BATCH * -(-cfg.protocol.coarse_probe // (svc.params.n // D))
     k2_times = time_ntt4_transform(svc._tables[0], nbatch)
@@ -4328,6 +4812,7 @@ def main() -> int:
         "launches_bench": bench_launches["union_scan_min"],
         "path_bench": bench_path,
         "at_bench_shape": bench["at_shape"]["union_scan_min"],
+        "at_headline_shape": k1_headline,
     }, {
         "name": "ntt4_transform",
         "route": "cuda",

@@ -154,6 +154,23 @@ def encode_pq(
     return codes
 
 
+def sq8_encode(
+    train: np.ndarray, base: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The index's per-dimension 8-bit scalar quantizer (faiss
+    IndexIVFScalarQuantizer QT_8bit analog): min and scale trained on the
+    train set, ``base`` rounded to uint8 codes → (codes [n, d] uint8, vmin
+    [d] f32, scale [d] f32); x ≈ vmin + (code + ½)·scale."""
+    train_f = np.asarray(train, np.float32)
+    vmin = train_f.min(axis=0)
+    vmax = train_f.max(axis=0)
+    scale = np.maximum((vmax - vmin) / 255.0, 1e-12).astype(np.float32)
+    codes8 = np.clip(
+        np.round((base - vmin) / scale), 0, 255
+    ).astype(np.uint8)
+    return codes8, vmin, scale
+
+
 def build_ivf_index(
     train: np.ndarray,
     base: np.ndarray,
@@ -211,15 +228,7 @@ def build_ivf_index(
         "centroids": centroids, "list_ids": list_ids, "list_sizes": sizes,
     }
     if params.uses_sq8:
-        # per-dimension 8-bit scalar quantizer (faiss IndexIVFScalarQuantizer
-        # QT_8bit analog): min/scale trained on the training set
-        train_f = np.asarray(train, np.float32)
-        vmin = train_f.min(axis=0)
-        vmax = train_f.max(axis=0)
-        scale = np.maximum((vmax - vmin) / 255.0, 1e-12).astype(np.float32)
-        codes8 = np.clip(
-            np.round((base - vmin) / scale), 0, 255
-        ).astype(np.uint8)
+        codes8, vmin, scale = sq8_encode(train, base)
         list_sq = np.zeros((nlist, lmax, params.d), np.uint8)
         list_sq[sorted_assign, rank_in_list] = codes8[order]
         arrays["list_sq"] = list_sq

@@ -9,7 +9,7 @@ database shapes too), the scan variants of query_pipeline on CUDA
 against the CPU, and sharding on the card: the engine over meshes of
 shards of the one card byte-identical to the unsharded engine (K1 once a
 shard), the q1 MAC and the PIR answer sharded, an NCCL world of one and the
-dry run. Without CUDA they skip (one CPU test here checks that
+dry run; the entry's dense step (entry.py) on CUDA against the CPU. Without CUDA they skip (one CPU test here checks that
 ``DevicePIR2`` refuses the card when CUDA is absent). On a machine with an H100 and nvcc (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1080,3 +1080,25 @@ def test_dryrun_multichip_on_cuda(cuda):
     out = dryrun_multichip(4, device=cuda)
     assert out["ok"] and out["k1_pruned_scan"] == 4
     assert out["k2_q1_mac"] == 24
+
+
+def test_entry_on_cuda_matches_cpu(cuda):
+    """entry() on the card: the JAX entry's contract, and the same
+    query_step on the same tensors moved to the CPU gives the same ids
+    wherever neighbouring distances do not tie within 1e-5 relative, and
+    distances to rtol 1e-5."""
+    from prefhetch_tpu_torch.entry import entry
+
+    fn, args = entry()
+    assert all(a.device == cuda for a in args)
+    d, ids = (t.cpu().numpy() for t in fn(*args))
+    d_c, ids_c = (t.numpy() for t in fn(*(a.cpu() for a in args)))
+    assert d.shape == ids.shape == (8, 32)
+    assert np.isfinite(d).all() and (np.diff(d, axis=1) >= 0).all()
+    assert ids.min() >= 0
+    np.testing.assert_allclose(d, d_c, rtol=1e-5, atol=0)
+    near = np.abs(np.diff(d_c, axis=1)) <= 1e-5 * np.abs(d_c[:, 1:])
+    tied = np.zeros_like(d_c, bool)
+    tied[:, 1:] |= near
+    tied[:, :-1] |= near
+    np.testing.assert_array_equal(ids[~tied], ids_c[~tied])

@@ -1,0 +1,104 @@
+"""The system under test: prefhetch_tpu_torch set up as a configuration
+states, and nothing else of it.
+
+The index is built by the program's own ``build_ivf_index`` from the
+configuration's corpus (and kept by its ``save_index``), served by its
+``QueryEngine`` behind its ``Dispatcher``. Requests reach it only as bytes
+through ``handle``. This module and tracing.py are the only ones of the
+harness that import the program.
+"""
+
+from __future__ import annotations
+
+import gc
+import hashlib
+import json
+import os
+import shutil
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from anns_bench.cell import CACHE
+
+
+class System:
+    def __init__(self, config: dict, data: Dict[str, np.ndarray],
+                 device: torch.device, rows_per_request: int):
+        from prefhetch_tpu_torch.engine.server import QueryEngine
+        from prefhetch_tpu_torch.serve.handlers import Dispatcher
+        from prefhetch_tpu_torch.utils.config import (
+            HEParams, IndexParams, PipelineConfig, ProtocolParams,
+        )
+
+        ds, ix, pr = config["dataset"], config["index"], config["protocol"]
+        he = config.get("he") or {}
+        params = IndexParams(
+            d=int(ds["d"]), nlist=int(ix["nlist"]), pq_m=int(ix["pq_m"]),
+            pq_nbits=int(ix["pq_nbits"]), balance=float(ix["balance"]),
+        )
+        index = self._index(config, params, data, device)
+        # the serving peak is read from here on: the first run's build
+        # transients (k-means, PQ encoding) serve no request
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+        pcfg = PipelineConfig(
+            index=params,
+            protocol=ProtocolParams(
+                nprobe=int(pr["nprobe"]), coarse_probe=int(pr["coarse_probe"]),
+                k=int(pr["k"]), nquery=int(rows_per_request),
+                encrypted_rerank=bool(he),
+            ),
+            he=HEParams(scheme=he.get("scheme", "bfv"), n=int(he.get("n", 4096)),
+                        t_bits=int(he.get("t_bits", 24)),
+                        n_limbs=int(he.get("n_limbs", 2)),
+                        resp_mod=he.get("resp_mod", "full")),
+            nbase=int(ds["nbase"]),
+        )
+        self.engine = QueryEngine(pcfg, device=device)
+        self.engine.set_index(index, data["base"])
+        self.dispatcher = Dispatcher(self.engine)
+        self.device = device
+
+    @staticmethod
+    def _index(config: dict, params, data, device):
+        """The program's index of the corpus: built by ``build_ivf_index``
+        on the first run in a checkout and kept with the program's own
+        ``save_index``; later runs take its warm-load path, ``load_index``.
+        One entry a (dataset, index) block: the corpus comes from the
+        configuration, so every run serves the same index. The run that
+        builds it serves it from that load path too, as every later run
+        does, with the build's own arrays dropped."""
+        from prefhetch_tpu_torch.index.build import (
+            build_ivf_index, load_index, save_index,
+        )
+
+        blob = json.dumps({"dataset": config["dataset"],
+                           "index": config["index"]}, sort_keys=True)
+        where = os.path.join(CACHE, "index",
+                             hashlib.sha256(blob.encode()).hexdigest()[:16])
+        path = os.path.join(where, params.artifact_name())
+        if not os.path.exists(path):
+            index = build_ivf_index(data["train"], data["base"], params,
+                                    device)
+            tmp = where + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            save_index(index, tmp)
+            del index
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            shutil.rmtree(where, ignore_errors=True)
+            os.replace(tmp, where)
+        return load_index(path, device)
+
+    def handle(self, method: str, path: str, headers: Dict[str, str],
+               body: bytes) -> Tuple[int, str, bytes]:
+        return self.dispatcher.handle(method, path, headers, body)
+
+    def close(self) -> None:
+        """Drop the program's state."""
+        self.dispatcher = None
+        self.engine = None

@@ -1,0 +1,9 @@
+"""Median a /search request, over those wholly inside the profiled slice,
+of the runtime and driver calls that enqueued a device operation from
+inside the program's ``launch`` span, on its thread."""
+
+from anns_bench import program_spans
+
+
+def read(run):
+    return program_spans.launches(run, "POST /search", "launch")

@@ -83,6 +83,7 @@ from prefhetch_tpu_torch.ops.union_scan import (
     union_scan_distances_q16, union_scan_pruned_fused,
 )
 from prefhetch_tpu_torch.utils.config import PipelineConfig
+from prefhetch_tpu_torch.utils.stages import span, stage
 
 logger = logging.getLogger("prefhetch.engine")
 
@@ -276,30 +277,33 @@ class QueryEngine:
         (parallel/sharded.partition_union): union is then union_dev np
         [ndev, u_loc] and pos pos_dev np [nq, mt] into the shard-major
         layout."""
-        view = self._tiled_view
-        nprobe = probes_np.shape[1]
-        if nprobe not in self._serve_mt:
-            self._serve_mt[nprobe] = view.serving_max_tiles(nprobe)
-        tile_idx, counts = view.expand_probes(
-            probes_np, min_t=self._serve_mt[nprobe]
-        )
-        union_np, pos_np = union_probe_tiles(tile_idx, view.empty_tile)
-        dev = self.device
-        q = torch.tensor(q, dtype=torch.float32, device=dev)
-        if self.is_sharded:
-            from prefhetch_tpu_torch.parallel.sharded import partition_union
+        with span("prep"):
+            view = self._tiled_view
+            nprobe = probes_np.shape[1]
+            if nprobe not in self._serve_mt:
+                self._serve_mt[nprobe] = view.serving_max_tiles(nprobe)
+            tile_idx, counts = view.expand_probes(
+                probes_np, min_t=self._serve_mt[nprobe]
+            )
+            union_np, pos_np = union_probe_tiles(tile_idx, view.empty_tile)
+            dev = self.device
+            q = torch.tensor(q, dtype=torch.float32, device=dev)
+            if self.is_sharded:
+                from prefhetch_tpu_torch.parallel.sharded import (
+                    partition_union,
+                )
 
-            union_dev, pos_dev, _ = partition_union(
-                union_np, pos_np, view.empty_tile, self._sharded_tiled.tpl,
-                self._mesh.ndev)
-            return tile_idx, q, union_dev, pos_dev, counts
-        return (
-            tile_idx,
-            q,
-            torch.from_numpy(union_np.astype(np.int32)).to(dev),
-            torch.from_numpy(pos_np).to(dev),
-            counts,
-        )
+                union_dev, pos_dev, _ = partition_union(
+                    union_np, pos_np, view.empty_tile,
+                    self._sharded_tiled.tpl, self._mesh.ndev)
+                return tile_idx, q, union_dev, pos_dev, counts
+            return (
+                tile_idx,
+                q,
+                torch.from_numpy(union_np.astype(np.int32)).to(dev),
+                torch.from_numpy(pos_np).to(dev),
+                counts,
+            )
 
     def _union_scan(self, q, union, pos) -> torch.Tensor:
         """The f32 union scan [nq, mt·T] of ``_tiled_batch_prep``'s batch,
@@ -568,8 +572,6 @@ class QueryEngine:
         ``hypercube_multi`` = 2-D with multi-row packed queries (ONE ct per
         ⌊N/m⌋ rows; each entry {"ct": wire, "nRows": k} yields k responses
         in order)."""
-        from prefhetch_tpu_torch.utils.stages import stage
-
         if hypercube_multi is not None or hypercube is not None:
             svc = self.pir2_service
             if galois_keys:
@@ -632,9 +634,10 @@ class QueryEngine:
         top-COARSE_PROBE → exact re-rank → final top-k. Returns
         (ids i32 [nq, k], dists f32 [nq, k]) ascending; the wire layer
         widens ids to the protocol's i64."""
-        return self.search_fused_async(
-            precise_query, nearest_centroid_idx, k
-        )()
+        with span("engine"):
+            return self.search_fused_async(
+                precise_query, nearest_centroid_idx, k
+            )()
 
     def search_fused_async(
         self,
@@ -658,21 +661,24 @@ class QueryEngine:
                 f"probed lists hold {int(counts.min())} candidates < "
                 f"COARSE_PROBE={cp}"
             )
-        mt = tile_idx.shape[1]
-        j = self._serve_prune_j(mt)
-        tiles = torch.from_numpy(tile_idx).to(self.device)
-        if j:
-            dist, sel = self._union_scan_pruned(q, union, pos, j)
-            _, posk = topk_select_segmented(dist, cp, j, level1_bf16=True)
-            tiles = torch.gather(tiles, 1, sel)
-        else:
-            dist = self._union_scan(q, union, pos)
-            _, posk = topk_select(dist, cp)
-        cand = resolve_topk_ids(posk, tiles, view.ids)
-        ids_k, dists_k = final_topk(self._rerank(q, cand), cand, k)
+        with span("launch"):
+            mt = tile_idx.shape[1]
+            j = self._serve_prune_j(mt)
+            tiles = torch.from_numpy(tile_idx).to(self.device)
+            if j:
+                dist, sel = self._union_scan_pruned(q, union, pos, j)
+                _, posk = topk_select_segmented(dist, cp, j,
+                                                level1_bf16=True)
+                tiles = torch.gather(tiles, 1, sel)
+            else:
+                dist = self._union_scan(q, union, pos)
+                _, posk = topk_select(dist, cp)
+            cand = resolve_topk_ids(posk, tiles, view.ids)
+            ids_k, dists_k = final_topk(self._rerank(q, cand), cand, k)
 
         def resolve():
-            return ids_k.cpu().numpy(), dists_k.cpu().numpy()
+            with span("resolve"):
+                return ids_k.cpu().numpy(), dists_k.cpu().numpy()
 
         return resolve
 
@@ -683,9 +689,10 @@ class QueryEngine:
         nearest_centroid_idx: np.ndarray,  # [nq, nprobe]
         k: int,
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        return self.coarse_search_topk_async(
-            precise_query, nearest_centroid_idx, k
-        )()
+        with span("engine"):
+            return self.coarse_search_topk_async(
+                precise_query, nearest_centroid_idx, k
+            )()
 
     def coarse_search_topk_async(
         self,
@@ -716,12 +723,14 @@ class QueryEngine:
             raise ValueError(
                 f"probed lists hold {int(counts.min())} candidates < k={k}"
             )
-        vals, posk = topk_select(self._union_scan(q, union, pos), k)
-        tiles = torch.from_numpy(tile_idx).to(self.device)
-        ids = resolve_topk_ids(posk, tiles, view.ids)
+        with span("launch"):
+            vals, posk = topk_select(self._union_scan(q, union, pos), k)
+            tiles = torch.from_numpy(tile_idx).to(self.device)
+            ids = resolve_topk_ids(posk, tiles, view.ids)
 
         def resolve():
-            return ids.cpu().numpy(), vals.cpu().numpy(), counts
+            with span("resolve"):
+                return ids.cpu().numpy(), vals.cpu().numpy(), counts
 
         return resolve
 
@@ -783,8 +792,6 @@ class QueryEngine:
         any other respMod: the per-block response, the request's queries in
         one program → (per query the block ct wires, per query the norms).
         """
-        from prefhetch_tpu_torch.utils.stages import stage
-
         svc = self.ckks_service
         if galois_keys:
             with stage("register galois keys"):
@@ -840,50 +847,52 @@ class QueryEngine:
         "candidateNorms"} under resp_mod="combined", otherwise the per-block
         response (ct wires per block per query, norms), as the JAX engine
         returns them; both need the client's Galois keys."""
-        from prefhetch_tpu_torch.utils.stages import stage
         from prefhetch_tpu_torch.utils.wire import pack_i32
 
-        if scheme == "ckks":
-            return self._encrypted_search_ckks(
-                encrypted_queries, nearest_coarse_vector_idx, key_id,
-                galois_keys, resp_mod)
-        if scheme != "bfv":
-            raise ValueError(f"unknown scheme {scheme!r}")
-        if resp_mod not in ("full", "q1", "packed"):
-            raise ValueError(f"unknown respMod {resp_mod!r}")
-        svc = self.he_service
-        cand = np.asarray(nearest_coarse_vector_idx, np.int64)
-        if resp_mod == "packed":
-            if galois_keys:
-                with stage("register galois keys"):
-                    svc.register_galois_keys(key_id, galois_keys)
-            if not svc.has_galois_keys(key_id):
-                raise ValueError(
-                    "unknown BFV keyId — register Galois keys first")
-            # wire-direct: seedTf cts upload only c0 + an 8-byte key (c1
-            # regenerates inside the device program)
-            packed, norms, grp = svc.encrypted_scores_packed_wire(
-                encrypted_queries, cand, key_id)
-            with stage("to_wire (base64)"):
-                return {
-                    "packedScores": [c.to_wire() for c in packed],
-                    "candidateNorms": norms.tolist(),
-                    "packGroup": grp,
-                }
-        with stage("ct_from_wire (c1 expansion + host NTT)"):
-            cts_in = [svc.ctx.ct_from_wire(w) for w in encrypted_queries]
-        if resp_mod == "q1":
-            c1_q1, c0_ip, norms = svc.encrypted_scores_trunc_q1(cts_in, cand)
+        with span("encrypted search"):
+            if scheme == "ckks":
+                return self._encrypted_search_ckks(
+                    encrypted_queries, nearest_coarse_vector_idx, key_id,
+                    galois_keys, resp_mod)
+            if scheme != "bfv":
+                raise ValueError(f"unknown scheme {scheme!r}")
+            if resp_mod not in ("full", "q1", "packed"):
+                raise ValueError(f"unknown respMod {resp_mod!r}")
+            svc = self.he_service
+            cand = np.asarray(nearest_coarse_vector_idx, np.int64)
+            if resp_mod == "packed":
+                if galois_keys:
+                    with stage("register galois keys"):
+                        svc.register_galois_keys(key_id, galois_keys)
+                if not svc.has_galois_keys(key_id):
+                    raise ValueError(
+                        "unknown BFV keyId — register Galois keys first")
+                # wire-direct: seedTf cts upload only c0 + an 8-byte key (c1
+                # regenerates inside the device program)
+                packed, norms, grp = svc.encrypted_scores_packed_wire(
+                    encrypted_queries, cand, key_id)
+                with stage("to_wire (base64)"):
+                    return {
+                        "packedScores": [c.to_wire() for c in packed],
+                        "candidateNorms": norms.tolist(),
+                        "packGroup": grp,
+                    }
+            with stage("ct_from_wire (c1 expansion + host NTT)"):
+                cts_in = [svc.ctx.ct_from_wire(w)
+                          for w in encrypted_queries]
+            if resp_mod == "q1":
+                c1_q1, c0_ip, norms = svc.encrypted_scores_trunc_q1(cts_in,
+                                                                    cand)
+                with stage("pack_i32"):
+                    return {
+                        "c1Q1": pack_i32(c1_q1),
+                        "c0Ip": pack_i32(c0_ip),
+                        "candidateNorms": norms.tolist(),
+                    }
+            c1_ntt, c0_ip, norms = svc.encrypted_scores_trunc(cts_in, cand)
             with stage("pack_i32"):
                 return {
-                    "c1Q1": pack_i32(c1_q1),
+                    "c1Ntt": pack_i32(c1_ntt),
                     "c0Ip": pack_i32(c0_ip),
                     "candidateNorms": norms.tolist(),
                 }
-        c1_ntt, c0_ip, norms = svc.encrypted_scores_trunc(cts_in, cand)
-        with stage("pack_i32"):
-            return {
-                "c1Ntt": pack_i32(c1_ntt),
-                "c0Ip": pack_i32(c0_ip),
-                "candidateNorms": norms.tolist(),
-            }

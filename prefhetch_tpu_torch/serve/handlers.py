@@ -45,7 +45,7 @@ import numpy as np
 
 from prefhetch_tpu_torch import native
 from prefhetch_tpu_torch.utils import wire_bin
-from prefhetch_tpu_torch.utils.stages import stage
+from prefhetch_tpu_torch.utils.stages import span, stage
 
 JSON_CT = "application/json"
 BIN_CT = wire_bin.CONTENT_TYPE
@@ -93,7 +93,13 @@ def _json_resp(obj, status: int = 200) -> Response:
 
 
 def _bin_resp(kind: int, sections, status: int = 200) -> Response:
-    return status, BIN_CT, wire_bin.encode(kind, sections)
+    with span("wire encode"):
+        return status, BIN_CT, wire_bin.encode(kind, sections)
+
+
+def _bin_req(body: bytes):
+    with span("wire decode"):
+        return wire_bin.decode(body)
 
 
 class Dispatcher:
@@ -118,21 +124,21 @@ class Dispatcher:
         headers: Dict[str, str],
         body: bytes,
     ) -> Response:
+        route = f"{method} {path}"
         t0 = time.perf_counter()
-        try:
-            if method == "GET":
-                resp = self._get(path, headers)
-            elif method == "POST":
-                resp = self._post(path, headers, body)
-            else:
-                resp = _json_resp({"error": "method not allowed"}, 405)
-        except (KeyError, TypeError, ValueError, IndexError) as e:
-            resp = _json_resp({"error": str(e)}, 400)
-        except NotImplementedError as e:
-            resp = _json_resp({"error": str(e)}, 501)
-        self.stats.record(
-            f"{method} {path}", time.perf_counter() - t0, resp[0] < 400
-        )
+        with span(route):
+            try:
+                if method == "GET":
+                    resp = self._get(path, headers)
+                elif method == "POST":
+                    resp = self._post(path, headers, body)
+                else:
+                    resp = _json_resp({"error": "method not allowed"}, 405)
+            except (KeyError, TypeError, ValueError, IndexError) as e:
+                resp = _json_resp({"error": str(e)}, 400)
+            except NotImplementedError as e:
+                resp = _json_resp({"error": str(e)}, 501)
+        self.stats.record(route, time.perf_counter() - t0, resp[0] < 400)
         return resp
 
     # -- GET routes ------------------------------------------------------
@@ -277,7 +283,7 @@ class Dispatcher:
     #     whose next request names the kept set anyway
     #     (engine.coarse_search_topk)
     def _coarse_search_bin(self, body: bytes) -> Response:
-        kind, secs = wire_bin.decode(body)
+        kind, secs = _bin_req(body)
         if kind == wire_bin.KIND_COARSE_REQ and len(secs) == 2:
             q = np.asarray(secs[0], np.float32)
             probes = np.asarray(secs[1], np.int64)
@@ -309,7 +315,7 @@ class Dispatcher:
     def _search_bin(self, body: bytes) -> Response:
         """Fused one-round triage (binary wire kind 11 → 12): coarse top-CP
         + exact re-rank + final top-k in one request."""
-        kind, secs = wire_bin.decode(body)
+        kind, secs = _bin_req(body)
         if kind != wire_bin.KIND_SEARCH_REQ or len(secs) != 3:
             raise ValueError("bad search binary request")
         q = np.asarray(secs[0], np.float32)
@@ -332,7 +338,7 @@ class Dispatcher:
                               + native.json_encode_f32_nested(scores) + b"}")
 
     def _precise_search_bin(self, body: bytes) -> Response:
-        kind, secs = wire_bin.decode(body)
+        kind, secs = _bin_req(body)
         if kind != wire_bin.KIND_PRECISE_REQ or len(secs) != 2:
             raise ValueError("bad precise binary request")
         scores = self._precise_scores(np.asarray(secs[0], np.float32),
@@ -435,7 +441,7 @@ class Dispatcher:
                               + native.json_encode_f32_nested(vecs) + b"}")
 
     def _precise_vector_pir_bin(self, body: bytes) -> Response:
-        kind, secs = wire_bin.decode(body)
+        kind, secs = _bin_req(body)
         if kind != wire_bin.KIND_FETCH_REQ or len(secs) != 1:
             raise ValueError("bad fetch binary request")
         vecs = self._fetch_vectors(np.asarray(secs[0], np.int64))

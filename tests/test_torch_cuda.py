@@ -9,7 +9,9 @@ database shapes too), the scan variants of query_pipeline on CUDA
 against the CPU, and sharding on the card: the engine over meshes of
 shards of the one card byte-identical to the unsharded engine (K1 once a
 shard), the q1 MAC and the PIR answer sharded, an NCCL world of one and the
-dry run; the entry's dense step (entry.py) on CUDA against the CPU. Without CUDA they skip (one CPU test here checks that
+dry run; the entry's dense step (entry.py) on CUDA against the CPU; a
+span of utils/stages.py mapped onto the launches it made in a
+torch.profiler trace. Without CUDA they skip (one CPU test here checks that
 ``DevicePIR2`` refuses the card when CUDA is absent). On a machine with an H100 and nvcc (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -1102,3 +1104,60 @@ def test_entry_on_cuda_matches_cpu(cuda):
     tied[:, 1:] |= near
     tied[:, :-1] |= near
     np.testing.assert_array_equal(ids[~tied], ids_c[~tied])
+
+
+def test_span_maps_onto_the_launches_it_made(cuda, tmp_path):
+    """A thread records a span around kernel launches while torch.profiler
+    traces the card from another thread: in the trace, each launch call that
+    enqueued a kernel carries that thread's ``threading.get_ident()`` as
+    CUPTI writes it (its low 32 bits read as a signed int32, the sign
+    dropped), and its time, mapped with the recording's clock pair, lies
+    inside the span."""
+    import json
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from prefhetch_tpu_torch.utils import stages
+
+    x = torch.ones(1 << 20, device=cuda)
+    x.add_(1)
+    torch.cuda.synchronize(cuda)
+    stages.clear_spans()
+    ready, go = threading.Event(), threading.Event()
+
+    def serve():
+        ready.set()
+        go.wait(timeout=60)
+        with stages.record_stages(), stages.span("launch"):
+            for _ in range(8):
+                x.mul_(1.0001)
+        torch.cuda.synchronize(cuda)
+
+    t = threading.Thread(target=serve)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t.start()
+        assert ready.wait(timeout=60)
+        go.set()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    rec = stages.recorded_spans()
+    (s,) = rec["spans"]
+    mono0, real0 = rec["clock"]
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    ev = trace["traceEvents"]
+    kernels = {e["args"].get("correlation") for e in ev
+               if e.get("cat") == "kernel"}
+    calls = [e for e in ev if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and e.get("args", {}).get("correlation") in kernels]
+    assert len(calls) >= 8
+    t0, t1 = ((v - mono0 + real0 - base) / 1e3 for v in (s.t0, s.t1))
+    low = s.ident & 0xFFFFFFFF
+    cupti_tid = low if low < 1 << 31 else (1 << 32) - low
+    for e in calls:
+        assert e["tid"] == cupti_tid
+        assert t0 <= e["ts"] and e["ts"] + e["dur"] <= t1

@@ -4,9 +4,10 @@ Each list is re-packed into ⌈size/T⌉ consecutive tiles of T slots (only a
 list's last tile is padded), plus one reserved all-empty tile, always the
 last row, that pads probe expansions and union lists. The server expands a
 client's logical probes (centroid ids) into tile ids on the host per
-request; tiles of a list are consecutive, so candidate order (probe-major,
-storage order within a list) is preserved. The re-pack is host numpy, as in
-the JAX package, and the tables are element-equal to its own.
+request, from a per-list table of tile ids, whole-array; tiles of a list are
+consecutive, so candidate order (probe-major, storage order within a list)
+is preserved. The re-pack is host numpy, as in
+the JAX package, and the tables both have are element-equal to its own.
 
 Three payloads: the dense one (``quant="none"``: bf16 recon or f32
 vectors, scanned by K1 or K5), its per-dimension 8-bit quantisation
@@ -41,6 +42,9 @@ class TiledView:
     tile_sizes_np: np.ndarray   # [ntiles+1] i32 host
     tile_start_np: np.ndarray   # [nlist] host — first tile of each list
     tile_count_np: np.ndarray   # [nlist] host — tiles per list
+    # [nlist, max tiles a list] i32 host — row c: list c's tile ids in
+    # order, padded with the empty tile
+    list_tiles_np: np.ndarray
     tile: int = TILE
     # SQ8 payload: x̂ = vmin + (code + ½)·scale per dimension (else None)
     sq_vmin: Optional[torch.Tensor] = None       # [d] f32
@@ -68,13 +72,11 @@ class TiledView:
         if min_t is not None:
             max_t = max(max_t, int(min_t))
         out = np.full((nq, max_t), self.empty_tile, np.int32)
-        for qi in range(nq):
-            pos = 0
-            for p in probe_ids[qi]:
-                s = self.tile_start_np[p]
-                c = self.tile_count_np[p]
-                out[qi, pos : pos + c] = np.arange(s, s + c, dtype=np.int32)
-                pos += c
+        # each probe's row of the list table; its real tiles, in C order
+        # (query, probe, storage), fill each query's row from the left
+        tiles = self.list_tiles_np[probe_ids]     # [nq, nprobe, max tiles]
+        out[np.arange(max_t) < t_totals[:, None]] = (
+            tiles[tiles != self.empty_tile])
         cand_counts = self.tile_sizes_np[out].sum(axis=1)
         return out, cand_counts.astype(np.int64)
 
@@ -167,6 +169,9 @@ def build_tiled_view(
     tile_start = np.zeros(nlist, np.int64)
     np.cumsum(tile_count[:-1], out=tile_start[1:])
     ntiles = int(tile_count.sum())
+    slot = np.arange(int(tile_count.max(initial=0)))
+    list_tiles = np.where(slot < tile_count[:, None],
+                          tile_start[:, None] + slot, ntiles).astype(np.int32)
 
     payload = np.zeros((ntiles + 1, tile, d), payload_np.dtype)
     tile_ids = np.full((ntiles + 1, tile), -1, np.int32)
@@ -199,6 +204,7 @@ def build_tiled_view(
         tile_sizes_np=tile_sizes,
         tile_start_np=tile_start.astype(np.int64),
         tile_count_np=tile_count.astype(np.int64),
+        list_tiles_np=list_tiles,
         tile=tile,
         sq_vmin=None if sq_vmin is None else torch.from_numpy(sq_vmin).to(dev),
         sq_scale=(None if sq_scale is None

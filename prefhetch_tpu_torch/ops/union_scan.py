@@ -57,15 +57,17 @@ def union_probe_tiles(
     positions[qi, k] = index into the union list of tile_idx[qi, k]; the
     union is padded with the empty tile to a bucket multiple, and the empty
     tile is always the union's LAST entry so pad positions point there."""
-    uniq, inv = np.unique(tile_idx, return_inverse=True)
-    # np.unique sorts ascending and the empty tile has the largest id by
-    # construction — but force it to the tail rather than assume
-    if uniq[-1] != empty_tile:
-        uniq = np.append(uniq, empty_tile)
+    # a flag per tile id (a new table each call: the server's threads share
+    # none), then each id's rank among the flagged: the union comes out
+    # ascending with the empty tile (the largest id) last
+    flags = np.zeros(empty_tile + 1, bool)
+    flags[tile_idx] = True
+    flags[empty_tile] = True
+    uniq = np.flatnonzero(flags)
     u_pad = -(-len(uniq) // bucket) * bucket
     union = np.full(u_pad, empty_tile, tile_idx.dtype)
     union[: len(uniq)] = uniq
-    pos = inv.reshape(tile_idx.shape).astype(np.int32)
+    pos = (np.cumsum(flags, dtype=np.int32) - 1)[tile_idx]
     return union, pos
 
 

@@ -13,10 +13,12 @@ from prefhetch_tpu.data.synthetic import make_clustered_dataset
 from prefhetch_tpu.index import build as jb
 from prefhetch_tpu.index.tiling import build_tiled_view as j_tiled
 from prefhetch_tpu.ops import kmeans as jk
+from prefhetch_tpu.ops.union_scan import union_probe_tiles as j_union
 from prefhetch_tpu.utils.config import IndexParams as JParams
 from prefhetch_tpu_torch.index import build as tb
 from prefhetch_tpu_torch.index.tiling import build_tiled_view as t_tiled
 from prefhetch_tpu_torch.ops import kmeans as tk
+from prefhetch_tpu_torch.ops.union_scan import union_probe_tiles as t_union
 from prefhetch_tpu_torch.utils.config import IndexParams as TParams
 
 torch.set_num_threads(1)
@@ -179,6 +181,110 @@ def test_tiled_view_tables_equal(jax_index):
                         jv.expand_probes(probes, min_t=9)):
         np.testing.assert_array_equal(got, ref)
     assert tv.serving_max_tiles(3) == jv.serving_max_tiles(3)
+
+
+HOLE = 5                    # the list emptied in the holed indexes
+INDEX_FIELDS = ("centroids", "list_ids", "list_sizes", "list_norms",
+                "list_codes", "codebooks", "list_recon", "list_vectors")
+
+
+@pytest.fixture(scope="module")
+def holed(jax_indexes):
+    """{kind: (JAX index, port index)} with list HOLE emptied, so that a
+    probe can name a list of zero tiles."""
+    out = {}
+    for kind, (j, _) in jax_indexes.items():
+        sizes = np.asarray(j.list_sizes).copy()
+        sizes[HOLE] = 0
+        arrays = {f: np.array(getattr(j, f)) for f in INDEX_FIELDS
+                  if getattr(j, f) is not None}
+        arrays["list_sizes"] = sizes
+        kw = dict(KW, pq_m=0) if kind == "flat" else KW
+        out[kind] = (
+            j.replace(list_sizes=jnp.asarray(sizes), host_arrays=None),
+            tb.index_from_numpy(arrays, TParams(**kw), device="cpu"))
+    return out
+
+
+def _probe_case(name, counts, rng):
+    """(probes [nq, nprobe], bucket, min_t) of one expansion case over a view
+    whose lists hold ``counts`` tiles."""
+    nlist = len(counts)
+    if name == "duplicates":        # a probe repeated within a row
+        p = rng.integers(0, nlist, (8, 4))
+        p[:, 1] = p[:, 0]
+        p[0] = p[0, 0]
+        return p, 8, None
+    if name == "empty_list":        # a probed list of zero tiles
+        p = rng.integers(0, nlist, (8, 4))
+        p[:, 2] = HOLE
+        p[1] = HOLE
+        return p, 8, None
+    if name in ("min_t_above", "min_t_below"):
+        p = rng.integers(0, nlist, (8, 4))
+        top = int(counts[p].sum(1).max())
+        return p, 8, top + 13 if name == "min_t_above" else 1
+    if name in ("bucket_1", "bucket_8"):
+        return rng.integers(0, nlist, (8, 4)), int(name[-1]), None
+    if name in ("nq_1", "nq_64"):
+        return rng.integers(0, nlist, (int(name[3:]), 4)), 8, None
+    if name == "fills_max_t":       # every row its batch's max, bucket 1
+        return np.tile(rng.permutation(nlist)[:4], (8, 1)), 1, None
+    assert name == "largest_lists"  # the lists serving_max_tiles sums
+    big = np.argsort(counts, kind="stable")[::-1][:4]
+    return np.tile(big, (8, 1)), 8, None
+
+
+@pytest.mark.parametrize("name", [
+    "duplicates", "empty_list", "min_t_above", "min_t_below", "bucket_1",
+    "bucket_8", "nq_1", "nq_64", "fills_max_t", "largest_lists",
+])
+def test_expand_probes_and_union_equal_jax(name, holed):
+    """The table-driven probe expansion and the rank-table union: tile ids,
+    candidate counts, union and positions element-equal (dtypes too) to the
+    JAX package's loop and np.unique, on a view with an empty list."""
+    j, t = holed["pq"]
+    jv, tv = j_tiled(j, tile=64), t_tiled(t, tile=64)
+    assert tv.tile_count_np[HOLE] == 0
+    probes, bucket, min_t = _probe_case(
+        name, tv.tile_count_np, np.random.default_rng(len(name)))
+    if name == "largest_lists":
+        min_t = tv.serving_max_tiles(4, bucket)
+    got = tv.expand_probes(probes, bucket=bucket, min_t=min_t)
+    ref = jv.expand_probes(probes, bucket=bucket, min_t=min_t)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(g, r)
+    tile_idx = got[0]
+    if name == "fills_max_t":
+        assert tv.empty_tile not in tile_idx
+    if name == "largest_lists":
+        assert tile_idx.shape[1] == min_t == jv.serving_max_tiles(4, bucket)
+    union, pos = t_union(tile_idx, tv.empty_tile)
+    j_u, j_p = j_union(ref[0], jv.empty_tile)
+    assert union.dtype == j_u.dtype and pos.dtype == j_p.dtype
+    np.testing.assert_array_equal(union, j_u)
+    np.testing.assert_array_equal(pos, j_p)
+    n_real = len(np.unique(tile_idx[tile_idx != tv.empty_tile]))
+    assert union[n_real] == tv.empty_tile and len(union) % 128 == 0
+    np.testing.assert_array_equal(union[pos], tile_idx)
+
+
+@pytest.mark.parametrize("kind,quant", [
+    ("pq", "none"), ("flat", "none"), ("pq", "sq8"), ("pq", "pq"),
+])
+def test_list_tiles_table(kind, quant, holed):
+    """Row c of list_tiles_np is list c's tiles in order, padded with the
+    empty tile, for the bf16, f32, SQ8 and PQ-code payloads."""
+    tv = t_tiled(holed[kind][1], tile=64, quant=quant)
+    lt = tv.list_tiles_np
+    assert lt.dtype == np.int32
+    assert lt.shape == (len(tv.tile_count_np), tv.tile_count_np.max())
+    for c, (s, n) in enumerate(zip(tv.tile_start_np, tv.tile_count_np)):
+        want = np.full(lt.shape[1], tv.empty_tile, np.int32)
+        want[:n] = np.arange(s, s + n)
+        np.testing.assert_array_equal(lt[c], want)
+    assert (lt[HOLE] == tv.empty_tile).all()
 
 
 def test_build_ivf_index_matches_jax(data, jax_indexes):

@@ -3,16 +3,22 @@
 The harness is driven by data: a cell's entry in ``BENCHMARK.json`` names a
 configuration (``configs/<name>.json``) and a traffic mix
 (``workloads/<name>.json``), and every metric the cell reports has its
-reader in ``metrics/<name>.py``. A later cell or metric is added by adding
-such files, without editing one that is there.
+reader in ``metrics/<name>.py``. The configuration's ``dataset.generator``
+names its data generator (``generators/``), and the mix's ``route`` and
+``entry`` its request kind and where requests enter the program
+(``routes/``, ``entries/``), each a module found by ``load``. A later
+cell, deployment or metric is added by adding such files, without editing
+one that is there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
 import os
+import re
 from typing import Callable, List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -52,6 +58,22 @@ def load_reader(name: str) -> Callable:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+KINDS = {"routes": "route", "entries": "entry", "generators": "generator",
+         "client": "client"}
+
+
+def load(kind: str, name: str):
+    """The module of ``kind`` (``routes``, ``entries``, ``generators`` or
+    ``client``) that a traffic mix's or a configuration's keys name:
+    ``<kind>/<name>.py``, each character of the name outside letters,
+    digits and ``_`` spelt ``_`` in the file's name."""
+    stem = re.sub(r"[^A-Za-z0-9_]", "_", str(name))
+    if not os.path.isfile(os.path.join(HERE, kind, stem + ".py")):
+        raise ValueError(f"unknown {KINDS[kind]} {name!r}: "
+                         f"no {os.path.basename(HERE)}/{kind}/{stem}.py")
+    return importlib.import_module(f"{__package__}.{kind}.{stem}")
 
 
 def _applies(entry: dict, cell: str, reported: set) -> bool:

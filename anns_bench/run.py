@@ -9,11 +9,17 @@ makes every request body, warms up, then runs the cell's traffic for
 ``--seconds``. Set-up (``setup_s``) runs from process start to the first
 timed request. After the window: the peak device memory, then (traced run)
 the replay of the kept calls, then the program is stopped and freed, and
-the plain reference judges every answer. The last line of standard output
-is one JSON object: ``correct``, ``attempted``, ``failed``, ``metrics``
-(the cell's end-to-end metrics, or with ``--trace 1`` its per-layer ones),
-``device``, with ``--trace 1`` ``breakdown``, and last ``checks``, each
-compared number beside its limit, which also end standard error.
+the plain reference judges every answer with the judge of the cell's
+route. The host's readings around the run (hostdiag.py) go to
+``.scratch/host.<cell>.<seed>.t<trace>.json``. The last line of standard
+output is one JSON object: ``correct``, ``attempted``, ``failed``,
+``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
+per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, and last
+``checks``, each compared number beside its limit, which also end standard
+error.
+
+The process runs with glibc's allocator thresholds fixed (``fix_allocator``),
+a host setting of every deployment the benchmark measures.
 
 Exits 2 without a result when there is no CUDA device (or fewer than the
 cell asks for), and 3 when jax, jaxlib, flax, ml_dtypes or the JAX package
@@ -27,6 +33,7 @@ import time
 T_START = time.monotonic()
 
 import argparse  # noqa: E402
+import ctypes  # noqa: E402
 import gc  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
@@ -34,9 +41,29 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 from typing import Optional  # noqa: E402
 
-from anns_bench.cell import SCRATCH, Cell, configure_caches, load_cell  # noqa: E402
+from anns_bench.cell import (  # noqa: E402
+    SCRATCH, Cell, configure_caches, load, load_cell,
+)
+from anns_bench.hostdiag import Host  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "prefhetch_tpu")
+
+# mallopt parameters: M_MMAP_THRESHOLD 32 MiB (glibc's largest), no trim
+# below 1 GiB, the heap grown 64 MiB at a time
+MALLOPT = ((-3, 32 << 20), (-1, 1 << 30), (-2, 64 << 20))
+
+
+def fix_allocator() -> None:
+    """Fix glibc's mmap and trim thresholds for the whole process. Left
+    dynamic, glibc hands freed heap back to the system and the next
+    request faults it in again: on the card's host that costs the serving
+    thread 5-13% of its time in system calls for the first minute or more,
+    and runs spread with how long that lasts. A request's work is the
+    same either way."""
+    libc = ctypes.CDLL(None)
+    for param, value in MALLOPT:
+        if libc.mallopt(param, value) != 1:
+            raise RuntimeError(f"mallopt({param}, {value}) refused")
 
 
 def forbidden_modules() -> list:
@@ -74,31 +101,40 @@ class Run:
 
 
 def execute(cell: Cell, seed: int, seconds: float, trace: bool,
-            device=None, t_start: Optional[float] = None) -> dict:
+            device=None, t_start: Optional[float] = None,
+            host: Optional[Host] = None) -> dict:
     """The run after the look for a chip; returns the result object."""
     import torch
 
     from anns_bench import judge, tracing
-    from anns_bench.data import make_sift_style
+    from anns_bench.data import generate
     from anns_bench.reference import Reference
     from anns_bench.sut import System
     from anns_bench.traffic import Traffic
 
     t_start = T_START if t_start is None else t_start
+    host = host or Host(t_start)
+    host.mark("harness modules")
     os.makedirs(SCRATCH, exist_ok=True)     # traces
     dev = torch.device(device or "cuda")
     cuda = dev.type == "cuda"
     cfg, mix = cell.config, cell.traffic
-    data = make_sift_style(cfg["dataset"], seed, dev)
-    system = System(cfg, data, dev, int(mix["rows_per_request"]))
+    data = generate(cfg["dataset"], seed, dev)
+    host.mark("data (CUDA context, draw, copy to host)")
+    system = System(cfg, data, dev, int(mix["rows_per_request"]), host)
     tracer = tracing.Tracer(trace)
-    traffic = Traffic(mix, cfg, system, data["query"], seed, tracer)
+    traffic = Traffic(mix, cfg, system, data["query"], seed, tracer, host)
     try:
         traffic.prepare()
+        host.mark("client prepare")
         traffic.warm()
         if cuda:
             torch.cuda.synchronize(dev)
+        host.mark("warm")
         tracer.install(system)
+        host.mark("tracer")
+        host.probe("before")
+        host.mark("probe")
         slice_out = {}
 
         def during():
@@ -110,8 +146,10 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
 
         t0 = time.monotonic() + 0.05
         setup_s = t0 - t_start
+        host.mark("to t0", t0)
         reqs = traffic.run_window(t0, seconds,
                                   during if (trace and cuda) else None)
+        host.probe("after")
         if trace and cuda:
             check_slice(slice_out, reqs)
         peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
@@ -119,18 +157,19 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
         tracer.uninstall()
         tracer.scan_calls, tracer.ntt_calls = [], []
     finally:
+        traffic.close()
         system.close()
     answers = traffic.answers(reqs)
-    del system, traffic.system
+    del system
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
 
     ref = Reference(data["base"], dev)
     k = int(cfg["protocol"]["k"])
-    fn = judge.judge_search if mix["route"] == "search" else judge.judge_rerank
-    numbers, recall = fn(ref, data["query"], answers["qidx"], answers["ids"],
-                         answers["dist"], answers["failed"], k)
+    numbers, recall = load("routes", mix["route"]).judge(
+        ref, data["query"], answers["qidx"], answers["ids"], answers["dist"],
+        answers["failed"], k)
     correct, checks = judge.check(numbers, cfg["checks"])
     run = Run(seconds=seconds, setup_s=setup_s, reqs=reqs,
               rows=int(mix["rows_per_request"]), deadline=t0 + seconds,
@@ -159,6 +198,12 @@ def execute(cell: Cell, seed: int, seconds: float, trace: bool,
     out["bodies_rebuilt"] = traffic.rebuilt
     out["warm_failed"] = traffic.warm_failed
     out["checks"] = checks
+    host.write(os.path.join(SCRATCH, f"host.{cell.name}.{seed}.t{int(trace)}"
+                            ".json"),
+               {"cell": cell.name, "seed": seed, "setup_s": setup_s,
+                "metrics": metrics, "attempted": len(reqs),
+                "correct": correct, "torch_threads": torch.get_num_threads(),
+                "card": out["card"]})
     return out
 
 
@@ -169,10 +214,14 @@ def main(argv=None) -> int:
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     a = ap.parse_args(argv)
+    fix_allocator()
     cell = load_cell(a.workload)
+    host = Host(T_START)
+    host.mark("harness imports and the cell")
     configure_caches()
     import torch
 
+    host.mark("import torch")
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -181,7 +230,8 @@ def main(argv=None) -> int:
         print(f"{cell.name} needs {cell.chips} CUDA devices, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
-    out = execute(cell, a.seed, a.seconds, bool(a.trace))
+    host.mark("cuda check")
+    out = execute(cell, a.seed, a.seconds, bool(a.trace), host=host)
     found = forbidden_modules()
     if found:
         print(f"loaded after the window: {', '.join(found)}", file=sys.stderr)

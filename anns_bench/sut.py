@@ -25,13 +25,16 @@ from anns_bench.cell import CACHE
 
 class System:
     def __init__(self, config: dict, data: Dict[str, np.ndarray],
-                 device: torch.device, rows_per_request: int):
+                 device: torch.device, rows_per_request: int,
+                 host=None):
         from prefhetch_tpu_torch.engine.server import QueryEngine
         from prefhetch_tpu_torch.serve.handlers import Dispatcher
         from prefhetch_tpu_torch.utils.config import (
             HEParams, IndexParams, PipelineConfig, ProtocolParams,
         )
 
+        mark = host.mark if host else (lambda name: None)
+        mark("program import")
         ds, ix, pr = config["dataset"], config["index"], config["protocol"]
         he = config.get("he") or {}
         params = IndexParams(
@@ -39,6 +42,7 @@ class System:
             pq_nbits=int(ix["pq_nbits"]), balance=float(ix["balance"]),
         )
         index = self._index(config, params, data, device)
+        mark("index load")
         # the serving peak is read from here on: the first run's build
         # transients (k-means, PQ encoding) serve no request
         if device.type == "cuda":
@@ -61,6 +65,7 @@ class System:
         self.engine.set_index(index, data["base"])
         self.dispatcher = Dispatcher(self.engine)
         self.device = device
+        mark("engine start")
 
     @staticmethod
     def _index(config: dict, params, data, device):

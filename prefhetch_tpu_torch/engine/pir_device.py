@@ -40,6 +40,13 @@ mesh (parallel/mesh.py), each shard folding its g1/ndev rows; the sum of the
 shards' canonical partials, reduced once mod q, is the single-device
 accumulator, so the response is bit-equal to ``answer_2d``.
 
+Inside ``record_stages()`` a request counts (utils/stages.py ``count``)
+``pir.cts`` query ciphertexts, ``pir.rows`` row fetches (padding
+included), and per program ``pir.programs``, ``pir.expanded`` (B·2^logm
+ciphertexts after expansion) and ``pir.selector_sets`` (B·n_rows); K2's
+wrappers count the rows each launch transforms (``k2.rows.i32``,
+``k2.rows.i64``).
+
 Not ported: the JAX module's disk caches (``cache_dir``: the transformed
 database and key stacks), its serialised TPU executables, its retry and
 blacklist of batch sizes after a compile failure, and its XLA batch
@@ -67,7 +74,7 @@ from prefhetch_tpu_torch.engine.hecompute import key_switch
 from prefhetch_tpu_torch.ops.ntt4 import (
     build_ntt4_tables, fourstep_perm, intt4, ntt4,
 )
-from prefhetch_tpu_torch.utils.stages import stage
+from prefhetch_tpu_torch.utils.stages import count, stage
 from prefhetch_tpu_torch.utils.wire import pack_i32
 
 DIGIT_BITS = 15
@@ -339,6 +346,9 @@ class DevicePIR2:
         nd = self._n_digits
         t = self.params.t
         logm = self._depth(n_rows)
+        count("pir.programs", 1)
+        count("pir.expanded", B << logm)
+        count("pir.selector_sets", B * n_rows)
         with stage("expansion (K2 + elementwise)"):
             c0s, c1s = self._expand(c0, c1, kb, ka, logm)
             take = n_rows * m
@@ -400,6 +410,8 @@ class DevicePIR2:
             )
         with stage("wire decode"):
             pairs = [self._query_c01(w) for w in query_wires]
+        count("pir.cts", len(pairs))
+        count("pir.rows", len(pairs) * n_rows)
         cap = max(1, MAX_EXPANDED >> logm)
         out: List[dict] = []
         for i in range(0, len(pairs), cap):
@@ -471,6 +483,8 @@ class DevicePIR2:
         kb, ka = self._keys[key_id]
         with stage("wire decode"):
             c0, c1 = self._query_c01(query_wire)
+        count("pir.cts", 1)
+        count("pir.rows", 1)
         with self._lock:
             with stage("upload"):
                 c0 = torch.from_numpy(c0[None]).to(self.device)

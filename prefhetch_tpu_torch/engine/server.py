@@ -572,43 +572,44 @@ class QueryEngine:
         ``hypercube_multi`` = 2-D with multi-row packed queries (ONE ct per
         ⌊N/m⌋ rows; each entry {"ct": wire, "nRows": k} yields k responses
         in order)."""
-        if hypercube_multi is not None or hypercube is not None:
-            svc = self.pir2_service
-            if galois_keys:
-                with stage("register galois keys"):
+        with span("engine"):
+            if hypercube_multi is not None or hypercube is not None:
+                svc = self.pir2_service
+                if galois_keys:
+                    with stage("register galois keys"):
+                        svc.register_galois_keys(key_id, galois_keys)
+                if not svc.has_keys(key_id):
+                    raise ValueError(
+                        "unknown PIR keyId — register Galois keys first"
+                    )
+                if hypercube is not None and hypercube_multi is None:
+                    # every selector set of the request folds against one
+                    # pass over the packed database a chunk
+                    return svc.answer_2d_batch(hypercube, key_id)
+                out: list = []
+                # runs of equal nRows (the client pads every chunk to one
+                # nRows, so a whole request is usually ONE batched call)
+                i = 0
+                while i < len(hypercube_multi):
+                    nr = int(hypercube_multi[i]["nRows"])
+                    j = i
+                    while (j < len(hypercube_multi)
+                           and int(hypercube_multi[j]["nRows"]) == nr):
+                        j += 1
+                    wires = [e["ct"] for e in hypercube_multi[i:j]]
+                    out.extend(svc.answer_2d_multi_batch(wires, key_id, nr))
+                    i = j
+                return out
+            svc = self.pir_service
+            if packed is not None:
+                if galois_keys:
                     svc.register_galois_keys(key_id, galois_keys)
-            if not svc.has_keys(key_id):
-                raise ValueError(
-                    "unknown PIR keyId — register Galois keys first"
-                )
-            if hypercube is not None and hypercube_multi is None:
-                # every selector set of the request folds against one pass
-                # over the packed database a chunk
-                return svc.answer_2d_batch(hypercube, key_id)
-            out: list = []
-            # runs of equal nRows (the client pads every chunk to one nRows,
-            # so a whole request is usually ONE batched call)
-            i = 0
-            while i < len(hypercube_multi):
-                nr = int(hypercube_multi[i]["nRows"])
-                j = i
-                while (j < len(hypercube_multi)
-                       and int(hypercube_multi[j]["nRows"]) == nr):
-                    j += 1
-                wires = [e["ct"] for e in hypercube_multi[i:j]]
-                out.extend(svc.answer_2d_multi_batch(wires, key_id, nr))
-                i = j
-            return out
-        svc = self.pir_service
-        if packed is not None:
-            if galois_keys:
-                svc.register_galois_keys(key_id, galois_keys)
-            if not svc.has_keys(key_id):
-                raise ValueError(
-                    "unknown PIR keyId — register Galois keys first"
-                )
-            return [svc.answer_packed(w, key_id) for w in packed]
-        return [svc.answer(q) for q in pir_queries]
+                if not svc.has_keys(key_id):
+                    raise ValueError(
+                        "unknown PIR keyId — register Galois keys first"
+                    )
+                return [svc.answer_packed(w, key_id) for w in packed]
+            return [svc.answer(q) for q in pir_queries]
 
     # -- service 4: POST /precise-vector-pir ------------------------------
     def precise_vector_pir(self, ids: np.ndarray) -> np.ndarray:

@@ -37,6 +37,7 @@ import torch
 from prefhetch_tpu_torch.crypto.params import root_of_unity
 from prefhetch_tpu_torch.ops.ntt4_fused import ntt4_transform
 from prefhetch_tpu_torch.ops.ntt4_step import NTT4Step, ntt4_step_plain
+from prefhetch_tpu_torch.utils.stages import count
 
 
 class NTT4Tables(NamedTuple):
@@ -150,19 +151,27 @@ def transform_plain(x: torch.Tensor, tb: NTT4Tables,
     return z.transpose(1, 2).reshape(bsz, tb.n)
 
 
+# the counter of a launch's rows, by whether its input is int64
+_ROWS = ("k2.rows.i32", "k2.rows.i64")
+
+
 def ntt4(x: torch.Tensor, tb: NTT4Tables, plain: bool = False) -> torch.Tensor:
     """Forward negacyclic NTT of [B, N] int32/int64 values (any value, taken
     as its residue mod q; int64 by its low 32 bits), four-step order output,
     canonical [0, q), int32. One K2 launch on the card; ``plain`` runs K2's
-    plain version, to hold the kernel against."""
+    plain version, to hold the kernel against. Inside ``record_stages()``
+    a launch counts its rows, ``k2.rows.i32`` or ``k2.rows.i64`` by input
+    dtype."""
     if plain:
         return transform_plain(x, tb, False)
+    count(_ROWS[x.dtype is torch.int64], x.shape[0])
     return ntt4_transform(x.contiguous(), tb, False)
 
 
 def intt4(x: torch.Tensor, tb: NTT4Tables, plain: bool = False) -> torch.Tensor:
     """Inverse of ntt4: consumes four-step order, emits natural order,
-    canonical [0, q), int32."""
+    canonical [0, q), int32; counted as ntt4 is."""
     if plain:
         return transform_plain(x, tb, True)
+    count(_ROWS[x.dtype is torch.int64], x.shape[0])
     return ntt4_transform(x.contiguous(), tb, True)

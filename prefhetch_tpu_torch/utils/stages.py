@@ -17,7 +17,12 @@ thread) they record:
   its start and end on ``time.monotonic_ns()``. The outermost span on a
   thread opens a request: its request id is its own span id, and the spans
   inside it take their parent from the thread's stack. A ``span()`` never
-  synchronises and never enters ``times``.
+  synchronises and never enters ``times``;
+- every ``count(name, n)`` adds ``n`` to ``name`` on the innermost open
+  span of the thread; when that span ends its counters go to the buffer
+  (``recorded_spans()["counters"]``: name, request id, span id, total).
+  A counter never synchronises: ``n`` is a Python int the caller already
+  holds (a shape, a length).
 
 A reader maps a stamp onto a ``torch.profiler`` trace's clock with the
 ``clock`` pair (``time.monotonic_ns()``, ``time.time_ns()``) read when
@@ -56,18 +61,29 @@ class _Local(threading.local):
     stack: Optional[list] = None      # the open spans, outermost first
 
 
+class Counter(NamedTuple):
+    name: str
+    request: int              # the root span's id
+    span: int                 # the span it was counted on
+    n: int                    # the total counted on that span
+
+
 class _Buffer:
     def __init__(self, cap: int) -> None:
         self.cap = cap
         self.lock = threading.Lock()
         self.spans: list = []
+        self.counters: list = []
         self.dropped = 0
         self.clock: Optional[Tuple[int, int]] = None
 
-    def add(self, s: Span) -> None:
+    def add(self, s: Span, counts: Optional[dict] = None) -> None:
         with self.lock:
             if len(self.spans) < self.cap:
                 self.spans.append(s)
+                if counts:
+                    self.counters.extend(Counter(k, s.request, s.id, v)
+                                         for k, v in counts.items())
             else:
                 self.dropped += 1
 
@@ -93,10 +109,11 @@ _OFF = _Off()
 
 
 class _On:
-    __slots__ = ("name", "request", "id", "parent", "t0")
+    __slots__ = ("name", "request", "id", "parent", "t0", "counts")
 
     def __init__(self, name: str) -> None:
         self.name = name
+        self.counts: Optional[dict] = None
 
     def __enter__(self):
         stack = _local.stack
@@ -116,7 +133,7 @@ class _On:
             stack.pop()
         _buffer.add(Span(self.name, self.request, self.id, self.parent,
                          threading.get_native_id(), threading.get_ident(),
-                         self.t0, t1))
+                         self.t0, t1), self.counts)
         return False
 
 
@@ -157,6 +174,20 @@ def stage(name: str):
     return _Stage(name, times)
 
 
+def count(name: str, n: int) -> None:
+    """A counter of the served path: adds ``n`` to ``name`` on the innermost
+    open span of this thread, only inside ``record_stages()`` (with no span
+    open it counts nothing); never synchronises."""
+    if _local.times is None:
+        return
+    stack = _local.stack
+    if stack:
+        top = stack[-1]
+        if top.counts is None:
+            top.counts = {}
+        top.counts[name] = top.counts.get(name, 0) + n
+
+
 @contextlib.contextmanager
 def record_stages():
     """Collect the stages run by this thread into the dict it yields
@@ -172,15 +203,19 @@ def record_stages():
 
 
 def recorded_spans() -> dict:
-    """A copy of the buffer: {"spans": [Span], "dropped": spans not kept
-    since the last clear, "clock": (mono0 ns, real0 ns) or None}."""
+    """A copy of the buffer: {"spans": [Span], "counters": [Counter] of the
+    kept spans, "dropped": spans not kept since the last clear, "clock":
+    (mono0 ns, real0 ns) or None}."""
     with _buffer.lock:
-        return {"spans": list(_buffer.spans), "dropped": _buffer.dropped,
-                "clock": _buffer.clock}
+        return {"spans": list(_buffer.spans),
+                "counters": list(_buffer.counters),
+                "dropped": _buffer.dropped, "clock": _buffer.clock}
 
 
 def clear_spans() -> None:
-    """Empty the buffer and its count of dropped spans."""
+    """Empty the buffer (spans and their counters) and its count of dropped
+    spans."""
     with _buffer.lock:
         _buffer.spans.clear()
+        _buffer.counters.clear()
         _buffer.dropped = 0

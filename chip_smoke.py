@@ -118,10 +118,12 @@ reporting on lines of its own; any failure exits non-zero:
               every row exact, with the shape of each K2 launch recorded;
               K2 against its plain version at every shape recorded (up to
               [163,840, 4,096] int32 forward and [81,920, 4,096] int64
-              inverse, the multi-row key switch's last round); where one
-              multi-row request's time goes, the dim-1 fold against its
-              byte bound, the device's busy share and K2's time at that
-              widest round;
+              inverse, the multi-row key switch's last round); one launch
+              of the dim-1 fold's kernel (csrc/pir_fold1.cu) a program and
+              no plain call; where one multi-row request's time goes, the
+              fold's kernel beside its plain version at S = 4 and 110
+              (bit-equal) with its byte and multiply-add bounds, the
+              device's busy share and K2's time at that widest round;
    http     — the reference's protocol served over HTTP on the same engine
               by the native epoll frontend, in-process (max_batch 256,
               grace 1.5 ms, 3 resolvers; /stats must report it): the port's
@@ -269,6 +271,11 @@ INT8_OPS = 1979e12
 # int8 multiply-adds that one multiply-add of two 30-bit residues costs on
 # the int8 tensor cores: 4 x 4 balanced base-256 digits
 INT8_MACS_PER_MODMAC = 16
+# 32-bit by 32-bit multiply-adds into 64 bits (IMAD.WIDE.U32) a second:
+# 132 SMs x ~16 a clock x the 1,980 MHz boost clock, an estimate (the data
+# sheet gives no integer rate; the dim-1 fold's loop without its loads ran
+# at 3.3 T a second on an H100 80GB HBM3 at 700 W)
+MAD_WIDE_S = 132 * 16 * 1.98e9
 
 NBASE, NTRAIN, D = 1_000_000, 100_000, 128
 NQ_BATCH, N_BATCHES = 64, 4
@@ -1781,8 +1788,9 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     query's top-K rows through the multi-row wire (pirHypercubeMulti),
     with K2's launches counted and their shapes recorded around each and
     every row decoded exactly; K2 against its plain version at every shape
-    recorded; then where one multi-row request's time goes, the dim-1 fold
-    against its byte bound, the device's busy share, and K2's time at the
+    recorded; the dim-1 fold's kernel once a program; then where one
+    multi-row request's time goes, the fold's kernel beside its plain
+    version and its bounds, the device's busy share, and K2's time at the
     multi-row key switch's widest round. Returns (K2 launches, launches
     per request, K2's max |err| vs plain, K2's timing at the key-switch
     shape, the path's description)."""
@@ -1796,6 +1804,7 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
     from prefhetch_tpu_torch.ops import ntt4_fused as k2
     from prefhetch_tpu_torch.ops import ntt4_step as k2s
+    from prefhetch_tpu_torch.ops import pir_fold
     from prefhetch_tpu_torch.utils.stages import record_stages
 
     t_phase = time.perf_counter()
@@ -1902,6 +1911,7 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     if status != 200:
         raise AssertionError(f"POST /pir-fetch: {status} {resp4[:300]!r}")
     single_launches = k2.ntt4_transform.launches
+    single_folds = pir_fold.fold_dim1.launches
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     with recording_k2() as shapes_m:
@@ -1911,7 +1921,8 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     peak = torch.cuda.max_memory_allocated() - mem0
     launches = k2.ntt4_transform.launches
     multi_launches = launches - single_launches
-    plain_calls = k2s.ntt4_step_plain.calls
+    multi_folds = pir_fold.fold_dim1.launches - single_folds
+    plain_calls = k2s.ntt4_step_plain.calls + pir_fold.fold_dim1_plain.calls
     # -----------------------------------------------------------------------
 
     res4 = json.loads(resp4)["pirResults"]
@@ -1925,13 +1936,16 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     n_cts = -(-k // k_ct)
     logm_multi = max(1, (k_ct * svc.m - 1).bit_length())
 
+    def programs(logm: int, cts: int) -> int:
+        return -(-cts // max(1, pir_device.MAX_EXPANDED >> logm))
+
     def want(logm: int, cts: int) -> int:
         # 6 a level of the expansion (forward and inverse on 3 primes), 4 a
         # limb for the selectors and the two folds; a program a chunk
-        programs = -(-cts // max(1, pir_device.MAX_EXPANDED >> logm))
-        return programs * (6 * logm + 4 * L)
+        return programs(logm, cts) * (6 * logm + 4 * L)
 
     want1, wantm = want(svc.logm, 4), want(logm_multi, n_cts)
+    folds1, foldsm = programs(svc.logm, 4), programs(logm_multi, n_cts)
     log("pir", f"client (host): keygen {key_ms:.0f} ms, Galois keys for "
         f"{svc.logm} levels {gal1_ms:.0f} ms "
         f"({len(json.dumps(gks1)) / 1e6:.2f} MB), the {logm_multi - svc.logm}"
@@ -1955,9 +1969,14 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
         f"peak device memory of the request {peak / 2**30:.2f} GiB above the "
         f"{mem0 / 2**30:.2f} GiB already allocated; plain-version calls "
         f"{plain_calls}")
+    log("pir", f"dim-1 fold kernel launches: {single_folds} and "
+        f"{multi_folds} (expected {folds1} and {foldsm}, one a program)")
     if single_launches != want1 or multi_launches != wantm:
         raise AssertionError(f"K2 launches {single_launches}, "
                              f"{multi_launches}; expected {want1}, {wantm}")
+    if (single_folds, multi_folds) != (folds1, foldsm):
+        raise AssertionError(f"dim-1 fold launches {single_folds}, "
+                             f"{multi_folds}; expected {folds1}, {foldsm}")
     if plain_calls != 0:
         raise AssertionError("a plain version ran on the pir path")
     if (len(shapes4), len(shapes_m)) != (single_launches, multi_launches):
@@ -2007,19 +2026,46 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     log("pir", f"client (host) for that fetch: {n_cts} multi-row queries "
         f"{enc_ms:.0f} ms, decoding {k} rows {dec_ms:.0f} ms")
 
-    # the dim-1 fold alone against its byte bound, at both paths' widths
+    # the dim-1 fold alone at both paths' widths: its kernel (the service's
+    # own call, on the strided view of the program's selectors) bit-equal
+    # to its plain version, both timed, beside its two bounds
     gen = torch.Generator(device=svc.device).manual_seed(5)
     for S in (4, n_cts * k_ct):
-        s1 = torch.randint(0, p.qs[0], (S, svc.g1, 2, L, p.n), generator=gen,
-                           device=svc.device, dtype=torch.int32)
-        t_fold = cuda_time_ms(lambda: svc._fold_dim1(s1), iters=3, warmup=1)
-        io = s1.numel() * 4 + s1.numel() // svc.g1 * svc.g2 * 4
+        sel = torch.empty((S, svc.m, 2, L, p.n), dtype=torch.int32,
+                          device=svc.device)
+        for i, q in enumerate(p.qs):
+            sel[..., i, :] = torch.randint(
+                0, q, (S, svc.m, 2, p.n), generator=gen, device=svc.device,
+                dtype=torch.int32)
+        s1 = sel[:, :svc.g1]
+        before = pir_fold.fold_dim1.launches
+        got = svc._fold_dim1(s1)
+        torch.cuda.synchronize()
+        if pir_fold.fold_dim1.launches != before + 1 or not torch.equal(
+                got, pir_fold.fold_dim1_plain(s1, svc.db, p.qs)):
+            raise AssertionError(f"the dim-1 fold kernel differs from its "
+                                 f"plain version at S={S}")
+        del got
+        t_fold = cuda_time_ms(lambda: svc._fold_dim1(s1), iters=5, warmup=1)
+        t_plain = cuda_time_ms(
+            lambda: pir_fold.fold_dim1_plain(s1, svc.db, p.qs),
+            iters=2, warmup=1)
+        io = S * (svc.g1 + svc.g2) * 2 * L * p.n * 4
+        macs = S * 2 * svc.g1 * svc.g2 * L * p.n
         log("pir", f"{smi}: dim-1 fold of {S} selector sets (CUDA events): "
-            f"{t_fold:.3f} ms; bound by bytes: the database once "
-            f"{db_bytes / HBM_BYTES_S * 1e3:.3f} ms, with its selectors "
-            f"read and canonical int32 sums written "
-            f"{(db_bytes + io) / HBM_BYTES_S * 1e3:.3f} ms")
-        del s1
+            f"kernel {t_fold:.4f} ms, plain version {t_plain:.3f} ms, "
+            f"bit-equal; bound by bytes (the database once, its selectors "
+            f"read and canonical int32 sums written once) "
+            f"{(db_bytes + io) / HBM_BYTES_S * 1e3:.4f} ms "
+            f"({100 * (db_bytes + io) / HBM_BYTES_S * 1e3 / t_fold:.2f}% of "
+            f"it); by multiply-adds ({macs / 1e9:.2f} G IMAD.WIDE at "
+            f"~{MAD_WIDE_S / 1e12:.2f} T/s) "
+            f"{macs / MAD_WIDE_S * 1e3:.4f} ms "
+            f"({100 * macs / MAD_WIDE_S * 1e3 / t_fold:.1f}% of it)")
+        del sel, s1
+    log("pir", f"dim-1 fold kernel launches over the phase: "
+        f"{pir_fold.fold_dim1.launches}, plain-version calls "
+        f"{pir_fold.fold_dim1_plain.calls} (the checks and timings)")
 
     wall_p, busy, prof = profile_device(
         f"one warm /pir-fetch ({n_cts} multi-row cts)",
@@ -4531,7 +4577,7 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     kernels = ["union_scan_min", "ntt4_step", "pq_onehot", "slab_scan",
-               "tile_schedule"]
+               "tile_schedule", "pir_fold1"]
     for name in kernels:                  # always compile from the sources
         cuda_build.library_path(name).unlink(missing_ok=True)
     # the host C++ libraries (host NTT and vecs reader, JSON codec, epoll

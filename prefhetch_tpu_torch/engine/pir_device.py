@@ -15,10 +15,11 @@ tensors, for a chunk of B query ciphertexts at once:
    ciphertext of the round;
 2. one forward transform a limb of every selector that is used;
 3. the dim-1 fold C_j = Σ_i sel_i ⊗ db[i, j] over the g1 rows of the
-   [g1, g2] hypercube: one pass over the database serves every selector
-   set of the chunk (every row of a multi-row ciphertext and every
-   ciphertext), products summed seven at a time in int64 between
-   reductions; one inverse transform a limb;
+   [g1, g2] hypercube (ops/pir_fold.py ``fold_dim1``: one launch of the
+   kernel ``csrc/pir_fold1.cu`` on the card, its sums in registers; its
+   plain version on CPU tensors): one pass over the database serves every
+   selector set of the chunk (every row of a multi-row ciphertext and every
+   ciphertext); one inverse transform a limb;
 4. the RNS modulus switch to q1 (the q2 residue centred first) and the
    base-t digits of the g2 column ciphertexts, one forward transform a limb
    of all 2·n_digits digit planes;
@@ -27,25 +28,27 @@ tensors, for a chunk of B query ciphertexts at once:
 
 Every transform is one call of ``ops/ntt4.ntt4``/``intt4``: one launch of
 kernel K2 on the card, its plain version on CPU tensors. A chunk takes
-6·logm + 4·L launches: 62 for single-row ciphertexts and 80 for fully
-packed multi-row ones at the SIFT1M preset (N=4096, L=2, g1 = g2 = 177).
-Modular products are ``%`` on int64, which is exact, so the responses are
+6·logm + 4·L K2 launches (62 for single-row ciphertexts and 80 for fully
+packed multi-row ones at the SIFT1M preset: N=4096, L=2, g1 = g2 = 177) and
+one launch of the fold's kernel. Modular products are ``%`` on int64 and
+the fold's sums exact u64, so the responses are
 bit-equal to the JAX program's and to ``PIR2Server``'s. The NTT domain of
 this module is in four-step order: the database (transformed on the device
 by K2, which emits that order) and the key stacks (host NTT, then
 ``fourstep_perm``); the wire stays in the natural coefficient domain.
 
 ``answer_2d_sharded`` runs the dim-1 fold over the database sharded on a
-mesh (parallel/mesh.py), each shard folding its g1/ndev rows; the sum of the
-shards' canonical partials, reduced once mod q, is the single-device
-accumulator, so the response is bit-equal to ``answer_2d``.
+mesh (parallel/mesh.py), each shard folding its g1/ndev rows; the int64 sum
+of the shards' canonical int32 partials, reduced once mod q, is the
+single-device fold, so the response is bit-equal to ``answer_2d``.
 
 Inside ``record_stages()`` a request counts (utils/stages.py ``count``)
 ``pir.cts`` query ciphertexts, ``pir.rows`` row fetches (padding
 included), and per program ``pir.programs``, ``pir.expanded`` (B·2^logm
 ciphertexts after expansion) and ``pir.selector_sets`` (B·n_rows); K2's
 wrappers count the rows each launch transforms (``k2.rows.i32``,
-``k2.rows.i64``).
+``k2.rows.i64``) and the fold's wrapper its launches
+(``pir.fold1.launches``).
 
 Not ported: the JAX module's disk caches (``cache_dir``: the transformed
 database and key stacks), its serialised TPU executables, its retry and
@@ -74,6 +77,7 @@ from prefhetch_tpu_torch.engine.hecompute import key_switch
 from prefhetch_tpu_torch.ops.ntt4 import (
     build_ntt4_tables, fourstep_perm, intt4, ntt4,
 )
+from prefhetch_tpu_torch.ops.pir_fold import fold_dim1
 from prefhetch_tpu_torch.utils.stages import count, stage
 from prefhetch_tpu_torch.utils.wire import pack_i32
 
@@ -94,7 +98,8 @@ N_KS_DIGITS = 2          # 30-bit limbs → two 15-bit key-switch digits
 # the cap leaves the card half free whatever the concurrency.
 MAX_EXPANDED = 40_960
 
-# products < q² < 2^60: seven of them and a residue < q stay below 2^63
+# the dim-2 fold: products < q² < 2^60, seven of them and a residue < q
+# stay below 2^63
 _SUMS_PER_REDUCE = 7
 
 
@@ -300,19 +305,10 @@ class DevicePIR2:
     def _fold_dim1(self, s1: torch.Tensor, db: torch.Tensor | None = None
                    ) -> torch.Tensor:
         """s1 [S, rows, 2, L, N] NTT-domain selectors → [S, 2, g2, L, N]
-        int64 canonical: C_j = Σ_i s1_i ⊗ db[i, j], one pass over the
+        int32 canonical: C_j = Σ_i s1_i ⊗ db[i, j], one pass over the
         database rows (default all g1, else a shard's) for all S selector
         sets."""
-        db = self.db if db is None else db
-        S, rows = s1.shape[:2]
-        qs = self._qs.to(db.device)
-        acc = torch.zeros((S, 2, self.g2) + tuple(db.shape[2:]),
-                          dtype=torch.int64, device=db.device)
-        for i in range(rows):
-            acc.addcmul_(s1[:, i, :, None], db[i])
-            if (i + 1) % _SUMS_PER_REDUCE == 0 or i + 1 == rows:
-                acc %= qs
-        return acc
+        return fold_dim1(s1, self.db if db is None else db, self.params.qs)
 
     def _fold_dim2(self, digs: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
         """digs [S, 2·nd, g2, N] base-t digit planes, s2 [S, g2, 2, L, N]
@@ -460,8 +456,8 @@ class DevicePIR2:
         """Single-row answer with the packed database sharded over the mesh
         (parallel/mesh.py): each shard folds its g1/ndev rows of the
         hypercube in the dim-1 fold (the stage that reads the database),
-        and a sum of the shards' canonical partials (< ndev·q) with one
-        reduction mod q reassembles the accumulators bit-equal to
+        and an int64 sum of the shards' canonical int32 partials (< ndev·q)
+        with one reduction mod q reassembles the fold bit-equal to
         answer_2d. Expansion and the dim-2 fold run once, on the service's
         device. A shard on that device is a view of the database. Requires
         g1 % ndev == 0."""
@@ -478,7 +474,8 @@ class DevicePIR2:
             parts = [self._fold_dim1(s1[:, gid * chunk:(gid + 1) * chunk]
                                      .to(db.device), db)
                      for gid, db in dbs]
-            return (mesh.psum(parts).to(self.device)) % self._qs
+            return (mesh.psum([p.to(torch.int64) for p in parts])
+                    .to(self.device)) % self._qs
 
         kb, ka = self._keys[key_id]
         with stage("wire decode"):

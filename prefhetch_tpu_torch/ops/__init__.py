@@ -5,8 +5,8 @@ def kernel_counters():
     """({name: wrapper with .launches}, [plain versions with .calls]) of
     every kernel of the port: a wrapper counts the launches of its kernel,
     a plain version its own calls."""
-    from prefhetch_tpu_torch.ops import ntt4_fused, ntt4_step, pq_onehot
-    from prefhetch_tpu_torch.ops import slab_scan, union_scan_min
+    from prefhetch_tpu_torch.ops import ntt4_fused, ntt4_step, pir_fold
+    from prefhetch_tpu_torch.ops import pq_onehot, slab_scan, union_scan_min
 
     wrappers = {
         "union_scan_min": union_scan_min.union_scan_min,
@@ -15,9 +15,11 @@ def kernel_counters():
         "slab_distances_sq8": slab_scan.slab_distances_sq8,
         "slab_distances": slab_scan.slab_distances,
         "tile_schedule": slab_scan.tile_schedule,
+        "fold_dim1": pir_fold.fold_dim1,
     }
     plains = [union_scan_min.union_scan_min_reference,
               ntt4_step.ntt4_step_plain, pq_onehot.pq_probed_distances_plain,
               slab_scan.slab_distances_sq8_plain,
-              slab_scan.slab_distances_plain, slab_scan.tile_schedule_plain]
+              slab_scan.slab_distances_plain, slab_scan.tile_schedule_plain,
+              pir_fold.fold_dim1_plain]
     return wrappers, plains

@@ -5,7 +5,8 @@ the CPU (the packed response and its threefry expansion too, and whole
 result ciphertexts), the CKKS
 device program on CUDA against the CPU (K2 at the CKKS primes too), the
 PIR device program on CUDA against the CPU (K2 at its key-switch and
-database shapes too), the scan variants of query_pipeline on CUDA
+database shapes too; the dim-1 fold's kernel against its plain version,
+one launch a program), the scan variants of query_pipeline on CUDA
 against the CPU, and sharding on the card: the engine over meshes of
 shards of the one card byte-identical to the unsharded engine (K1 once a
 shard), the q1 MAC and the PIR answer sharded, an NCCL world of one and the
@@ -463,6 +464,115 @@ def test_pir_device_needs_cuda(monkeypatch):
         DevicePIR2(base, pir_params_for(256, 257, 2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DevicePIR2(base, pir_params_for(256, 257, 2), device="cuda")
+
+
+def _fold_operands(dev, S, g1, g2, fill, qs, n=4096):
+    """(sel [S, g1 + g2, 2, L, n], db [g1, g2, L, n]) int32 residues on the
+    card below each limb's modulus: uniform from a seeded generator, or
+    every one q - 1."""
+    L = len(qs)
+    gen = torch.Generator(device=dev).manual_seed(S * 1000 + g1 + g2)
+    sel = torch.empty((S, g1 + g2, 2, L, n), dtype=torch.int32, device=dev)
+    db = torch.empty((g1, g2, L, n), dtype=torch.int32, device=dev)
+    for l, q in enumerate(qs):
+        for t in (sel[..., l, :], db[..., l, :]):
+            if fill == "q-1":
+                t.fill_(q - 1)
+            else:
+                t.copy_(torch.randint(0, q, t.shape, generator=gen,
+                                      device=dev, dtype=torch.int32))
+    return sel, db
+
+
+@pytest.mark.parametrize("S,g1,g2,fill", [
+    (1, 13, 13, "uniform"), (3, 13, 13, "q-1"), (110, 13, 13, "q-1"),
+    (3, 177, 177, "uniform"), (110, 177, 177, "uniform"),
+    (110, 177, 177, "q-1"),
+])
+def test_pir_fold1_kernel_matches_plain(cuda, S, g1, g2, fill):
+    """csrc/pir_fold1.cu (ops/pir_fold.fold_dim1) at N=4096, L=2 on the PIR
+    primes, bit-equal to its plain version: the selectors passed as the
+    strided view sel[:, :g1] of [S, g1 + g2, 2, L, N], as the program
+    passes them; S and g2 ragged against the kernel's tile of 4 sets by 8
+    columns (S = 1 a single-row fetch, 110 the 100-row one); every residue
+    q - 1 drives each sum to its largest. One launch, no plain call."""
+    from prefhetch_tpu_torch.crypto.params import pir_params_for
+    from prefhetch_tpu_torch.ops import pir_fold
+
+    qs = pir_params_for(4096, 257, 2).qs
+    sel, db = _fold_operands(cuda, S, g1, g2, fill, qs)
+    s1 = sel[:, :g1]
+    launches = pir_fold.fold_dim1.launches
+    calls = pir_fold.fold_dim1_plain.calls
+    got = pir_fold.fold_dim1(s1, db, qs)
+    torch.cuda.synchronize()              # a fault in the run shows here
+    assert pir_fold.fold_dim1.launches == launches + 1
+    assert pir_fold.fold_dim1_plain.calls == calls
+    assert got.dtype == torch.int32 and got.shape == (S, 2, g2, 2, 4096)
+    assert torch.equal(got, pir_fold.fold_dim1_plain(s1, db, qs))
+
+
+def test_pir_fold1_kernel_rejects_what_it_cannot_take(cuda):
+    from prefhetch_tpu_torch.crypto.params import pir_params_for
+    from prefhetch_tpu_torch.ops import pir_fold
+
+    qs = pir_params_for(4096, 257, 2).qs
+    sel, db = _fold_operands(cuda, 2, 5, 4, "uniform", qs)
+    s1 = sel[:, :5]
+    launches = pir_fold.fold_dim1.launches
+    with pytest.raises(ValueError, match="int32"):
+        pir_fold.fold_dim1(s1.long(), db, qs)
+    with pytest.raises(ValueError, match="is on"):
+        pir_fold.fold_dim1(s1.cpu(), db, qs)
+    with pytest.raises(ValueError, match="does not match"):
+        pir_fold.fold_dim1(sel[:, :4], db, qs)
+    with pytest.raises(ValueError, match="contiguous in their last three"):
+        pir_fold.fold_dim1(s1, db.transpose(2, 3).contiguous()
+                           .transpose(2, 3), qs)
+    assert pir_fold.fold_dim1.launches == launches
+
+
+def test_pir_fold1_one_launch_a_program(cuda, monkeypatch):
+    """answer_2d_multi_batch with three 3-row ciphertexts, two a program:
+    the fold's kernel launches once a program (the wrapper's count and the
+    ``pir.fold1.launches`` counter on the ``dim-1 fold`` stage), its plain
+    version never, and every row decodes exactly."""
+    from prefhetch_tpu_torch.crypto.params import pir_params_for
+    from prefhetch_tpu_torch.crypto.pir import PIRClient
+    from prefhetch_tpu_torch.engine import pir_device
+    from prefhetch_tpu_torch.ops import pir_fold
+    from prefhetch_tpu_torch.utils import stages
+
+    p = pir_params_for(4096, 257, 2)
+    base = np.random.default_rng(8).integers(0, 256, (5000, 128)) \
+        .astype(np.float32)
+    client = PIRClient(p, seed=7)
+    dev = pir_device.DevicePIR2(base, p, device=cuda)
+    dev.register_galois_keys("k", client.galois_keys_wire_2d_multi(
+        5000, 128, 3))
+    monkeypatch.setattr(pir_device, "MAX_EXPANDED", 2 << dev._depth(3))
+    groups = [[0, 4999, 17], [1234, 5, 6], [77, 78, 2500]]
+    wires, rs = zip(*(client.build_query_2d_multi(g, 5000, 128)
+                      for g in groups))
+    launches = pir_fold.fold_dim1.launches
+    calls = pir_fold.fold_dim1_plain.calls
+    stages.clear_spans()
+    with stages.record_stages():
+        with stages.span("engine"):
+            got = dev.answer_2d_multi_batch(list(wires), "k", 3)
+    assert pir_fold.fold_dim1.launches - launches == 2
+    assert pir_fold.fold_dim1_plain.calls == calls
+    rec = stages.recorded_spans()
+    names = {s.id: s.name for s in rec["spans"]}
+    by = {}
+    for c in rec["counters"]:
+        by.setdefault(c.name, []).append((names[c.span], c.n))
+    assert by["pir.programs"] == [("engine", 2)]
+    assert sorted(by["pir.fold1.launches"]) == [("dim-1 fold", 1)] * 2
+    for i, g in enumerate(groups):
+        for j, row in enumerate(g):
+            np.testing.assert_array_equal(client.decode_response_2d(
+                got[3 * i + j], 128, rs[i][j]), base[row])
 
 
 @pytest.mark.parametrize("mode", ["combined", "per-block"])

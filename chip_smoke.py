@@ -1148,7 +1148,7 @@ def check_k2_packed(svc, nq: int, nb: int, n_out: int) -> int:
     masks. Returns the max |difference| (0)."""
     import torch
 
-    ext, tabs, _ = svc._packed_tables
+    tabs = svc._ext_tables
     n, L = svc.params.n, len(svc.params.qs)
     m = nq * nb
     gen = torch.Generator(device=svc.device).manual_seed(11)
@@ -1173,9 +1173,9 @@ def check_k2_packed(svc, nq: int, nb: int, n_out: int) -> int:
                 f"packed/limb {i} [{b}] {'inverse' if inverse else 'forward'}",
                 rows(b, tb.q, dtype), tb, inverse))
     log("kernel", f"ntt4_transform at the packed program's shapes on its "
-        f"primes {list(ext)}: digits [{m * L}, {n}], products [{2 * m}, "
-        f"{n}], MAC [{m}]/[{2 * m}], pack [{2 * m}]/[{2 * n_out}], seeded "
-        f"[{nq}]: ok (max |err| {err})")
+        f"primes {[t.q for t in tabs]}: digits [{m * L}, {n}], products "
+        f"[{2 * m}, {n}], MAC [{m}]/[{2 * m}], pack [{2 * m}]/[{2 * n_out}], "
+        f"seeded [{nq}]: ok (max |err| {err})")
     return err
 
 
@@ -4802,7 +4802,7 @@ def main() -> int:
     nbatch = NQ_BATCH * -(-cfg.protocol.coarse_probe // (svc.params.n // D))
     k2_times = time_ntt4_transform(svc._tables[0], nbatch)
     # the packed key switch: L digit rows a block row, on the special prime
-    k2_packed = time_ntt4_transform(svc._packed_tables[1][-1],
+    k2_packed = time_ntt4_transform(svc._ext_tables[-1],
                                     nbatch * len(svc.params.qs),
                                     forward_int64=True)
     # the CKKS key switch's largest transform: [2048, 8192] on the special

@@ -6,9 +6,9 @@ program a request, eager PyTorch on int64 tensors:
 
 - ct×pt multiply: forward NTTs of the query and the encoded candidate
   blocks, pointwise modular products, inverse NTT, exact RNS rescale;
-- slot rotations: the Galois automorphism X → X^{5^s} is a precomputed
-  permutation with a sign; the key switch (engine/hecompute.py
-  ``key_switch``, shared with the packed BFV program) splits c1 into
+- slot rotations (engine/hecompute.py ``rotate_add``, the rotation step
+  of all three HE device programs): the Galois automorphism X → X^{5^s}
+  is a precomputed permutation with a sign; the key switch splits c1 into
   digits, forward-transforms all (row, digit) polys per prime of the
   active level and the special prime, multiplies by the client's
   pre-transformed Galois key, inverse-transforms the two sums and divides
@@ -54,7 +54,10 @@ from prefhetch_tpu_torch.crypto.ckks import (
 from prefhetch_tpu_torch.crypto.ntt import ntt as host_ntt
 from prefhetch_tpu_torch.crypto.params import CKKSParams
 from prefhetch_tpu_torch.device import resolve_device
-from prefhetch_tpu_torch.engine.hecompute import CKKSComputeService, key_switch
+from prefhetch_tpu_torch.engine.hecompute import (
+    CKKSComputeService, Rotations, automorphism_tables, galois_key_tables,
+    rotate_add,
+)
 from prefhetch_tpu_torch.ops.ntt4 import (
     build_ntt4_tables, fourstep_perm, intt4, modmul, ntt4,
 )
@@ -110,45 +113,18 @@ class DeviceCKKS:
 
     # ------------------------------------------------------------------
     def register_keys(self, key_id: str, gks_wire: dict) -> None:
-        """Host-NTT every Galois key component over the full extended basis
-        into four-step order (once per client) and park it on the device as
-        int32.
+        """Park the Galois keys on the device (engine/hecompute.py
+        ``galois_key_tables``: int32, four-step NTT order, once per client).
 
         The key-switch digit width comes from the key wire itself
-        (``digitBits``), validated against the component count; it is
-        stored per key_id. Registering a key_id again drops the schedules
-        cached for it."""
-        n = self.params.n
-        out = {}
-        dbits = None
-        for step_s, wire in gks_wire.items():
-            gk = GaloisKey.from_wire(wire)
-            n_comp = gk.b.shape[0]
-            if dbits is None:
-                dbits = int(gk.digit_bits)
-                nd = -(-30 // dbits)
-            if int(gk.digit_bits) != dbits or n_comp != self.L * nd:
-                raise ValueError(
-                    f"galois key {step_s}: digitBits {gk.digit_bits} / "
-                    f"{n_comp} components inconsistent with "
-                    f"digitBits {dbits} (L={self.L})"
-                )
-            if gk.b.shape[1:] != (self.L + 1, n) or gk.a.shape != gk.b.shape:
-                raise ValueError(
-                    f"galois key {step_s}: shape {gk.b.shape} does not match "
-                    f"the service's {self.L + 1} primes of N={n}"
-                )
-            kb = np.empty(gk.b.shape, np.int32)
-            ka = np.empty(gk.a.shape, np.int32)
-            for e, q in enumerate(self.ext):
-                tb = self.ctx.tables[e]
-                kb[:, e] = host_ntt(gk.b[:, e] % q, tb)[:, self._four_perm]
-                ka[:, e] = host_ntt(gk.a[:, e] % q, tb)[:, self._four_perm]
-            out[int(step_s)] = (torch.from_numpy(kb).to(self.device),
-                                torch.from_numpy(ka).to(self.device))
-        self._keys[key_id] = out
-        if dbits is not None:
-            self._key_digits[key_id] = dbits
+        (``digitBits``), one width for the key set; it is stored per
+        key_id. Registering a key_id again drops the schedules cached for
+        it."""
+        gks = {int(s): GaloisKey.from_wire(w) for s, w in gks_wire.items()}
+        kb, ka, dbits = (galois_key_tables(gks, self._tables, self.device)
+                         if gks else (None, None, None))
+        self._keys[key_id] = {s: (kb[j], ka[j]) for j, s in enumerate(gks)}
+        self._key_digits[key_id] = dbits
         for k in [k for k in self._sched_cache if k[0] == key_id]:
             del self._sched_cache[k]
 
@@ -156,22 +132,12 @@ class DeviceCKKS:
         return key_id in self._keys
 
     # ------------------------------------------------------------------
-    def _auto_tables(self, steps: Tuple[int, ...]):
-        """(perm [S, N] int64, neg [S, N] bool) on the device: the
-        automorphism X → X^{5^s} of each step, as a gather and a sign."""
-        perms, negs = [], []
-        for s in steps:
-            perm, sgn = self.ctx._automorphism_map(s)
-            perms.append(perm)
-            negs.append(sgn < 0)
-        return (torch.from_numpy(np.stack(perms)).to(self.device),
-                torch.from_numpy(np.stack(negs)).to(self.device))
-
     def _schedule(self, key_id: str, steps: Tuple[int, ...], lvl: int):
-        """A rotation schedule at level ``lvl``: (kb, ka [S, lvl·n_digits,
-        lvl+1, N] int32 — each key's rows for the active primes and the
-        special prime —, perm, neg [S, N], digit bits), None for no steps.
-        Raises for a step without a key. Cached per key_id."""
+        """A rotation schedule at level ``lvl``: the ``Rotations`` of the
+        steps (kb, ka [S, lvl·n_digits, lvl+1, N] int32 — each key's rows
+        for the active primes and the special prime —, the automorphisms
+        X → X^{5^s}), None for no steps. Raises for a step without a key.
+        Cached per key_id."""
         if not steps:
             return None
         gks = self._keys[key_id]
@@ -186,8 +152,9 @@ class DeviceCKKS:
                 rows = list(range(lvl)) + [self.L]
                 kb = torch.stack([gks[s][0][:n_comp, rows] for s in steps])
                 ka = torch.stack([gks[s][1][:n_comp, rows] for s in steps])
-                self._sched_cache[ckey] = (kb, ka,
-                                           *self._auto_tables(steps), dbits)
+                self._sched_cache[ckey] = Rotations(
+                    kb, ka, *automorphism_tables(self.ctx, steps, self.device),
+                    self._tables[:lvl] + [self._tables[-1]], dbits)
         return self._sched_cache[ckey]
 
     def _mask_ntt(self, d: int, window: int, level: int) -> torch.Tensor:
@@ -223,22 +190,6 @@ class DeviceCKKS:
     def _qcol(self, lvl: int, device) -> torch.Tensor:
         return torch.tensor(self.ext[:lvl], dtype=torch.int64,
                             device=device)[:, None]
-
-    def _rot_add(self, x0, x1, y0, y1, sched, r: int):
-        """(x + rot_r(y)) over [M, l, N] int64 canonical residues: the
-        automorphism of step r of the schedule (a gather, negated where
-        its sign is −1) on both halves of y, the key switch of the rotated
-        c1, the sums mod each prime."""
-        kb, ka, perms, negs, dbits = sched
-        lvl = x0.shape[1]
-        qs = self._qcol(lvl, x0.device)
-        perm, neg = perms[r], negs[r]
-        v0, v1 = y0[:, :, perm], y1[:, :, perm]
-        c0g = torch.where(neg & (v0 != 0), qs - v0, v0)
-        c1g = torch.where(neg & (v1 != 0), qs - v1, v1)
-        tabs = self._tables[:lvl] + [self._tables[-1]]
-        ks0, ks1 = key_switch(c1g, kb[r], ka[r], tabs, dbits)
-        return (x0 + c0g + ks0) % qs, (x1 + ks1) % qs
 
     def _rescale(self, p0: List[torch.Tensor], p1: List[torch.Tensor]):
         """Exact RNS rescale of [M, N] residue rows per prime: drop the last
@@ -276,8 +227,9 @@ class DeviceCKKS:
             prod0.append(i01[:B])
             prod1.append(i01[B:])
         acc0, acc1 = self._rescale(prod0, prod1)
-        for r in range(len(pre[2]) if pre else 0):
-            acc0, acc1 = self._rot_add(acc0, acc1, acc0, acc1, pre, r)
+        for r in range(len(pre.perm) if pre else 0):
+            acc0, acc1 = rotate_add(acc0, acc1, acc0, acc1, pre, r,
+                                    self._qcol(level_in - 1, acc0.device))
         return acc0, acc1
 
     def _score(self, ct, pt_rns, pre) -> torch.Tensor:
@@ -315,18 +267,20 @@ class DeviceCKKS:
         lvl2 = level - 1
         cur0 = c0.reshape(nq, blocks, lvl2, n)
         cur1 = c1.reshape(nq, blocks, lvl2, n)
-        for k in range(len(tree[2]) if tree else 0):
+        for k in range(len(tree.perm) if tree else 0):
             nb_k = cur0.shape[1]
-            x0, x1 = self._rot_add(
+            x0, x1 = rotate_add(
                 cur0[:, 0::2].reshape(-1, lvl2, n),
                 cur1[:, 0::2].reshape(-1, lvl2, n),
                 cur0[:, 1::2].reshape(-1, lvl2, n),
-                cur1[:, 1::2].reshape(-1, lvl2, n), tree, k)
+                cur1[:, 1::2].reshape(-1, lvl2, n), tree, k,
+                self._qcol(lvl2, cur0.device))
             cur0 = x0.reshape(nq, nb_k // 2, lvl2, n)
             cur1 = x1.reshape(nq, nb_k // 2, lvl2, n)
         a0, a1 = cur0[:, 0], cur1[:, 0]
-        for r in range(len(post[2]) if post else 0):
-            a0, a1 = self._rot_add(a0, a1, a0, a1, post, r)
+        for r in range(len(post.perm) if post else 0):
+            a0, a1 = rotate_add(a0, a1, a0, a1, post, r,
+                                self._qcol(lvl2, a0.device))
         return torch.stack([a0, a1], 1).to(torch.int32)
 
     def _gather(self, ids: torch.Tensor):

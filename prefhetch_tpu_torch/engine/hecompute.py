@@ -34,15 +34,20 @@ result ciphertexts of the same MAC (one K2 launch a limb; host twin
 ``_mac_numpy``); no route of either package serves them.
 
 ``CKKSComputeService`` (numpy) is the host twin and oracle of the CKKS
-device program (engine/ckks_device.py), which shares ``key_switch`` with
-the packed program.
+device program (engine/ckks_device.py).
+
+The Galois machinery of the three HE device programs (the packed program
+here, engine/ckks_device.py and engine/pir_device.py) is written once
+here: the key intake (``check_galois_keys``, ``galois_key_tables``), the
+automorphism tables (``automorphism_tables``) and the rotation step
+(``rotate_add``, over ``key_switch``), bundled per key set as
+``Rotations``.
 """
 
 from __future__ import annotations
 
 import base64
-import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -64,8 +69,10 @@ from prefhetch_tpu_torch.utils.stages import stage
 
 def key_switch(c1g: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor,
                tabs, digit_bits: int):
-    """Hybrid key switch on the device, shared by the packed BFV program
-    and the CKKS program (engine/ckks_device.py, at its active level).
+    """Hybrid key switch on the device: the switch of ``rotate_add``, the
+    rotation step of the packed BFV program, the CKKS program
+    (engine/ckks_device.py, at its active level) and the PIR expansion
+    (engine/pir_device.py).
 
     c1g [M, l, N]: canonical coefficient-domain residues mod the first l
     primes of ``tabs``; kb, ka [l·n_digits, l+1, N] int32: the key's rows
@@ -105,6 +112,113 @@ def key_switch(c1g: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor,
     return torch.stack(out0, 1), torch.stack(out1, 1)
 
 
+class Rotations(NamedTuple):
+    """A sequence of Galois rotations on the device; round r reads row r
+    of kb, ka, perm and neg.
+
+    kb, ka [R, n_comp, l+1, N] int32: the keys' rows for the l active
+    primes and the special prime, NTT domain in four-step order
+    (``galois_key_tables``); perm [R, N] int64, neg [R, N] bool: the
+    automorphisms (``automorphism_tables``); tabs: the K2 tables of those
+    l+1 primes; digit_bits: the keys' digit width."""
+
+    kb: torch.Tensor
+    ka: torch.Tensor
+    perm: torch.Tensor
+    neg: torch.Tensor
+    tabs: list
+    digit_bits: int
+
+
+def check_galois_keys(keys: dict, tabs) -> "int | None":
+    """The refusals of a Galois key set {name: RelinKey | GaloisKey} over
+    the extension basis of ``tabs`` (L primes and the special prime, last):
+    each key's basis, its shape [n_comp, L+1, N], and one digit width for
+    the set with n_comp = L·⌈30/digit_bits⌉. Returns the width (None for
+    an empty set)."""
+    ext = tuple(tb.q for tb in tabs)
+    L, n = len(ext) - 1, tabs[0].n
+    bits = None
+    for name, key in keys.items():
+        # a CKKS GaloisKey names no basis: its rows are its context's
+        basis = getattr(key, "ext", None)
+        if basis is not None and (tuple(basis) != ext
+                                  or key.special_p != ext[-1]):
+            raise ValueError(
+                f"galois key {name}: basis {tuple(basis)} / special prime "
+                f"{key.special_p} does not match the service's {ext}")
+        if key.b.shape[1:] != (L + 1, n) or key.a.shape != key.b.shape:
+            raise ValueError(
+                f"galois key {name}: shape {key.b.shape} does not match the "
+                f"service's {L + 1} primes of N={n}")
+        kbits = int(key.digit_bits)
+        if kbits < 1 or key.b.shape[0] != L * -(-30 // kbits):
+            raise ValueError(
+                f"galois key {name}: digitBits {key.digit_bits} / shape "
+                f"{key.b.shape} inconsistent with {L} limbs")
+        if bits not in (None, kbits):
+            raise ValueError(
+                f"galois key {name}: digitBits {kbits} inconsistent with "
+                f"digitBits {bits} of the other keys")
+        bits = kbits
+    return bits
+
+
+def galois_key_tables(keys: dict, tabs, device):
+    """A Galois key set {name: key} (``check_galois_keys``) on the device:
+    every component host-NTT'd per prime of ``tabs`` into four-step order →
+    (kb, ka [len(keys), n_comp, L+1, N] int32, digit_bits)."""
+    bits = check_galois_keys(keys, tabs)
+    perm = fourstep_perm(tabs[0])[0]
+    host = [build_tables(tb.q, tb.n) for tb in tabs]
+    first = next(iter(keys.values()))
+    kb = np.empty((len(keys),) + first.b.shape, np.int32)
+    ka = np.empty_like(kb)
+    for j, key in enumerate(keys.values()):
+        for e, tb in enumerate(host):
+            kb[j, :, e] = ntt(key.b[:, e] % tb.q, tb)[:, perm]
+            ka[j, :, e] = ntt(key.a[:, e] % tb.q, tb)[:, perm]
+    return (torch.from_numpy(kb).to(device), torch.from_numpy(ka).to(device),
+            bits)
+
+
+def automorphism_tables(ctx, elts, device):
+    """(perm [S, N] int64, neg [S, N] bool) on the device: the automorphism
+    of each element of ``elts`` as ``ctx._automorphism_map`` gives it, a
+    gather and a sign."""
+    maps = [ctx._automorphism_map(g) for g in elts]
+    return (torch.from_numpy(np.stack([pm for pm, _ in maps])).to(device),
+            torch.from_numpy(np.stack([sg < 0 for _, sg in maps])).to(device))
+
+
+def signed_perm(x: torch.Tensor, perm: torch.Tensor, neg: torch.Tensor,
+                qs: torch.Tensor) -> torch.Tensor:
+    """[..., l, N] canonical residues → out[..., i] = ±x[..., perm[i]] mod
+    q, negated where ``neg``, in the dtype of x and qs [l, 1]."""
+    y = x[..., perm]
+    return torch.where(neg & (y != 0), qs - y, y)
+
+
+def rotate_add(x0, x1, y0, y1, rot: Rotations, r: int, qs: torch.Tensor):
+    """(x0, x1) + σ(y0, y1) mod q with σ round r of ``rot``: the signed
+    automorphism of both halves of y, σ(y1) key-switched (``key_switch``).
+    x, y [..., l, N] canonical residues and qs [l, 1] the active primes, in
+    one storage dtype (int32 or int64) → the sums in x's shape and dtype.
+
+    σ(y1) is switched and freed before σ(y0) is made: at the widest round
+    of the PIR expansion one int32 half is ~1.3 GB."""
+    perm, neg = rot.perm[r], rot.neg[r]
+    g1 = signed_perm(y1, perm, neg, qs)
+    ks0, ks1 = key_switch(g1.reshape((-1,) + g1.shape[-2:]), rot.kb[r],
+                          rot.ka[r], rot.tabs, rot.digit_bits)
+    del g1
+    g0 = signed_perm(y0, perm, neg, qs)
+    z0 = ((x0.to(torch.int64) + g0 + ks0.view(x0.shape)) % qs).to(x0.dtype)
+    del g0, ks0
+    z1 = ((x1.to(torch.int64) + ks1.view(x1.shape)) % qs).to(x1.dtype)
+    return z0, z1
+
+
 class HEComputeService:
     """Holds a BFV parameter context (no keys) + the batched MAC program."""
 
@@ -113,14 +227,18 @@ class HEComputeService:
         self.params = params
         self.ctx = BFVContext(params)
         self.device = resolve_device(device)
-        self._tables = [build_ntt4_tables(q, params.n) for q in params.qs]
+        # the L primes and the special prime of the packed key switch
+        self._ext_tables = [build_ntt4_tables(q, params.n) for q in
+                            tuple(params.qs) + (self.ctx._special_p,)]
+        self._tables = self._ext_tables[:len(params.qs)]
         perm, inv_perm = fourstep_perm(self._tables[0])
+        self._four_perm = perm
         self._perm = torch.from_numpy(perm).to(self.device)
         self._inv_perm = torch.from_numpy(inv_perm).to(self.device)
         self._base_host: np.ndarray | None = None
         self._base_dev: torch.Tensor | None = None
         self._galois_bfv: Dict[str, Dict[int, RelinKey]] = {}
-        self._packed_keys_dev: Dict[str, tuple] = {}
+        self._packed_keys_dev: Dict[str, Rotations] = {}
         self._packed_shift_cache: Dict[tuple, tuple] = {}
 
     # -- truncated-response device pipeline ------------------------------
@@ -136,25 +254,27 @@ class HEComputeService:
         self._base_dev = b.to(self.device)
         self._base_host = b.cpu().numpy()
 
-    def _mac_limbs(self, ctq: torch.Tensor, rows: torch.Tensor):
-        """The ct×pt MAC shared by both response wires. Yields, per limb,
+    def _mac_limbs(self, c0q: torch.Tensor, c1q: torch.Tensor,
+                   rows: torch.Tensor, mono_pre: torch.Tensor | None = None):
+        """The ct×pt MAC of every response wire. Yields, per limb,
         (tables, o0, o1): the c0 and c1 products [nq, nb, N] int64 in
         four-step NTT order.
 
-        The incoming ciphertext is natural-order NTT and is permuted to
-        four-step order once; the candidate rows [nq, npad, d] int32 (B rows
-        a block) are each REVERSED in their d-aligned window, and negatives
-        are lifted per limb before the forward transform."""
+        c0q, c1q [nq, L, N]: the query ciphertext in four-step NTT order;
+        the candidate rows [nq, npad, d] int32 (B rows a block) are each
+        REVERSED in their d-aligned window, and negatives are lifted per
+        limb before the forward transform; the packed program's mono_pre
+        [L, N] multiplies the transformed rows first."""
         n = self.params.n
         nq, npad, d = rows.shape
         nb = npad * d // n
-        c0q = ctq[:, 0][..., self._perm]
-        c1q = ctq[:, 1][..., self._perm]
         polys = rows.flip(-1).reshape(nq * nb, n)
         for i, tb in enumerate(self._tables):
             q = tb.q
             lifted = torch.where(polys < 0, polys + q, polys)
             pt = ntt4(lifted, tb).reshape(nq, nb, n)
+            if mono_pre is not None:
+                pt = modmul(pt, mono_pre[i], q)
             yield (tb, modmul(c0q[:, None, i], pt, q),
                    modmul(c1q[:, None, i], pt, q))
 
@@ -181,7 +301,8 @@ class HEComputeService:
         unaffected. The rows are gathered from the parked base."""
         rows = self._base_dev[idx.long()]                # [nq, npad, d] i32
         out = []
-        for tb, o0, o1 in self._mac_limbs(ctq, rows):
+        for tb, o0, o1 in self._mac_limbs(*ctq[..., self._perm].unbind(1),
+                                          rows):
             o1_nat = o1[..., self._inv_perm]             # wire: natural order
             out.append(torch.cat(
                 [o1_nat.to(torch.int32),
@@ -223,7 +344,8 @@ class HEComputeService:
         q1, q2 = self.params.qs
         inv_q2 = pow(q2 % q1, -1, q1)
         c1c, c0ip = [], []
-        for tb, o0, o1 in self._mac_limbs(ctq, rows):
+        for tb, o0, o1 in self._mac_limbs(*ctq[..., self._perm].unbind(1),
+                                          rows):
             nq, nb, n = o1.shape
             c0ip.append(self._ip_coeffs(o0, tb, rows.shape[-1])
                         .to(torch.int64))
@@ -432,7 +554,8 @@ class HEComputeService:
         → [nq, nb, 2, L, N] i32: (c0, c1) of every result ciphertext,
         natural-order NTT (the four-step products permuted back)."""
         out = [torch.stack([o0, o1], 2)[..., self._inv_perm]
-               for _, o0, o1 in self._mac_limbs(ctq, rows)]
+               for _, o0, o1 in self._mac_limbs(
+                   *ctq[..., self._perm].unbind(1), rows)]
         return torch.stack(out, 3).to(torch.int32)
 
     def _mac_numpy(self, c0, c1, pt_polys):
@@ -462,25 +585,7 @@ class HEComputeService:
     def register_galois_keys(self, key_id: str, gks_wire: dict) -> None:
         """Register client-generated extraction keys {g: RelinKey wire}."""
         keys = {int(g): RelinKey.from_wire(w) for g, w in gks_wire.items()}
-        L = len(self.params.qs)
-        ext = tuple(self.params.qs) + (self.ctx._special_p,)
-        for g, rk in keys.items():
-            # the device key switch derives the digit ladder from the key
-            # SHAPE (n_digits = n_comp/L, digit_bits = 30/n_digits) — a
-            # wire whose declared width disagrees would silently corrupt
-            if 30 % rk.digit_bits or (
-                rk.b.shape[0] != L * (30 // rk.digit_bits)
-            ):
-                raise ValueError(
-                    f"galois key {g}: digitBits {rk.digit_bits} / shape "
-                    f"{rk.b.shape} inconsistent with {L} limbs"
-                )
-            if tuple(rk.ext) != ext or rk.b.shape[1:] != (
-                    L + 1, self.params.n) or rk.a.shape != rk.b.shape:
-                raise ValueError(
-                    f"galois key {g}: basis {tuple(rk.ext)} / shape "
-                    f"{rk.b.shape} does not match the service's {ext}"
-                )
+        check_galois_keys(keys, self._ext_tables)
         self._galois_bfv[key_id] = keys
         self._packed_keys_dev.pop(key_id, None)
 
@@ -547,8 +652,7 @@ class HEComputeService:
         args = self._packed_args(key_id, nb, G)
 
         def program():
-            return self._packed_program(ctq_d[:, 0][..., self._perm],
-                                        ctq_d[:, 1][..., self._perm],
+            return self._packed_program(*ctq_d[..., self._perm].unbind(1),
                                         idx_d, *args)
 
         with stage("device program"):
@@ -665,18 +769,10 @@ class HEComputeService:
         return out
 
     # -- packed response: the device program -------------------------------
-    @functools.cached_property
-    def _packed_tables(self):
-        """(ext basis qs + (special p,), its four-step NTT tables, the
-        natural → four-step permutation as numpy)."""
-        ext = tuple(self.params.qs) + (self.ctx._special_p,)
-        tabs = [build_ntt4_tables(q, self.params.n) for q in ext]
-        return ext, tabs, fourstep_perm(tabs[0])[0]
-
     def _packed_args(self, key_id: str, nb: int, G: int):
         """The device arguments of the packed program after the queries and
-        indices: the key tables and the monomial tables."""
-        return (*self._packed_dev_keys(key_id),
+        indices: the extraction rotations and the monomial tables."""
+        return (self._packed_rotations(key_id),
                 *self._packed_shift_tables(nb, G))
 
     def _packed_shift_tables(self, nb: int, G: int):
@@ -689,7 +785,6 @@ class HEComputeService:
         key = (d, nb, G)
         if key not in self._packed_shift_cache:
             n = self.params.n
-            four_perm = self._packed_tables[2]
             pre_e = (2 * n - (d - 1)) % (2 * n)
             shifts = [g * nb + b for g in range(G) for b in range(nb)]
 
@@ -697,7 +792,7 @@ class HEComputeService:
                 rows = np.zeros((len(es), n), np.int64)
                 for r, e in enumerate(es):
                     rows[r, e % n] = 1 if e < n else q - 1
-                return ntt(rows, tb)[:, four_perm]
+                return ntt(rows, tb)[:, self._four_perm]
 
             pre, sh = [], []
             for q, tb in zip(self.params.qs, self.ctx.tables):
@@ -708,48 +803,34 @@ class HEComputeService:
                 torch.from_numpy(np.stack(sh)).to(self.device))
         return self._packed_shift_cache[key]
 
-    def _packed_dev_keys(self, key_id: str):
-        """(kb, ka [n_elts, n_comp, n_ext, N] int32 NTT domain in four-step
-        order, perms [n_elts, N] int64, negs [n_elts, N] bool: the
-        automorphism maps), on the device, cached per key_id."""
+    def _packed_rotations(self, key_id: str) -> Rotations:
+        """The log2(d) extraction rounds of key_id on the device, its keys
+        at the digit width they were registered with; cached per key_id."""
         if key_id not in self._packed_keys_dev:
             with stage("galois key tables (host NTT, once per key)"):
-                self._packed_keys_dev[key_id] = self._dev_keys(key_id)
+                gks = self._galois_bfv[key_id]
+                elts = self.ctx.extraction_elts(self.params.n,
+                                                self._base_host.shape[1])
+                kb, ka, bits = galois_key_tables(
+                    {g: gks[g] for g in elts}, self._ext_tables, self.device)
+                self._packed_keys_dev[key_id] = Rotations(
+                    kb, ka, *automorphism_tables(self.ctx, elts, self.device),
+                    self._ext_tables, bits)
         return self._packed_keys_dev[key_id]
 
-    def _dev_keys(self, key_id: str):
-        n = self.params.n
-        d = self._base_host.shape[1]
-        ext, _, four_perm = self._packed_tables
-        ext_tables = [build_tables(q, n) for q in ext]
-        gks = self._galois_bfv[key_id]
-        kbs, kas, perms, negs = [], [], [], []
-        for g in self.ctx.extraction_elts(n, d):
-            rk = gks[g]
-            kb = np.empty(rk.b.shape, np.int32)
-            ka = np.empty(rk.a.shape, np.int32)
-            for e, (q, tb) in enumerate(zip(ext, ext_tables)):
-                kb[:, e] = ntt(rk.b[:, e] % q, tb)[:, four_perm]
-                ka[:, e] = ntt(rk.a[:, e] % q, tb)[:, four_perm]
-            kbs.append(kb)
-            kas.append(ka)
-            pm, sg = self.ctx._automorphism_map(g)
-            perms.append(pm)
-            negs.append(sg < 0)
-        return tuple(torch.from_numpy(np.stack(x)).to(self.device)
-                     for x in (kbs, kas, perms, negs))
-
-    def _packed_program(self, c0q, c1q, idx, kb, ka, perms, negs,
+    def _packed_program(self, c0q, c1q, idx, rot: Rotations,
                         mono_pre, shift_tabs) -> torch.Tensor:
         """The packed program: (c0q, c1q [nq, L, N] FOUR-STEP NTT domain,
-        idx [nq, nb·B] i32, the key and monomial tables) → [n_out, 2, L, N]
-        int32 coeff-domain packed response ciphertexts.
+        idx [nq, nb·B] i32, the extraction rotations and the monomial
+        tables) → [n_out, 2, L, N] int32 coeff-domain packed response
+        ciphertexts.
 
-        1. MAC with the X^{-(d-1)} pre-shift, per limb: one forward K2 of
-           the gathered, reversed, lifted rows, NTT-domain multiplies by
-           mono_pre and by c0/c1, one inverse K2 of both halves;
-        2. log2(d) extraction rounds ct += σ_g(ct): an automorphism gather
-           with its sign and a key switch (``key_switch``);
+        1. MAC with the X^{-(d-1)} pre-shift, per limb (``_mac_limbs``): one
+           forward K2 of the gathered, reversed, lifted rows, NTT-domain
+           multiplies by mono_pre and by c0/c1, one inverse K2 of both
+           halves;
+        2. log2(d) extraction rounds ct += σ_g(ct) (``rotate_add``): an
+           automorphism gather with its sign and a key switch;
         3. the shift-pack, per limb: one forward K2 of both halves, a
            multiply by each row's monomial NTT(X^{(qi mod G)·nb + b}), the
            sum over groups of G·nb rows (< 2^37, exact), one inverse K2.
@@ -757,43 +838,28 @@ class HEComputeService:
         Only the nq·nb real rows are computed: absent queries of the last
         group contribute nothing, as the zero ciphertexts they stand for
         would (the JAX program pads the batch to a multiple of G)."""
-        p = self.params
-        n, L = p.n, len(p.qs)
-        tabs = self._packed_tables[1]
+        n = self.params.n
         nq, npad = idx.shape
         d = self._base_dev.shape[1]
         nb = npad * d // n
         gnb = shift_tabs.shape[1]                    # G·nb
         M = nq * nb
         n_out = -(-M // gnb)
-        qs = torch.tensor(p.qs, dtype=torch.int64, device=idx.device)[:, None]
-        polys = self._base_dev[idx.long()].flip(-1).reshape(M, n)
+        qs = torch.tensor(self.params.qs, dtype=torch.int64,
+                          device=idx.device)[:, None]
         c0, c1 = [], []
-        for i in range(L):
-            tb = tabs[i]
-            lifted = torch.where(polys < 0, polys + tb.q, polys)
-            pt = modmul(ntt4(lifted, tb), mono_pre[i], tb.q).reshape(nq, nb, n)
-            o0 = modmul(c0q[:, None, i], pt, tb.q).reshape(M, n)
-            o1 = modmul(c1q[:, None, i], pt, tb.q).reshape(M, n)
-            i01 = intt4(torch.cat([o0, o1]), tb).to(torch.int64)
+        for tb, o0, o1 in self._mac_limbs(c0q, c1q, self._base_dev[idx.long()],
+                                          mono_pre):
+            i01 = intt4(torch.cat([o0.reshape(M, n), o1.reshape(M, n)]),
+                        tb).to(torch.int64)
             c0.append(i01[:M])
             c1.append(i01[M:])
         c0 = torch.stack(c0, 1)                       # [M, L, N] coeff
         c1 = torch.stack(c1, 1)
-        # the digit ladder from the keys' shape: n_comp = L·n_digits rows,
-        # digit_bits = 30/n_digits (30-bit keys: n_comp = L)
-        digit_bits = 30 // (kb.shape[1] // L)
-        for r in range(perms.shape[0]):
-            perm, neg = perms[r], negs[r]
-            v0, v1 = c0[:, :, perm], c1[:, :, perm]
-            c0g = torch.where(neg & (v0 != 0), qs - v0, v0)
-            c1g = torch.where(neg & (v1 != 0), qs - v1, v1)
-            ks0, ks1 = key_switch(c1g, kb[r], ka[r], tabs, digit_bits)
-            c0 = (c0 + c0g + ks0) % qs
-            c1 = (c1 + ks1) % qs
+        for r in range(len(rot.perm)):
+            c0, c1 = rotate_add(c0, c1, c0, c1, rot, r, qs)
         outs = []
-        for i in range(L):
-            tb = tabs[i]
+        for i, tb in enumerate(self._tables):
             nt = ntt4(torch.cat([c0[:, i], c1[:, i]]), tb).reshape(2, M, n)
             sh = modmul(nt, shift_tabs[i].repeat(n_out, 1)[None, :M], tb.q)
             sh = torch.nn.functional.pad(sh, (0, 0, 0, n_out * gnb - M))
@@ -806,10 +872,9 @@ class HEComputeService:
         [nq, 2]. The c1 mask a is regenerated from the 8-byte threefry keys
         (ops/threefry.py, plain PyTorch) and forward-transformed by one K2
         per limb; then the packed program."""
-        tabs = self._packed_tables[1]
         a = tf_uniform_rns(seeds, self.params.qs, self.params.n)
-        c1q = torch.stack([ntt4(a[:, i], tabs[i])
-                           for i in range(len(self.params.qs))], 1)
+        c1q = torch.stack([ntt4(a[:, i], tb)
+                           for i, tb in enumerate(self._tables)], 1)
         return self._packed_program(c0_nat[..., self._perm], c1q, idx, *args)
 
 

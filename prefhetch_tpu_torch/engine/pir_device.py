@@ -9,10 +9,10 @@ keys stay on the device. The answer program, eager PyTorch on int32/int64
 tensors, for a chunk of B query ciphertexts at once:
 
 1. breadth-first oblivious expansion to 2^logm selectors a ciphertext:
-   logm rounds, each a signed monomial permutation, a signed Galois
-   permutation and one key switch (engine/hecompute.py ``key_switch``,
-   15-bit digits, shared with the packed BFV and CKKS programs) over every
-   ciphertext of the round;
+   logm rounds, each a signed monomial permutation and one rotation step
+   (engine/hecompute.py ``rotate_add``, shared with the packed BFV and
+   CKKS programs: a signed Galois permutation and a key switch, 15-bit
+   digits) over every ciphertext of the round;
 2. one forward transform a limb of every selector that is used;
 3. the dim-1 fold C_j = Σ_i sel_i ⊗ db[i, j] over the g1 rows of the
    [g1, g2] hypercube (ops/pir_fold.py ``fold_dim1``: one launch of the
@@ -69,20 +69,19 @@ import numpy as np
 import torch
 
 from prefhetch_tpu_torch.crypto.bfv import BFVContext, Ciphertext, RelinKey
-from prefhetch_tpu_torch.crypto.ntt import build_tables, ntt as host_ntt
 from prefhetch_tpu_torch.crypto.params import BFVParams
 from prefhetch_tpu_torch.crypto.pir import grid_dims, pack_database
 from prefhetch_tpu_torch.device import resolve_device
-from prefhetch_tpu_torch.engine.hecompute import key_switch
-from prefhetch_tpu_torch.ops.ntt4 import (
-    build_ntt4_tables, fourstep_perm, intt4, ntt4,
+from prefhetch_tpu_torch.engine.hecompute import (
+    Rotations, automorphism_tables, galois_key_tables, rotate_add,
+    signed_perm,
 )
+from prefhetch_tpu_torch.ops.ntt4 import build_ntt4_tables, intt4, ntt4
 from prefhetch_tpu_torch.ops.pir_fold import fold_dim1
 from prefhetch_tpu_torch.utils.stages import count, stage
 from prefhetch_tpu_torch.utils.wire import pack_i32
 
 DIGIT_BITS = 15
-N_KS_DIGITS = 2          # 30-bit limbs → two 15-bit key-switch digits
 
 # Expanded selector ciphertexts one program holds at its widest round
 # (B query ciphertexts × 2^logm). At N=4096 and L=2 the widest round keeps
@@ -124,8 +123,9 @@ class DevicePIR2:
         while (params.t ** self._n_digits) < params.qs[0]:
             self._n_digits += 1
         n, L = params.n, len(params.qs)
-        self._tabs_q = [build_ntt4_tables(q, n) for q in params.qs]
-        self._fs_perm = fourstep_perm(self._tabs_q[0])[0]
+        self._ext = tuple(params.qs) + (self.ctx._special_p,)
+        self._tabs_ext = [build_ntt4_tables(q, n) for q in self._ext]
+        self._tabs_q = self._tabs_ext[:L]
         self._qs = torch.tensor(params.qs, dtype=torch.int64,
                                 device=self.device)[:, None]      # [L, 1]
         self._qs32 = self._qs.to(torch.int32)
@@ -150,27 +150,19 @@ class DevicePIR2:
         k = np.arange(n)
         mono_perm = np.empty((self.logm_max, n), np.int64)
         mono_neg = np.empty((self.logm_max, n), bool)
-        gal_perm = np.empty((self.logm_max, n), np.int64)
-        gal_neg = np.empty((self.logm_max, n), bool)
-        self._gal_elts: List[int] = []
         for j in range(self.logm_max):
             # out[pos[k]] = sign[k]·in[k]  →  out[i] = sg[i]·in[pm[i]]
             dest = (k + (-(1 << j)) % (2 * n)) % (2 * n)
             mono_perm[j, dest % n] = k
             mono_neg[j, dest % n] = dest >= n
-            g = (n >> j) + 1
-            self._gal_elts.append(g)
-            kg = (k * g) % (2 * n)
-            gal_perm[j, kg % n] = k
-            gal_neg[j, kg % n] = kg >= n
         self.mono_perm = torch.from_numpy(mono_perm).to(self.device)
         self.mono_neg = torch.from_numpy(mono_neg).to(self.device)
-        self.gal_perm = torch.from_numpy(gal_perm).to(self.device)
-        self.gal_neg = torch.from_numpy(gal_neg).to(self.device)
-        self._ext = tuple(params.qs) + (self.ctx._special_p,)
-        self._tabs_ext = [build_ntt4_tables(q, n) for q in self._ext]
-        # key_id -> (kb, ka) [depth, n_comp, L+1, N] int32, four-step order
-        self._keys: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._gal_elts = [(n >> j) + 1 for j in range(self.logm_max)]
+        self.gal_perm, self.gal_neg = automorphism_tables(
+            self.ctx, self._gal_elts, self.device)
+        # key_id -> the expansion's Rotations, kb, ka [depth, n_comp, L+1,
+        # N] int32 in four-step order
+        self._keys: Dict[str, Rotations] = {}
         self._key_fps: Dict[str, tuple] = {}
         # one answer program at a time on the device (see MAX_EXPANDED)
         self._lock = threading.Lock()
@@ -188,8 +180,8 @@ class DevicePIR2:
 
     # ------------------------------------------------------------------
     def register_galois_keys(self, key_id: str, gks_wire: dict) -> None:
-        """Host-NTT the key components per extension prime into four-step
-        order and stack them per level, on the device.
+        """Park the key components on the device, stacked per level
+        (engine/hecompute.py ``galois_key_tables``).
 
         Accepts any contiguous prefix of the full log2(N)-level element
         chain (n>>j)+1: single-row clients send logm levels, multi-row
@@ -208,25 +200,12 @@ class DevicePIR2:
                 f"expansion keys cover {depth} levels; even the single-row "
                 f"tree needs {self.logm}"
             )
-        L, n = len(self.params.qs), self.params.n
-        for g in self._gal_elts[:depth]:
-            rk = gks[g]
+        keys = {g: gks[g] for g in self._gal_elts[:depth]}
+        for g, rk in keys.items():
             if rk.digit_bits != DIGIT_BITS:
                 raise ValueError(
                     f"galois key {g}: digitBits {rk.digit_bits}; the PIR "
                     f"key switch takes {DIGIT_BITS}"
-                )
-            if tuple(rk.ext) != self._ext or rk.special_p != self._ext[-1]:
-                raise ValueError(
-                    f"galois key {g}: basis {tuple(rk.ext)} / special prime "
-                    f"{rk.special_p} does not match the service's {self._ext}"
-                )
-            if rk.b.shape != (L * N_KS_DIGITS, L + 1, n) \
-                    or rk.a.shape != rk.b.shape:
-                raise ValueError(
-                    f"galois key {g}: shape {rk.b.shape} does not match "
-                    f"{L * N_KS_DIGITS} components over {L + 1} primes of "
-                    f"N={n}"
                 )
         fps = tuple(
             hashlib.sha1(json.dumps(wire_by_elt[g], sort_keys=True,
@@ -236,26 +215,12 @@ class DevicePIR2:
         prev = self._key_fps.get(key_id)
         if prev is not None and len(prev) >= depth and prev[:depth] == fps:
             return
-        shape = (depth, L * N_KS_DIGITS, L + 1, n)
-        kb = np.empty(shape, np.int32)
-        ka = np.empty(shape, np.int32)
-        for e, q in enumerate(self._ext):
-            tb = build_tables(q, n)
-            for j, g in enumerate(self._gal_elts[:depth]):
-                rk = gks[g]
-                kb[j, :, e] = host_ntt(rk.b[:, e] % q, tb)[:, self._fs_perm]
-                ka[j, :, e] = host_ntt(rk.a[:, e] % q, tb)[:, self._fs_perm]
-        self._keys[key_id] = (torch.from_numpy(kb).to(self.device),
-                              torch.from_numpy(ka).to(self.device))
+        kb, ka, _ = galois_key_tables(keys, self._tabs_ext, self.device)
+        self._keys[key_id] = Rotations(kb, ka, self.gal_perm, self.gal_neg,
+                                       self._tabs_ext, DIGIT_BITS)
         self._key_fps[key_id] = fps
 
     # ------------------------------------------------------------------
-    def _signed_perm(self, x: torch.Tensor, perm: torch.Tensor,
-                     neg: torch.Tensor) -> torch.Tensor:
-        """[..., L, N] residues → out[..., i] = ±x[..., perm[i]] mod q."""
-        y = x[..., perm]
-        return torch.where(neg & (y != 0), self._qs32 - y, y)
-
     def _mod_down(self, x: torch.Tensor) -> torch.Tensor:
         """[..., L, N] int residues → [..., N] int64 mod q1: the RNS
         modulus switch (q2 residue centred, then exact division by q2)."""
@@ -274,32 +239,21 @@ class DevicePIR2:
             [fn(x[..., i, :].reshape(-1, n), tb).view(x.shape[:-2] + (n,))
              for i, tb in enumerate(self._tabs_q)], dim=-2)
 
-    def _expand(self, c0: torch.Tensor, c1: torch.Tensor, kb, ka,
+    def _expand(self, c0: torch.Tensor, c1: torch.Tensor, rot: Rotations,
                 logm: int):
         """[B, L, N] query cts → ([B, 2^logm, L, N] int32 c0s, c1s):
         breadth-first, so selector b lands at position b (no bit
         reversal)."""
-        B, L, n = c0.shape
         c0s = c0.to(torch.int32)[:, None]
         c1s = c1.to(torch.int32)[:, None]
         for j in range(logm):
             mp, mn = self.mono_perm[j], self.mono_neg[j]
-            both0 = torch.cat([c0s, self._signed_perm(c0s, mp, mn)], 1)
-            both1 = torch.cat([c1s, self._signed_perm(c1s, mp, mn)], 1)
+            both0 = torch.cat([c0s, signed_perm(c0s, mp, mn, self._qs32)], 1)
+            both1 = torch.cat([c1s, signed_perm(c1s, mp, mn, self._qs32)], 1)
             del c0s, c1s
-            gp, gn = self.gal_perm[j], self.gal_neg[j]
-            gb1 = self._signed_perm(both1, gp, gn)
-            ks0, ks1 = key_switch(gb1.reshape(-1, L, n), kb[j], ka[j],
-                                  self._tabs_ext, DIGIT_BITS)
-            del gb1
-            shape = both0.shape
-            gb0 = self._signed_perm(both0, gp, gn)
-            c0s = ((both0.to(torch.int64) + gb0 + ks0.view(shape))
-                   % self._qs).to(torch.int32)
-            del both0, gb0, ks0
-            c1s = ((both1.to(torch.int64) + ks1.view(shape))
-                   % self._qs).to(torch.int32)
-            del both1, ks1
+            c0s, c1s = rotate_add(both0, both1, both0, both1, rot, j,
+                                  self._qs32)
+            del both0, both1
         return c0s, c1s
 
     def _fold_dim1(self, s1: torch.Tensor, db: torch.Tensor | None = None
@@ -332,7 +286,7 @@ class DevicePIR2:
                 out[:, :, c, i] = r
         return out
 
-    def _program(self, c0: torch.Tensor, c1: torch.Tensor, kb, ka,
+    def _program(self, c0: torch.Tensor, c1: torch.Tensor, rot: Rotations,
                  n_rows: int, fold1=None) -> torch.Tensor:
         """The answer program: c0, c1 [B, L, N] coefficient-domain query
         cts → [B, n_rows, 2·nd, 2, N] int32 response residues mod q1.
@@ -346,7 +300,7 @@ class DevicePIR2:
         count("pir.expanded", B << logm)
         count("pir.selector_sets", B * n_rows)
         with stage("expansion (K2 + elementwise)"):
-            c0s, c1s = self._expand(c0, c1, kb, ka, logm)
+            c0s, c1s = self._expand(c0, c1, rot, logm)
             take = n_rows * m
             sel = torch.stack([c0s[:, :take], c1s[:, :take]], 2)
             del c0s, c1s
@@ -397,11 +351,11 @@ class DevicePIR2:
         """Every ct's n_rows responses, in order, the cts in chunks of at
         most MAX_EXPANDED // 2^logm a program, one program of the service
         on the device at a time."""
-        kb, ka = self._keys[key_id]
+        rot = self._keys[key_id]
         logm = self._depth(n_rows)
-        if kb.shape[0] < logm:
+        if rot.kb.shape[0] < logm:
             raise ValueError(
-                f"expansion keys cover {kb.shape[0]} levels; "
+                f"expansion keys cover {rot.kb.shape[0]} levels; "
                 f"{n_rows} packed rows need {logm}"
             )
         with stage("wire decode"):
@@ -418,7 +372,7 @@ class DevicePIR2:
                         self.device)
                     c1 = torch.from_numpy(np.stack([c[1] for c in chunk])).to(
                         self.device)
-                res = self._program(c0, c1, kb, ka, n_rows)
+                res = self._program(c0, c1, rot, n_rows)
                 with stage("download"):
                     res = res.cpu().numpy()
             with stage("pack_i32"):
@@ -477,7 +431,7 @@ class DevicePIR2:
             return (mesh.psum([p.to(torch.int64) for p in parts])
                     .to(self.device)) % self._qs
 
-        kb, ka = self._keys[key_id]
+        rot = self._keys[key_id]
         with stage("wire decode"):
             c0, c1 = self._query_c01(query_wire)
         count("pir.cts", 1)
@@ -486,7 +440,7 @@ class DevicePIR2:
             with stage("upload"):
                 c0 = torch.from_numpy(c0[None]).to(self.device)
                 c1 = torch.from_numpy(c1[None]).to(self.device)
-            res = self._program(c0, c1, kb, ka, 1, fold1=fold1)
+            res = self._program(c0, c1, rot, 1, fold1=fold1)
             with stage("download"):
                 res = res.cpu().numpy()
         with stage("pack_i32"):

@@ -405,3 +405,196 @@ def test_stage_recording_times_the_served_path(engines, mode):
     with stage("not recorded"):
         td.handle("POST", "/encryptedsearch", {}, raw)
     assert len(times) == n
+
+
+# -- the Galois machinery shared by the three HE device programs ------------
+
+@pytest.fixture(scope="module")
+def galois_setup():
+    """The packed service and DevicePIR2 on one BFV ring (N=256, the PIR
+    preset's two limbs; d=32, so the packed service's five extraction
+    elements are the PIR expansion's first five) and DeviceCKKS at N=256
+    with three limbs, with a key wire for each."""
+    from prefhetch_tpu_torch.crypto import ckks as tckks
+    from prefhetch_tpu_torch.crypto import pir as tpir
+    from prefhetch_tpu_torch.crypto.params import (
+        CKKSParams, find_ntt_primes, pir_params_for,
+    )
+    from prefhetch_tpu_torch.engine.ckks_device import DeviceCKKS
+    from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
+
+    rng = np.random.default_rng(17)
+    p = pir_params_for(N, 257, 2)
+    base = rng.integers(0, 256, (300, D)).astype(np.float32)
+    pir_client = tpir.PIRClient(p, seed=6)
+    pir_wire = pir_client.galois_keys_wire_2d_multi(300, D, 2)   # depth 5
+    wide = pir_client.ctx.galois_keygen(pir_client.sk, [N + 1], rng,
+                                        digit_bits=30)[N + 1]
+    packed = TService(p, device="cpu")
+    packed.set_base(base)
+    pir = DevicePIR2(base, p, device="cpu")
+    qs = tuple(find_ntt_primes(N, 30, 3))
+    ctx = tckks.CKKSContext(CKKSParams(n=N, scale_bits=20, qs=qs))
+    sk, _ = ctx.keygen(rng)
+    ckks_wire = {str(s): k.to_wire()
+                 for s, k in ctx.galois_keygen(sk, [1, 2], rng).items()}
+    two = tckks.CKKSContext(CKKSParams(n=N, scale_bits=20, qs=qs[:2]))
+    two_key = two.galois_keygen(two.keygen(rng)[0], [1], rng)[1]
+    ckks = DeviceCKKS(ctx.params, device="cpu")
+    return {
+        "packed": (packed, packed.register_galois_keys,
+                   packed.has_galois_keys, pir_wire, wide),
+        "pir": (pir, pir.register_galois_keys, pir.has_keys, pir_wire,
+                wide),
+        "ckks": (ckks, ckks.register_keys, ckks.has_keys, ckks_wire,
+                 two_key),
+    }
+
+
+@pytest.mark.parametrize("service", ["packed", "ckks", "pir"])
+@pytest.mark.parametrize("bad", ["basis", "shape", "digitBits"])
+def test_galois_key_intake_refusals(galois_setup, service, bad):
+    """One key of a set on another basis, at another N, or declaring a
+    digit width its component count does not have is refused by each of
+    the three registrations (engine/hecompute.py ``check_galois_keys``),
+    as a ValueError, and the keyId stays unknown. A CKKS key names no
+    basis: the other basis is a key of a two-limb context."""
+    from prefhetch_tpu_torch.crypto.bfv import RelinKey
+    from prefhetch_tpu_torch.crypto.ckks import GaloisKey
+
+    _, register, has, wire, other = galois_setup[service]
+    first = next(iter(wire))
+    load = GaloisKey.from_wire if service == "ckks" else RelinKey.from_wire
+    key = load(wire[first])
+    if bad == "basis" and service == "ckks":
+        key = other
+    elif bad == "basis":
+        key.ext = key.ext[:-1] + (key.ext[-1] - 2,)
+    elif bad == "shape":
+        key.b, key.a = key.b[..., :N // 2], key.a[..., :N // 2]
+    elif service == "ckks":
+        key.digit_bits = 30               # 15-bit components
+    else:
+        key = other                       # 30-bit components, said 15
+        key.digit_bits = 15
+    if service == "ckks":
+        key.step = int(first)
+    bad_wire = {**wire, first: key.to_wire()}
+    key_id = f"bad-{bad}"
+    with pytest.raises(ValueError, match="digitBits" if bad == "digitBits"
+                       else "does not match"):
+        register(key_id, bad_wire)
+    assert not has(key_id)
+
+
+def test_packed_and_pir_put_one_key_on_the_device_alike(galois_setup):
+    """The same RelinKeys registered with the packed service and with
+    DevicePIR2 become equal int32 tables on the device, with equal
+    automorphisms, through the one intake."""
+    packed, *_, wire, _ = galois_setup["packed"]
+    pir = galois_setup["pir"][0]
+    packed.register_galois_keys("same", wire)
+    pir.register_galois_keys("same", wire)
+    got = packed._packed_rotations("same")
+    want = pir._keys["same"]
+    assert got.kb.dtype == got.ka.dtype == torch.int32
+    assert got.kb.shape == (5, 4, 3, N)
+    assert torch.equal(got.kb, want.kb) and torch.equal(got.ka, want.ka)
+    assert torch.equal(got.perm, want.perm[:5])
+    assert torch.equal(got.neg, want.neg[:5])
+    assert got.digit_bits == want.digit_bits == 15
+
+
+def _seam_request(service):
+    """One small request of each HE device program on the CPU: a packed
+    seedTf request (3 queries, 20 candidates, d=32), a CKKS per-block
+    request (one query, 10 candidates) and a 2-row PIR fetch."""
+    from prefhetch_tpu_torch.crypto import ckks as tckks
+    from prefhetch_tpu_torch.crypto import pir as tpir
+    from prefhetch_tpu_torch.crypto.params import (
+        CKKSParams, find_ntt_primes, pir_params_for,
+    )
+    from prefhetch_tpu_torch.engine.ckks_device import DeviceCKKS
+    from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
+
+    rng = np.random.default_rng(3)
+    if service == "packed":
+        client = HEClient(tcfg.HEParams(n=N, resp_mod="packed"), seed=1)
+        svc = TService(client.params, device="cpu")
+        svc.set_base(rng.integers(0, 256, (300, D)).astype(np.float32))
+        svc.register_galois_keys("k", client.bfv_extraction_keys_wire(D))
+        q = rng.integers(0, 256, (3, D)).astype(np.float64)
+        cand = rng.integers(0, 300, (3, 20))
+        wires = client.encrypt_query_batch(q)
+        return lambda: svc.encrypted_scores_packed_wire(wires, cand, "k")
+    if service == "ckks":
+        params = CKKSParams(n=N, scale_bits=20,
+                            qs=tuple(find_ntt_primes(N, 30, 3)))
+        ctx = tckks.CKKSContext(params)
+        sk, pk = ctx.keygen(rng)
+        gks = ctx.galois_keygen(sk, tckks.rotation_steps(D), rng)
+        dev = DeviceCKKS(params, device="cpu")
+        dev.register_keys("k", {str(s): k.to_wire() for s, k in gks.items()})
+        qv = rng.integers(0, 30, D).astype(np.float64)
+        ct = ctx.encrypt(pk, ctx.encode(np.tile(qv, N // 2 // D)), rng)
+        cands = rng.integers(0, 30, (10, D)).astype(np.float64)
+        return lambda: dev.encrypted_scores(ct, cands, "k")
+    p = pir_params_for(N, 257, 2)
+    base = rng.integers(0, 256, (300, D)).astype(np.float32)
+    client = tpir.PIRClient(p, seed=6)
+    dev = DevicePIR2(base, p, device="cpu")
+    dev.register_galois_keys("k", client.galois_keys_wire_2d_multi(300, D, 2))
+    wire, _ = client.build_query_2d_multi([5, 250], 300, D)
+    return lambda: dev.answer_2d_multi(wire, "k", 2)
+
+
+def _k2(kind, rows, dtype):
+    return (kind, (rows, N), dtype)
+
+
+# every transform that resolves through engine/hecompute.py's ``ntt4`` and
+# ``intt4``, in order: the names the benchmark's traced run patches (its
+# NTT replay keeps the first calls through them)
+_SEAM = {
+    # seeded c1 a limb; MAC a limb (M = 9 rows); 5 extraction rounds of
+    # 3 primes (30-bit keys: 2 digit rows a row); the shift-pack a limb
+    "packed": ([_k2("ntt4", 3, torch.int64)] * 2
+               + [_k2("ntt4", 9, torch.int32),
+                  _k2("intt4", 18, torch.int64)] * 2
+               + [_k2("ntt4", 18, torch.int64),
+                  _k2("intt4", 18, torch.int64)] * 15
+               + [_k2("ntt4", 18, torch.int64),
+                  _k2("intt4", 2, torch.int64)] * 2),
+    # 5 rotations at level 2 (3 blocks, 15-bit keys: 4 digit rows a
+    # block), each 3 primes; the ct×pt transforms are ckks_device's own
+    "ckks": [_k2("ntt4", 12, torch.int64), _k2("intt4", 6, torch.int64)] * 15,
+    # 5 expansion rounds of 3 primes over 2^(j+1) int32 cts; the folds'
+    # transforms are pir_device's own
+    "pir": [c for j in range(5)
+            for c in [_k2("ntt4", 8 << j, torch.int32),
+                      _k2("intt4", 4 << j, torch.int64)] * 3],
+}
+
+
+@pytest.mark.parametrize("service", ["packed", "ckks", "pir"])
+def test_key_switch_transforms_resolve_through_hecompute(service,
+                                                         monkeypatch):
+    """Counting wrappers over engine/hecompute.py's ``ntt4`` and ``intt4``
+    (where the benchmark's traced run patches them) see every key-switch
+    transform of one request of each HE device program, and only those of
+    the packed program besides: their number, order, rows and dtypes."""
+    from prefhetch_tpu_torch.engine import hecompute
+
+    go = _seam_request(service)
+    seen = []
+    for name in ("ntt4", "intt4"):
+        real = getattr(hecompute, name)
+
+        def counting(x, tb, *rest, _name=name, _real=real):
+            seen.append((_name, tuple(x.shape), x.dtype))
+            return _real(x, tb, *rest)
+
+        monkeypatch.setattr(hecompute, name, counting)
+    go()
+    assert len(seen) == len(_SEAM[service])
+    assert seen == _SEAM[service]

@@ -83,7 +83,10 @@ reporting on lines of its own; any failure exits non-zero:
               program bit-equal to its numpy twin on the first batch's
               first G queries, then N_BATCHES requests of 64 queries (the
               first carries the Galois keys) with K2's launches counted
-              around each, decrypted distances equal to precise_search,
+              around each (52) and the key switch's kernels' (35: digits,
+              three macs and the finish a round), decrypted distances
+              equal to precise_search, the key switch's kernels bit-equal
+              to their plain versions at the last round and timed,
               recall equal to the encrypted path's, the stage breakdown of
               one request with its bytes, and its device time by kernel;
    ckks     — CKKS slot-packed encrypted scoring at BASELINE.json config 3
@@ -117,10 +120,15 @@ reporting on lines of its own; any failure exits non-zero:
               wire (10 cts of 11 rows, a 12-level expansion, 80 launches),
               every row exact, with the shape of each K2 launch recorded;
               K2 against its plain version at every shape recorded (up to
-              [163,840, 4,096] int32 forward and [81,920, 4,096] int64
+              [163,840, 4,096] int32 forward and [81,920, 4,096] int32
               inverse, the multi-row key switch's last round); one launch
-              of the dim-1 fold's kernel (csrc/pir_fold1.cu) a program and
-              no plain call; where one multi-row request's time goes, the
+              of the dim-1 fold's kernel (csrc/pir_fold1.cu) a program,
+              five of the key switch's kernels (csrc/key_switch.cu) a
+              round of the expansion (60 a 12-level program, counted as
+              he.ks.launches on its expansion stage), no plain call; those
+              kernels at the widest round (M = 40,960) bit-equal to their
+              plain versions and timed beside their byte bounds; the warm
+              request's program peak beside PR 25's; where one multi-row request's time goes, the
               fold's kernel beside its plain version at S = 4 and 110
               (bit-equal) with its byte and multiply-add bounds, the
               device's busy share and K2's time at that widest round;
@@ -1140,8 +1148,9 @@ def phase_scores(engine, data, queries, cands, reset_counts, smi) -> tuple:
 def check_k2_packed(svc, nq: int, nb: int, n_out: int) -> int:
     """K2 against its plain version at the packed program's own transform
     shapes, on its primes (qs and the special prime): per prime the forward
-    transform of the nq·nb·n_comp key-switch digit rows (values < 2^30,
-    not reduced mod the prime) and the inverse of the 2·nq·nb product rows;
+    transform of the nq·nb·n_comp key-switch digit rows (int32 values <
+    2^30, not reduced mod the prime) and the inverse of the 2·nq·nb int32
+    sums;
     per limb the forward of the nq·nb lifted candidate rows (int32), the
     inverse of 2·nq·nb MAC rows, the forward of the 2·nq·nb pack rows, the
     inverse of the 2·n_out group sums and the forward of the nq seeded
@@ -1161,9 +1170,10 @@ def check_k2_packed(svc, nq: int, nb: int, n_out: int) -> int:
     for e, tb in enumerate(tabs):
         err = max(err,
                   check_transform(f"packed/digits p{e}",
-                                  rows(m * L, 1 << 30), tb, False),
+                                  rows(m * L, 1 << 30, torch.int32), tb,
+                                  False),
                   check_transform(f"packed/key inverse p{e}",
-                                  rows(2 * m, tb.q), tb, True))
+                                  rows(2 * m, tb.q, torch.int32), tb, True))
     for i, tb in enumerate(tabs[:L]):
         shapes = ((m, False, torch.int32), (2 * m, True, torch.int64),
                   (2 * m, False, torch.int64), (2 * n_out, True, torch.int64),
@@ -1213,7 +1223,8 @@ def post_packed(disp, client, queries, cand, gks):
             len(out["packedScores"]))
 
 
-def phase_packed(engine, disp, data, queries, cands, rep_full, reset_counts):
+def phase_packed(engine, disp, data, queries, cands, rep_full, reset_counts,
+                 smi):
     """The packed BFV response (respMod "packed", seedTf query wires) on the
     candidates of the encrypted phase: K2 at the program's shapes, the
     device program against its numpy twin on the first batch's first G
@@ -1275,15 +1286,20 @@ def phase_packed(engine, disp, data, queries, cands, rep_full, reset_counts):
         f"NTT, host key switch; {(time.perf_counter() - t0):.1f} s) on "
         f"{g0} queries x {nb} blocks: ok (bit-equal, c0 and c1)")
 
+    from prefhetch_tpu_torch.ops import key_switch as ks
+
+    ks_fns = (ks.ks_digits, ks.ks_mac, ks.ks_finish)
     reset_counts()
-    per_request, rows, ids = [], [], []
+    per_request, ks_per_request, rows, ids = [], [], [], []
     err = 0.0
     for b in range(N_BATCHES):
         sl = slice(b * NQ_BATCH, (b + 1) * NQ_BATCH)
         before = k2.ntt4_transform.launches
+        ks_before = sum(f.launches for f in ks_fns)
         dists, req, up, down, enc_t, dec_t, n_cts = post_packed(
             disp, client, queries[sl], cands[b], gks if b == 0 else None)
         per_request.append(k2.ntt4_transform.launches - before)
+        ks_per_request.append(sum(f.launches for f in ks_fns) - ks_before)
         plain = engine.precise_search(queries[sl], cands[b])
         err = max(err, float(np.abs(dists - plain).max()))
         if not np.array_equal(dists, plain):
@@ -1297,22 +1313,32 @@ def phase_packed(engine, disp, data, queries, cands, rep_full, reset_counts):
                     f"{down / 1e6:.3f} MB, {n_cts} cts; client encrypt "
                     f"{enc_t:.0f} ms, decrypt {dec_t:.0f} ms)")
     launches = k2.ntt4_transform.launches
-    plain_calls = k2s.ntt4_step_plain.calls
+    plain_calls = k2s.ntt4_step_plain.calls + sum(
+        f.calls for f in (ks.ks_digits_plain, ks.ks_mac_plain,
+                          ks.ks_finish_plain))
     # one launch per transform: L for the seeded c1, 2L for the MAC, 2 a
     # prime (qs and the special prime) in each of log2(d) rounds, 2L for
     # the pack
     want = L + 2 * L + 2 * (L + 1) * len(elts) + 2 * L
+    # the key switch's digits, L + 1 macs and finish a round
+    ks_want = (L + 3) * len(elts)
     log("packed", f"POST /encryptedsearch (packed) x{N_BATCHES} of "
         f"{NQ_BATCH} queries (host clock): " + "; ".join(rows))
     log("packed", f"ntt4_transform launches counted around each request "
-        f"{per_request} (expected {want}), {launches} in all, plain-version "
-        f"calls {plain_calls}; decrypted distances = precise_search, max "
-        f"|err| {err}")
+        f"{per_request} (expected {want}), {launches} in all; key-switch "
+        f"kernel launches {ks_per_request} (expected {ks_want}); "
+        f"plain-version calls {plain_calls}; decrypted distances = "
+        f"precise_search, max |err| {err}")
     if any(c != want for c in per_request) or launches != sum(per_request):
         raise AssertionError(f"K2 launches per packed request {per_request}, "
                              f"{launches} in all; expected {want} each")
+    if any(c != ks_want for c in ks_per_request):
+        raise AssertionError(f"key-switch launches per packed request "
+                             f"{ks_per_request}; expected {ks_want} each")
     if plain_calls != 0:
         raise AssertionError("a plain version ran on the packed path")
+    check_key_switch("packed", svc._packed_rotations(client.key_id),
+                     len(elts) - 1, NQ_BATCH * nb, torch.int64, smi)
     rep = benchmark_results(np.concatenate(ids), data["groundtruth"], k=k)
     log("packed", f"recall@1 {rep.recall_1} recall@10 {rep.recall_10} "
         f"recall@100 {rep.recall_100} mrr@10 {rep.mrr_10} (encrypted path: "
@@ -1380,8 +1406,9 @@ def check_k2_ckks(svc) -> int:
     four primes (the chain and the special prime): at the largest row count
     the combined program gives it ([2,048, 8,192]: the pre-combine key
     switch's 512 rows x 4 digit components) and at [128, 8,192]; forward
-    of 15-bit digits and of residues, inverse of residues, int64 as the
-    program gives them. Returns the max |difference| (0)."""
+    of 15-bit digits (int32) and of residues (int64), inverse of residues
+    (int64) and of the key switch's sums (int32), as the program gives
+    them. Returns the max |difference| (0)."""
     import torch
 
     n = svc.params.n
@@ -1389,18 +1416,21 @@ def check_k2_ckks(svc) -> int:
     err = 0
     for e, tb in enumerate(svc._tables):
         for rows in (2048, 128):
-            for what, hi, inverse in (("digits", 1 << 15, False),
-                                      ("residues", tb.q, False),
-                                      ("residues", tb.q, True)):
+            for what, hi, inverse, dtype in (
+                    ("digits", 1 << 15, False, torch.int32),
+                    ("residues", tb.q, False, torch.int64),
+                    ("residues", tb.q, True, torch.int64),
+                    ("key-switch sums", tb.q, True, torch.int32)):
                 x = torch.randint(0, hi, (rows, n), generator=gen,
-                                  device=svc.device, dtype=torch.int64)
+                                  device=svc.device, dtype=dtype)
                 err = max(err, check_transform(
                     f"ckks/p{e} [{rows}] {what} "
                     f"{'inverse' if inverse else 'forward'}", x, tb,
                     inverse))
     log("kernel", f"ntt4_transform at the CKKS program's shapes on its "
         f"primes {list(svc.ext)}: [2048, {n}] and [128, {n}], digits and "
-        f"residues forward, residues inverse: ok (max |err| {err})")
+        f"residues forward, residues and sums inverse: ok (max |err| "
+        f"{err})")
     return err
 
 
@@ -1467,6 +1497,7 @@ def phase_ckks(engine, disp, data, queries, cands, reset_counts, smi):
     from prefhetch_tpu_torch.metrics import benchmark_results
     from prefhetch_tpu_torch.ops import ntt4_fused as k2
     from prefhetch_tpu_torch.ops import ntt4_step as k2s
+    from prefhetch_tpu_torch.ops import key_switch as ks
 
     t_phase = time.perf_counter()
     cfg = engine.config
@@ -1614,7 +1645,9 @@ def phase_ckks(engine, disp, data, queries, cands, reset_counts, smi):
     pb_err = ckks_errors(pb_d, base_np[cands[0][:nq_pb]],
                          queries[:nq_pb])[0]
     launches = k2.ntt4_transform.launches
-    plain_calls = k2s.ntt4_step_plain.calls
+    plain_calls = k2s.ntt4_step_plain.calls + sum(
+        f.calls for f in (ks.ks_digits_plain, ks.ks_mac_plain,
+                          ks.ks_finish_plain))
     # bench.py's CKKS workload on the first batch: the exact top-100 of the
     # coarse candidates padded with consecutive base rows (after the counts
     # are read: a measurement, not the path)
@@ -1778,6 +1811,77 @@ def widest_key_switch(launches, sp: int) -> tuple:
     return (fwd[0], fwd[1]), (inv[0], inv[1]), fwd[3]
 
 
+def check_key_switch(tag: str, rot, r: int, M: int, dtype, smi: str) -> None:
+    """The rotation step's kernels (csrc/key_switch.cu) at round r of the
+    rotations ``rot`` over M ciphertexts of fresh residues in the program's
+    storage dtype: the digits, each prime's mac and the finish bit-equal to
+    their plain versions on the same inputs, each kernel timed (CUDA
+    events) beside its byte bound (its operands read once, its results
+    written once)."""
+    import torch
+
+    from prefhetch_tpu_torch.ops import key_switch as ks
+    from prefhetch_tpu_torch.ops.ntt4 import intt4, ntt4
+
+    dev = rot.kb.device
+    l = len(rot.tabs) - 1
+    n = rot.tabs[0].n
+    qs, p = [tb.q for tb in rot.tabs[:l]], rot.tabs[-1].q
+    gen = torch.Generator(device=dev).manual_seed(M)
+    x0, x1, y1 = (torch.stack([torch.randint(
+        0, q, (M, n), generator=gen, device=dev, dtype=dtype)
+        for q in qs], 1) for _ in range(3))
+    perm, neg = rot.perm[r], rot.neg[r]
+    bits = rot.digit_bits
+    flat = ks.ks_digits(y1, perm, neg, qs, bits)
+    torch.cuda.synchronize()
+    if not torch.equal(flat, ks.ks_digits_plain(y1, perm, neg, qs, bits)):
+        raise AssertionError(f"{tag}: ks_digits differs from its plain "
+                             f"version at M={M}")
+    ms = {"digits": cuda_time_ms(
+        lambda: ks.ks_digits(y1, perm, neg, qs, bits), iters=5, warmup=1)}
+    esz = y1.element_size()
+    rows = M * l * n
+    bound = {"digits": rows * esz + flat.numel() * 4}
+    parts, mac_ms = [], []
+    for e, tb in enumerate(rot.tabs):
+        d = ntt4(flat, tb)
+        kb, ka = rot.kb[r][:, e], rot.ka[r][:, e]
+        s01 = ks.ks_mac(d, kb, ka, tb.q)
+        torch.cuda.synchronize()
+        if not torch.equal(s01, ks.ks_mac_plain(d, kb, ka, tb.q)):
+            raise AssertionError(f"{tag}: ks_mac differs from its plain "
+                                 f"version mod {tb.q} at M={M}")
+        mac_ms.append(cuda_time_ms(lambda: ks.ks_mac(d, kb, ka, tb.q),
+                                   iters=5, warmup=1))
+        parts.append(intt4(s01, tb))
+        del d, s01
+    del flat
+    ms["mac"] = sum(mac_ms) / len(mac_ms)
+    n_comp = rot.kb.shape[1]
+    bound["mac"] = (M + 2) * n_comp * n * 4 + 2 * M * n * 4
+    got = ks.ks_finish(parts, x0, x1, y1, perm, neg, qs, p)
+    torch.cuda.synchronize()
+    want = ks.ks_finish_plain(parts, x0, x1, y1, perm, neg, qs, p)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{tag}: ks_finish differs from its plain "
+                             f"version at M={M}")
+    del got, want
+    ms["finish"] = cuda_time_ms(
+        lambda: ks.ks_finish(parts, x0, x1, y1, perm, neg, qs, p), iters=5,
+        warmup=1)
+    bound["finish"] = (l + 1) * 2 * M * n * 4 + 5 * rows * esz
+    log("kernel", f"{tag}: key-switch kernels at round {r} over M={M:,} "
+        f"[{l} limbs, N={n}, {str(dtype)[6:]}, {bits}-bit digits] = their "
+        f"plain versions (digits, {l + 1} macs, finish)")
+    log("timing", f"{smi}: {tag} key switch at M={M:,} (CUDA events), "
+        + ", ".join(f"{k} {v:.4f} ms (bound {bound[k] / HBM_BYTES_S * 1e3:.4f}"
+                    f" ms, {bound[k] / 1e9:.3f} GB; "
+                    f"{100 * bound[k] / HBM_BYTES_S * 1e3 / v:.1f}%)"
+                    for k, v in ms.items())
+        + " (the mac a prime)")
+
+
 def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     """Private row retrieval on the engine and base of the main phase: the
     engine's DevicePIR2 built on the card (pack_database on the host, the
@@ -1804,13 +1908,20 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
     from prefhetch_tpu_torch.ops import ntt4_fused as k2
     from prefhetch_tpu_torch.ops import ntt4_step as k2s
+    from prefhetch_tpu_torch.ops import key_switch as ks
     from prefhetch_tpu_torch.ops import pir_fold
+    from prefhetch_tpu_torch.utils import stages
     from prefhetch_tpu_torch.utils.stages import record_stages
 
     t_phase = time.perf_counter()
     cfg = engine.config
     nbase, d = base_np.shape
     k = top_ids.shape[1]
+    ks_plains = (ks.ks_digits_plain, ks.ks_mac_plain, ks.ks_finish_plain)
+
+    def ks_launches() -> int:
+        return ks.ks_digits.launches + ks.ks_mac.launches \
+            + ks.ks_finish.launches
 
     # the service, built lazily by the engine as a request would
     before = k2.ntt4_transform.launches
@@ -1912,6 +2023,7 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
         raise AssertionError(f"POST /pir-fetch: {status} {resp4[:300]!r}")
     single_launches = k2.ntt4_transform.launches
     single_folds = pir_fold.fold_dim1.launches
+    single_ks = ks_launches()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
     with recording_k2() as shapes_m:
@@ -1922,7 +2034,9 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     launches = k2.ntt4_transform.launches
     multi_launches = launches - single_launches
     multi_folds = pir_fold.fold_dim1.launches - single_folds
-    plain_calls = k2s.ntt4_step_plain.calls + pir_fold.fold_dim1_plain.calls
+    multi_ks = ks_launches() - single_ks
+    plain_calls = (k2s.ntt4_step_plain.calls + pir_fold.fold_dim1_plain.calls
+                   + sum(f.calls for f in ks_plains))
     # -----------------------------------------------------------------------
 
     res4 = json.loads(resp4)["pirResults"]
@@ -1971,6 +2085,13 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
         f"{plain_calls}")
     log("pir", f"dim-1 fold kernel launches: {single_folds} and "
         f"{multi_folds} (expected {folds1} and {foldsm}, one a program)")
+    # the digits, L + 1 macs and the finish a round of the expansion
+    ks1, ksm = folds1 * 5 * svc.logm, foldsm * 5 * logm_multi
+    log("pir", f"key-switch kernel launches: {single_ks} and {multi_ks} "
+        f"(expected {ks1} and {ksm}, five a round)")
+    if (single_ks, multi_ks) != (ks1, ksm):
+        raise AssertionError(f"key-switch launches {single_ks}, {multi_ks};"
+                             f" expected {ks1}, {ksm}")
     if single_launches != want1 or multi_launches != wantm:
         raise AssertionError(f"K2 launches {single_launches}, "
                              f"{multi_launches}; expected {want1}, {wantm}")
@@ -1997,13 +2118,32 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     body.pop("galoisKeys", None)
     raw = json.dumps(body).encode()
     t0 = time.perf_counter()
+    stages.clear_spans()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     with record_stages() as times:
         t1 = time.perf_counter()
         status, _, out = disp.handle("POST", "/pir-fetch", {}, raw)
         wall = (time.perf_counter() - t1) * 1e3
+    peak = torch.cuda.max_memory_allocated() - mem0
     if status != 200 or out != captured["resp"]:
         raise AssertionError("the repeated multi-row request answered "
                              "otherwise")
+    rec = stages.recorded_spans()
+    names = {sp.id: sp.name for sp in rec["spans"]}
+    ks_by = {}
+    for c in rec["counters"]:
+        if c.name == "he.ks.launches":
+            ks_by[names[c.span]] = ks_by.get(names[c.span], 0) + c.n
+    if ks_by != {"expansion (K2 + elementwise)": ksm}:
+        raise AssertionError(f"he.ks.launches by stage {ks_by}; expected "
+                             f"{ksm} on the expansion")
+    log("pir", f"{smi}: he.ks.launches of the warm request {ks_by} "
+        f"({5 * logm_multi} a program); the program's peak "
+        f"{peak:,} B above the {mem0:,} B already allocated, "
+        f"{peak + db_bytes:,} B with the database (PR 25: 30,871,388,160 "
+        f"above its base, 31,904,990,208 with the database)")
     covered = sum(times.values())
     log("pir", f"{smi}: one warm POST /pir-fetch pirHypercubeMulti ({n_cts} "
         f"cts x {k_ct} rows) by stage: " + ", ".join(
@@ -2067,6 +2207,11 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
         f"{pir_fold.fold_dim1.launches}, plain-version calls "
         f"{pir_fold.fold_dim1_plain.calls} (the checks and timings)")
 
+    # the key-switch kernels at the multi-row expansion's widest round
+    check_key_switch("pir", svc._keys[mclient.key_id], logm_multi - 1,
+                     min(n_cts, pir_device.MAX_EXPANDED >> logm_multi)
+                     << logm_multi, torch.int32, smi)
+
     wall_p, busy, prof = profile_device(
         f"one warm /pir-fetch ({n_cts} multi-row cts)",
         lambda: disp.handle("POST", "/pir-fetch", {}, raw))
@@ -2081,7 +2226,8 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
     # K2 at the multi-row key switch's widest round, on the special prime
     k2_pir = time_ntt4_transform(ks_tb, ks_fwd[0],
                                  forward_int64=ks_fwd[1] == torch.int64,
-                                 inverse_rows=ks_inv[0])
+                                 inverse_rows=ks_inv[0],
+                                 inverse_int64=ks_inv[1] == torch.int64)
     k2_pir.update(
         shape=[ks_fwd[0], p.n], dtype=str(ks_fwd[1])[6:],
         inverse_shape=[ks_inv[0], p.n], inverse_dtype=str(ks_inv[1])[6:],
@@ -2096,12 +2242,13 @@ def phase_pir(engine, disp, base_np, top_ids, reset_counts, smi):
 
 
 def time_ntt4_transform(tb, nbatch: int, forward_int64: bool = False,
-                        inverse_rows: int | None = None) -> dict:
+                        inverse_rows: int | None = None,
+                        inverse_int64: bool = True) -> dict:
     """K2 per transform at a request's shape ([nbatch, N]): the forward
-    transform of int32 residues (int64 with ``forward_int64``, as the packed
-    key switch gives it its digits) and the inverse of int64 ones (of
-    ``inverse_rows`` rows if given), as the request runs them, each beside
-    the plain version and the card's bound.
+    transform of int32 residues (int64 with ``forward_int64``) and the
+    inverse of int64 ones (int32 without ``inverse_int64``, as the key
+    switch gives it its sums; of ``inverse_rows`` rows if given), as the
+    request runs them, each beside the plain version and the card's bound.
     Returns the timing keys of K2's entry in the kernels line (means of the
     two directions; each direction's own under "forward"/"inverse")."""
     import torch
@@ -2114,7 +2261,8 @@ def time_ntt4_transform(tb, nbatch: int, forward_int64: bool = False,
     fwd = torch.int64 if forward_int64 else torch.int32
     for name, inverse, dtype, rows_n in (
             ("forward", False, fwd, nbatch),
-            ("inverse", True, torch.int64, inverse_rows or nbatch)):
+            ("inverse", True, torch.int64 if inverse_int64 else torch.int32,
+             inverse_rows or nbatch)):
         fn = n4.intt4 if inverse else n4.ntt4
         # 6 x 25 MB in + out: past L2; two copies of an input of a GB
         n_x = 6 if rows_n * tb.n * dtype.itemsize < 1 << 30 else 2
@@ -4577,7 +4725,7 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     kernels = ["union_scan_min", "ntt4_step", "pq_onehot", "slab_scan",
-               "tile_schedule", "pir_fold1"]
+               "tile_schedule", "pir_fold1", "key_switch"]
     for name in kernels:                  # always compile from the sources
         cuda_build.library_path(name).unlink(missing_ok=True)
     # the host C++ libraries (host NTT and vecs reader, JSON codec, epoll
@@ -4747,7 +4895,7 @@ def main() -> int:
     k2_per_request.update(scores_per_call)
     k2_err = max(k2_err, k2_err_s)
     packed_launches, k2_per_request["packed"], k2_err_p = phase_packed(
-        engine, disp, data, queries, cands, rep_e, reset_counts)
+        engine, disp, data, queries, cands, rep_e, reset_counts, smi)
     ckks_launches, ckks_per_request, k2_err_c = phase_ckks(
         engine, disp, data, queries, cands, reset_counts, smi)
     k2_per_request.update(ckks_per_request)
@@ -4801,13 +4949,15 @@ def main() -> int:
     svc = engine.he_service
     nbatch = NQ_BATCH * -(-cfg.protocol.coarse_probe // (svc.params.n // D))
     k2_times = time_ntt4_transform(svc._tables[0], nbatch)
-    # the packed key switch: L digit rows a block row, on the special prime
+    # the packed key switch: L digit rows a block row, on the special
+    # prime, its digits and sums int32 (ops/key_switch.py)
     k2_packed = time_ntt4_transform(svc._ext_tables[-1],
                                     nbatch * len(svc.params.qs),
-                                    forward_int64=True)
+                                    inverse_int64=False)
     # the CKKS key switch's largest transform: [2048, 8192] on the special
     # prime (512 block rows x 4 digit components, pre-combine)
-    k2_ckks = time_ntt4_transform(engine.ckks_service._tables[-1], 2048)
+    k2_ckks = time_ntt4_transform(engine.ckks_service._tables[-1], 2048,
+                                  inverse_int64=False)
     # one query's whole-ciphertext scores: its 8 blocks a limb
     k2_scores1 = time_ntt4_transform(svc._tables[0], nbatch // NQ_BATCH)
     profile_search(disp, queries, probes, k)

@@ -12,7 +12,8 @@ program a request, eager PyTorch on int64 tensors:
   digits, forward-transforms all (row, digit) polys per prime of the
   active level and the special prime, multiplies by the client's
   pre-transformed Galois key, inverse-transforms the two sums and divides
-  out the special prime;
+  out the special prime (the digits, the products' sums and the division
+  three kernels of ops/key_switch.py on the card);
 - the combined single-ct response: the slot mask (one ct×pt and a
   rescale), the tree combine of the blocks and the post-combine
   rotations on one row a query.
@@ -187,10 +188,6 @@ class DeviceCKKS:
 
     # ------------------------------------------------------------------
     # the device program, as plain functions on tensors
-    def _qcol(self, lvl: int, device) -> torch.Tensor:
-        return torch.tensor(self.ext[:lvl], dtype=torch.int64,
-                            device=device)[:, None]
-
     def _rescale(self, p0: List[torch.Tensor], p1: List[torch.Tensor]):
         """Exact RNS rescale of [M, N] residue rows per prime: drop the last
         prime, dividing by it → (c0, c1) [M, len−1, N] int64."""
@@ -228,8 +225,7 @@ class DeviceCKKS:
             prod1.append(i01[B:])
         acc0, acc1 = self._rescale(prod0, prod1)
         for r in range(len(pre.perm) if pre else 0):
-            acc0, acc1 = rotate_add(acc0, acc1, acc0, acc1, pre, r,
-                                    self._qcol(level_in - 1, acc0.device))
+            acc0, acc1 = rotate_add(acc0, acc1, acc0, acc1, pre, r)
         return acc0, acc1
 
     def _score(self, ct, pt_rns, pre) -> torch.Tensor:
@@ -273,14 +269,12 @@ class DeviceCKKS:
                 cur0[:, 0::2].reshape(-1, lvl2, n),
                 cur1[:, 0::2].reshape(-1, lvl2, n),
                 cur0[:, 1::2].reshape(-1, lvl2, n),
-                cur1[:, 1::2].reshape(-1, lvl2, n), tree, k,
-                self._qcol(lvl2, cur0.device))
+                cur1[:, 1::2].reshape(-1, lvl2, n), tree, k)
             cur0 = x0.reshape(nq, nb_k // 2, lvl2, n)
             cur1 = x1.reshape(nq, nb_k // 2, lvl2, n)
         a0, a1 = cur0[:, 0], cur1[:, 0]
         for r in range(len(post.perm) if post else 0):
-            a0, a1 = rotate_add(a0, a1, a0, a1, post, r,
-                                self._qcol(lvl2, a0.device))
+            a0, a1 = rotate_add(a0, a1, a0, a1, post, r)
         return torch.stack([a0, a1], 1).to(torch.int32)
 
     def _gather(self, ids: torch.Tensor):

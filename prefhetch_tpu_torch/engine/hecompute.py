@@ -17,10 +17,11 @@ coefficient-extracts the inner products with client-registered Galois keys
 (log2(d) automorphism + key-switch rounds) and sums d/nb queries' blocks
 into one 2-limb ciphertext; its threefry-seeded wire has the c1 mask
 regenerated on the device (ops/threefry.py). Every transform is one launch
-of kernel K2 (ops/ntt4_fused.py). The device program is eager PyTorch on
-int32/int64 tensors: CUDA has native 64-bit integer multiply and
-remainder, so every step is exact and the result is bit-equal to the JAX
-program's.
+of kernel K2 (ops/ntt4_fused.py), and the rotation step's modular
+arithmetic around K2 three hand-written kernels (ops/key_switch.py). The
+rest of the device program is eager PyTorch on int32/int64 tensors: CUDA
+has native 64-bit integer multiply and remainder, so every step is exact
+and the result is bit-equal to the JAX program's.
 
 ``device`` takes the place of the JAX service's ``backend``: on a card the
 program runs there with K2; with ``device="cpu"`` the same program runs on
@@ -40,8 +41,8 @@ The Galois machinery of the three HE device programs (the packed program
 here, engine/ckks_device.py and engine/pir_device.py) is written once
 here: the key intake (``check_galois_keys``, ``galois_key_tables``), the
 automorphism tables (``automorphism_tables``) and the rotation step
-(``rotate_add``, over ``key_switch``), bundled per key set as
-``Rotations``.
+(``rotate_add``, over ``key_switch`` and the kernels of
+ops/key_switch.py), bundled per key set as ``Rotations``.
 """
 
 from __future__ import annotations
@@ -60,6 +61,7 @@ from prefhetch_tpu_torch.crypto.ntt import build_tables, intt, ntt
 from prefhetch_tpu_torch.crypto.packing import candidates_per_block, plain_ints
 from prefhetch_tpu_torch.crypto.params import BFVParams
 from prefhetch_tpu_torch.device import resolve_device
+from prefhetch_tpu_torch.ops.key_switch import ks_digits, ks_finish, ks_mac
 from prefhetch_tpu_torch.ops.ntt4 import (
     build_ntt4_tables, fourstep_perm, intt4, modmul, ntt4,
 )
@@ -67,49 +69,38 @@ from prefhetch_tpu_torch.ops.threefry import tf_uniform_rns
 from prefhetch_tpu_torch.utils.stages import stage
 
 
-def key_switch(c1g: torch.Tensor, kb: torch.Tensor, ka: torch.Tensor,
-               tabs, digit_bits: int):
-    """Hybrid key switch on the device: the switch of ``rotate_add``, the
-    rotation step of the packed BFV program, the CKKS program
-    (engine/ckks_device.py, at its active level) and the PIR expansion
-    (engine/pir_device.py).
+def key_switch(y1: torch.Tensor, perm: torch.Tensor, neg: torch.Tensor,
+               kb: torch.Tensor, ka: torch.Tensor, tabs,
+               digit_bits: int) -> List[torch.Tensor]:
+    """Hybrid key switch of σ(y1) on the device, σ the signed automorphism
+    (perm, neg): the switch of ``rotate_add``, the rotation step of the
+    packed BFV program, the CKKS program (engine/ckks_device.py, at its
+    active level) and the PIR expansion (engine/pir_device.py).
 
-    c1g [M, l, N]: canonical coefficient-domain residues mod the first l
-    primes of ``tabs``; kb, ka [l·n_digits, l+1, N] int32: the key's rows
-    for those primes and the special prime (the last of ``tabs``), NTT
-    domain in four-step order → (ks0, ks1) [M, l, N] int64 canonical.
+    y1 [M, l, N]: canonical residues mod the first l primes of ``tabs``;
+    kb, ka [l·n_digits, l+1, N] int32: the key's rows for those primes and
+    the special prime (the last of ``tabs``), NTT domain in four-step
+    order → per prime of ``tabs``, the inverse transform [2M, N] int32 of
+    both halves' sums (the kb half in rows [0, M)), which
+    ``ops.key_switch.ks_finish`` divides by the special prime.
 
-    Per extension prime: one forward K2 over all (row, digit) polys, Σ of
-    the n_comp reduced products (< 2^35, far inside int64), one inverse K2
-    of both halves; then the special prime's residue, centred, is divided
-    out exactly. The products live one prime at a time."""
-    M, l, n = c1g.shape
-    n_digits = -(-30 // digit_bits)
-    n_comp = l * n_digits
-    dmask = (1 << digit_bits) - 1
-    digits = torch.stack(
-        [(c1g[:, i] >> (dd * digit_bits)) & dmask
-         for i in range(l) for dd in range(n_digits)], dim=1)
-    flat = digits.reshape(M * n_comp, n)
-    acc0, acc1 = [], []
+    The digit planes of σ(y1) (``ks_digits``); per extension prime one
+    forward K2 over all (row, digit) polys, the n_comp products with the
+    key summed in registers (``ks_mac``), one inverse K2 of both halves.
+    One prime's transformed digits live at a time; the digits go before
+    the last prime's sums."""
+    l = len(tabs) - 1
+    flat = ks_digits(y1, perm, neg, [tb.q for tb in tabs[:l]], digit_bits)
+    parts = []
     for e, tb in enumerate(tabs):
-        D = ntt4(flat, tb).reshape(M, n_comp, n)
-        s0 = modmul(D, kb[:, e], tb.q).sum(1) % tb.q
-        s1 = modmul(D, ka[:, e], tb.q).sum(1) % tb.q
-        del D
-        i01 = intt4(torch.cat([s0, s1]), tb).to(torch.int64)
-        acc0.append(i01[:M])
-        acc1.append(i01[M:])
-    sp = tabs[-1].q
-    cp0 = torch.where(acc0[-1] > sp // 2, acc0[-1] - sp, acc0[-1])
-    cp1 = torch.where(acc1[-1] > sp // 2, acc1[-1] - sp, acc1[-1])
-    out0, out1 = [], []
-    for i in range(l):
-        q = tabs[i].q
-        inv_p = pow(sp, -1, q)
-        out0.append((acc0[i] - cp0) % q * inv_p % q)
-        out1.append((acc1[i] - cp1) % q * inv_p % q)
-    return torch.stack(out0, 1), torch.stack(out1, 1)
+        d = ntt4(flat, tb)
+        if e == l:
+            del flat
+        s01 = ks_mac(d, kb[:, e], ka[:, e], tb.q)
+        del d
+        parts.append(intt4(s01, tb))
+        del s01
+    return parts
 
 
 class Rotations(NamedTuple):
@@ -191,32 +182,28 @@ def automorphism_tables(ctx, elts, device):
             torch.from_numpy(np.stack([sg < 0 for _, sg in maps])).to(device))
 
 
-def signed_perm(x: torch.Tensor, perm: torch.Tensor, neg: torch.Tensor,
-                qs: torch.Tensor) -> torch.Tensor:
-    """[..., l, N] canonical residues → out[..., i] = ±x[..., perm[i]] mod
-    q, negated where ``neg``, in the dtype of x and qs [l, 1]."""
-    y = x[..., perm]
-    return torch.where(neg & (y != 0), qs - y, y)
-
-
-def rotate_add(x0, x1, y0, y1, rot: Rotations, r: int, qs: torch.Tensor):
-    """(x0, x1) + σ(y0, y1) mod q with σ round r of ``rot``: the signed
-    automorphism of both halves of y, σ(y1) key-switched (``key_switch``).
-    x, y [..., l, N] canonical residues and qs [l, 1] the active primes, in
-    one storage dtype (int32 or int64) → the sums in x's shape and dtype.
-
-    σ(y1) is switched and freed before σ(y0) is made: at the widest round
-    of the PIR expansion one int32 half is ~1.3 GB."""
+def rotate_add(x0, x1, y0, y1, rot: Rotations, r: int):
+    """(x0, x1) + σ(y0, y1) mod q with σ round r of ``rot``: σ(y1)
+    key-switched (``key_switch``), then ``ks_finish`` adds x0 + σ(y0) and
+    x1 to the switch's halves. x, y [..., l, N] canonical residues mod the
+    first l primes of ``rot.tabs``, in one storage dtype (int32 or int64) →
+    the sums in x's shape and dtype. Neither σ(y1) nor σ(y0) is
+    materialised: the digits and the finish gather through the
+    automorphism as they read; the digit planes are freed before σ(y0) is
+    read. A round is l + 3 launches of ``ops/key_switch.py``'s kernels
+    around K2's 2(l + 1) on the card."""
     perm, neg = rot.perm[r], rot.neg[r]
-    g1 = signed_perm(y1, perm, neg, qs)
-    ks0, ks1 = key_switch(g1.reshape((-1,) + g1.shape[-2:]), rot.kb[r],
-                          rot.ka[r], rot.tabs, rot.digit_bits)
-    del g1
-    g0 = signed_perm(y0, perm, neg, qs)
-    z0 = ((x0.to(torch.int64) + g0 + ks0.view(x0.shape)) % qs).to(x0.dtype)
-    del g0, ks0
-    z1 = ((x1.to(torch.int64) + ks1.view(x1.shape)) % qs).to(x1.dtype)
-    return z0, z1
+    shape = x0.shape
+    l, n = shape[-2:]
+
+    def rows(t):
+        return t.reshape(-1, l, n).contiguous()
+
+    parts = key_switch(rows(y1), perm, neg, rot.kb[r], rot.ka[r], rot.tabs,
+                       rot.digit_bits)
+    z0, z1 = ks_finish(parts, rows(x0), rows(x1), rows(y0), perm, neg,
+                       [tb.q for tb in rot.tabs[:l]], rot.tabs[-1].q)
+    return z0.view(shape), z1.view(shape)
 
 
 class HEComputeService:
@@ -845,8 +832,6 @@ class HEComputeService:
         gnb = shift_tabs.shape[1]                    # G·nb
         M = nq * nb
         n_out = -(-M // gnb)
-        qs = torch.tensor(self.params.qs, dtype=torch.int64,
-                          device=idx.device)[:, None]
         c0, c1 = [], []
         for tb, o0, o1 in self._mac_limbs(c0q, c1q, self._base_dev[idx.long()],
                                           mono_pre):
@@ -857,7 +842,7 @@ class HEComputeService:
         c0 = torch.stack(c0, 1)                       # [M, L, N] coeff
         c1 = torch.stack(c1, 1)
         for r in range(len(rot.perm)):
-            c0, c1 = rotate_add(c0, c1, c0, c1, rot, r, qs)
+            c0, c1 = rotate_add(c0, c1, c0, c1, rot, r)
         outs = []
         for i, tb in enumerate(self._tables):
             nt = ntt4(torch.cat([c0[:, i], c1[:, i]]), tb).reshape(2, M, n)

@@ -12,7 +12,8 @@ tensors, for a chunk of B query ciphertexts at once:
    logm rounds, each a signed monomial permutation and one rotation step
    (engine/hecompute.py ``rotate_add``, shared with the packed BFV and
    CKKS programs: a signed Galois permutation and a key switch, 15-bit
-   digits) over every ciphertext of the round;
+   digits; on the card five launches of ops/key_switch.py's kernels
+   around K2's six, int32 throughout) over every ciphertext of the round;
 2. one forward transform a limb of every selector that is used;
 3. the dim-1 fold C_j = Σ_i sel_i ⊗ db[i, j] over the g1 rows of the
    [g1, g2] hypercube (ops/pir_fold.py ``fold_dim1``: one launch of the
@@ -30,8 +31,8 @@ Every transform is one call of ``ops/ntt4.ntt4``/``intt4``: one launch of
 kernel K2 on the card, its plain version on CPU tensors. A chunk takes
 6·logm + 4·L K2 launches (62 for single-row ciphertexts and 80 for fully
 packed multi-row ones at the SIFT1M preset: N=4096, L=2, g1 = g2 = 177) and
-one launch of the fold's kernel. Modular products are ``%`` on int64 and
-the fold's sums exact u64, so the responses are
+one launch of the fold's kernel. Modular products are ``%`` on int64, the
+fold's and the key switch's sums exact u64, so the responses are
 bit-equal to the JAX program's and to ``PIR2Server``'s. The NTT domain of
 this module is in four-step order: the database (transformed on the device
 by K2, which emits that order) and the key stacks (host NTT, then
@@ -47,8 +48,9 @@ Inside ``record_stages()`` a request counts (utils/stages.py ``count``)
 included), and per program ``pir.programs``, ``pir.expanded`` (B·2^logm
 ciphertexts after expansion) and ``pir.selector_sets`` (B·n_rows); K2's
 wrappers count the rows each launch transforms (``k2.rows.i32``,
-``k2.rows.i64``) and the fold's wrapper its launches
-(``pir.fold1.launches``).
+``k2.rows.i64``), the fold's wrapper its launches
+(``pir.fold1.launches``) and the key switch's its kernels' launches
+(``he.ks.launches``, five a round).
 
 Not ported: the JAX module's disk caches (``cache_dir``: the transformed
 database and key stacks), its serialised TPU executables, its retry and
@@ -74,8 +76,8 @@ from prefhetch_tpu_torch.crypto.pir import grid_dims, pack_database
 from prefhetch_tpu_torch.device import resolve_device
 from prefhetch_tpu_torch.engine.hecompute import (
     Rotations, automorphism_tables, galois_key_tables, rotate_add,
-    signed_perm,
 )
+from prefhetch_tpu_torch.ops.key_switch import signed_perm
 from prefhetch_tpu_torch.ops.ntt4 import build_ntt4_tables, intt4, ntt4
 from prefhetch_tpu_torch.ops.pir_fold import fold_dim1
 from prefhetch_tpu_torch.utils.stages import count, stage
@@ -84,17 +86,18 @@ from prefhetch_tpu_torch.utils.wire import pack_i32
 DIGIT_BITS = 15
 
 # Expanded selector ciphertexts one program holds at its widest round
-# (B query ciphertexts × 2^logm). At N=4096 and L=2 the widest round keeps
-# ~0.7 MiB an expanded ciphertext live (its int32 halves, their signed
-# permutations, the [4, N] key-switch digits, their int64 products by one
-# prime's key and the int64 sums of three primes): 40,960 = ten fully
-# packed multi-row ciphertexts (10 × 4,096, the 100-row fetch of one query
-# at SIFT1M) peaked at 28.75 GiB above the 1,026.7 MB database on an H100
-# 80GB (chip_smoke.py [pir]); 80 single-row ciphertexts (m_pad = 512) take
-# the same cap. The frontends answer requests on several threads, and two
-# such programs at once would need ~58 GiB, three more than the card holds,
-# so a service runs its programs one at a time (``DevicePIR2._lock``) and
-# the cap leaves the card half free whatever the concurrency.
+# (B query ciphertexts × 2^logm). At N=4096 and L=2 a program peaks at
+# ~0.35 MB an expanded ciphertext: 40,960 = ten fully packed multi-row
+# ciphertexts (10 × 4,096, the 100-row fetch of one query at SIFT1M) peaked
+# at 14,181,859,328 B above what the card already held, the 1,026.6 MB
+# database among it, on an H100 80GB (chip_smoke.py [pir]); the widest
+# round of the expansion holds ~0.26 MB of it a ciphertext (its two int32
+# halves, their int32 key-switch digits, one prime's transformed digits and
+# the int32 inverses of three primes, ops/key_switch.py). 80 single-row
+# ciphertexts (m_pad = 512) take the same cap. The frontends answer
+# requests on several threads, and a service runs its programs one at a
+# time (``DevicePIR2._lock``), so the cap bounds the card's share whatever
+# the concurrency.
 MAX_EXPANDED = 40_960
 
 # the dim-2 fold: products < q² < 2^60, seven of them and a residue < q
@@ -251,8 +254,7 @@ class DevicePIR2:
             both0 = torch.cat([c0s, signed_perm(c0s, mp, mn, self._qs32)], 1)
             both1 = torch.cat([c1s, signed_perm(c1s, mp, mn, self._qs32)], 1)
             del c0s, c1s
-            c0s, c1s = rotate_add(both0, both1, both0, both1, rot, j,
-                                  self._qs32)
+            c0s, c1s = rotate_add(both0, both1, both0, both1, rot, j)
             del both0, both1
         return c0s, c1s
 

@@ -6,7 +6,9 @@ result ciphertexts), the CKKS
 device program on CUDA against the CPU (K2 at the CKKS primes too), the
 PIR device program on CUDA against the CPU (K2 at its key-switch and
 database shapes too; the dim-1 fold's kernel against its plain version,
-one launch a program), the scan variants of query_pipeline on CUDA
+one launch a program), the rotation step's kernels against their plain
+versions at the three HE programs' shapes (five launches a round on the
+stage that runs them), the scan variants of query_pipeline on CUDA
 against the CPU, and sharding on the card: the engine over meshes of
 shards of the one card byte-identical to the unsharded engine (K1 once a
 shard), the q1 MAC and the PIR answer sharded, an NCCL world of one and the
@@ -573,6 +575,236 @@ def test_pir_fold1_one_launch_a_program(cuda, monkeypatch):
         for j, row in enumerate(g):
             np.testing.assert_array_equal(client.decode_response_2d(
                 got[3 * i + j], 128, rs[i][j]), base[row])
+
+
+def _ks_operands(dev, M, l, n, bits, dtype, fill, ext, seed):
+    """The rotation step's operands on the card: x0, x1, y0, y1 [M, l, n]
+    residues of the storage dtype below the first l primes of ``ext``,
+    the key's rows kb, ka [n_comp, l+1, n] int32 below every prime, and
+    the automorphism X -> X^(2n - 3) (perm int64, neg bool): uniform from
+    a seeded generator, or every residue q - 1."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_comp = l * -(-30 // bits)
+
+    def residues(shape, qs, dt):
+        t = torch.empty(shape, dtype=dt, device=dev)
+        for i, q in enumerate(qs):
+            if fill == "q-1":
+                t[..., i, :] = q - 1
+            else:
+                t[..., i, :] = torch.randint(
+                    0, q, t[..., i, :].shape, generator=gen, device=dev,
+                    dtype=dt)
+        return t
+
+    xs = [residues((M, l, n), ext[:l], dtype) for _ in range(4)]
+    kb, ka = (residues((n_comp, l + 1, n), ext, torch.int32)
+              for _ in range(2))
+    k = np.arange(n)
+    kg = k * (2 * n - 3) % (2 * n)
+    perm, neg = np.empty(n, np.int64), np.empty(n, bool)
+    perm[kg % n], neg[kg % n] = k, kg >= n
+    return (*xs, kb, ka, torch.from_numpy(perm).to(dev),
+            torch.from_numpy(neg).to(dev))
+
+
+def _ks_case(case):
+    """(M, l, N, bits, dtype, fill, extension primes) of the rotation
+    step's shapes: PIR's (int32, 15-bit digits, two limbs of N=4096), the
+    packed program's (int64, 30-bit, two limbs), CKKS's (int64, 15-bit,
+    N=8192, at two limbs and at one); M ragged against the mac's tile of
+    four ciphertexts."""
+    from prefhetch_tpu_torch.crypto.bfv import BFVContext
+    from prefhetch_tpu_torch.crypto.params import pir_params_for
+
+    pir = pir_params_for(4096, 257, 2)
+    pir_ext = tuple(pir.qs) + (BFVContext(pir)._special_p,)
+    bfv_ext = tuple(find_ntt_primes(4096, 30, 3))
+    ckks = find_ntt_primes(8192, 30, 4)
+    return {
+        "pir": (4099, 2, 4096, 15, torch.int32, "uniform", pir_ext),
+        "pir q-1": (1027, 2, 4096, 15, torch.int32, "q-1", pir_ext),
+        "packed": (512, 2, 4096, 30, torch.int64, "uniform", bfv_ext),
+        "packed q-1": (9, 2, 4096, 30, torch.int64, "q-1", bfv_ext),
+        "ckks level 2": (514, 2, 8192, 15, torch.int64, "uniform",
+                         tuple(ckks[:2] + ckks[3:])),
+        "ckks level 1 q-1": (2, 1, 8192, 15, torch.int64, "q-1",
+                             (ckks[0], ckks[3])),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["pir", "pir q-1", "packed", "packed q-1",
+                                  "ckks level 2", "ckks level 1 q-1"])
+def test_key_switch_kernels_match_plain(cuda, case):
+    """csrc/key_switch.cu (ops/key_switch.py) around K2 at the shapes of
+    the three HE programs: the digits, each prime's mac and the finish
+    bit-equal to their plain versions on the same inputs, x and y apart
+    and one pair; one launch each, no plain call by the wrappers."""
+    from prefhetch_tpu_torch.ops import key_switch as ks
+
+    M, l, n, bits, dtype, fill, ext = _ks_case(case)
+    x0, x1, y0, y1, kb, ka, perm, neg = _ks_operands(
+        cuda, M, l, n, bits, dtype, fill, ext, seed=M + n)
+    qs, p = list(ext[:l]), ext[-1]
+    wrappers = (ks.ks_digits, ks.ks_mac, ks.ks_finish)
+    plains = (ks.ks_digits_plain, ks.ks_mac_plain, ks.ks_finish_plain)
+    launches = [w.launches for w in wrappers]
+    calls = [f.calls for f in plains]
+    flat = ks.ks_digits(y1, perm, neg, qs, bits)
+    torch.cuda.synchronize()              # a fault in the run shows here
+    assert flat.dtype == torch.int32 and flat.shape == (
+        M * l * -(-30 // bits), n)
+    assert torch.equal(flat, ks.ks_digits_plain(y1, perm, neg, qs, bits))
+    parts = []
+    for e, q in enumerate(ext):
+        tb = build_ntt4_tables(q, n)
+        d = ntt4(flat, tb)
+        s01 = ks.ks_mac(d, kb[:, e], ka[:, e], q)
+        torch.cuda.synchronize()
+        assert torch.equal(s01, ks.ks_mac_plain(d, kb[:, e], ka[:, e], q))
+        parts.append(intt4(s01, tb))
+    for args in ((x0, x1, y0), (x0, x1, x0)):
+        got = ks.ks_finish(parts, *args, perm, neg, qs, p)
+        torch.cuda.synchronize()
+        want = ks.ks_finish_plain(parts, *args, perm, neg, qs, p)
+        for g, w in zip(got, want):
+            assert g.dtype == dtype and torch.equal(g, w)
+    assert [w.launches - b for w, b in zip(wrappers, launches)] == [
+        1, l + 1, 2]
+    assert [f.calls - c for f, c in zip(plains, calls)] == [1, l + 1, 2]
+
+
+@pytest.mark.parametrize("n_comp,fill", [(15, "q-1"), (60, "q-1"),
+                                         (60, "uniform")])
+def test_key_switch_mac_folds_long_sums(cuda, n_comp, fill):
+    """The mac past one span of its lazy fold (SPAN = 14 products): 15 and
+    60 digit planes a ciphertext, every operand q - 1 drives each u64 sum
+    to its largest; bit-equal to the plain version."""
+    from prefhetch_tpu_torch.ops import key_switch as ks
+
+    q = find_ntt_primes(4096, 30, 1)[0]
+    gen = torch.Generator(device=cuda).manual_seed(n_comp)
+    if fill == "q-1":
+        d = torch.full((37 * n_comp, 4096), q - 1, dtype=torch.int32,
+                       device=cuda)
+        kb = torch.full((n_comp, 4096), q - 1, dtype=torch.int32,
+                        device=cuda)
+    else:
+        d = torch.randint(0, q, (37 * n_comp, 4096), generator=gen,
+                          device=cuda, dtype=torch.int32)
+        kb = torch.randint(0, q, (n_comp, 4096), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    ka = torch.randint(0, q, (n_comp, 4096), generator=gen, device=cuda,
+                       dtype=torch.int32)
+    got = ks.ks_mac(d, kb, ka, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ks.ks_mac_plain(d, kb, ka, q))
+
+
+def test_key_switch_kernels_reject_what_they_cannot_take(cuda):
+    from prefhetch_tpu_torch.ops import key_switch as ks
+
+    M, l, n, bits, dtype, fill, ext = _ks_case("pir q-1")
+    x0, x1, y0, y1, kb, ka, perm, neg = _ks_operands(
+        cuda, 8, l, n, bits, dtype, fill, ext, seed=1)
+    qs = list(ext[:l])
+    launches = [w.launches for w in (ks.ks_digits, ks.ks_mac, ks.ks_finish)]
+    with pytest.raises(ValueError, match="int32 or int64"):
+        ks.ks_digits(y1.to(torch.int16), perm, neg, qs, bits)
+    with pytest.raises(ValueError, match="tensors on"):
+        ks.ks_digits(y1, perm.cpu(), neg, qs, bits)
+    with pytest.raises(ValueError, match=r"contiguous \[M, l, N\]"):
+        ks.ks_digits(y1.transpose(0, 1), perm, neg, qs, bits)
+    flat = torch.zeros((32, n), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous along N"):
+        ks.ks_mac(flat, kb[:, 0].t().contiguous().t(), ka[:, 0], ext[0])
+    with pytest.raises(ValueError, match=r"\(1, 2\^30\)"):
+        ks.ks_mac(flat, kb[:, 0], ka[:, 0], 1 << 30)
+    parts = [torch.zeros((16, n), dtype=torch.int32, device=cuda)] * 3
+    with pytest.raises(ValueError, match="does not match x0"):
+        ks.ks_finish(parts, x0, x1.long(), y0, perm, neg, qs, ext[-1])
+    with pytest.raises(ValueError, match="parts must be"):
+        ks.ks_finish(parts[:2], x0, x1, y0, perm, neg, qs, ext[-1])
+    assert [w.launches for w in (ks.ks_digits, ks.ks_mac,
+                                 ks.ks_finish)] == launches
+
+
+def _ks_launches_by_stage(rec):
+    names = {s.id: s.name for s in rec["spans"]}
+    by = {}
+    for c in rec["counters"]:
+        if c.name == "he.ks.launches":
+            by[names[c.span]] = by.get(names[c.span], 0) + c.n
+    return by
+
+
+def test_key_switch_five_launches_a_round_on_the_expansion(cuda):
+    """A PIR program on the card (N=4096, nbase 5,000, three 3-row
+    ciphertexts, one program): the rotation step launches the digits,
+    three macs and the finish a round, counted as ``he.ks.launches`` on the
+    ``expansion (K2 + elementwise)`` stage, and no plain version runs; the
+    rows decode exactly."""
+    from prefhetch_tpu_torch.crypto.params import pir_params_for
+    from prefhetch_tpu_torch.crypto.pir import PIRClient
+    from prefhetch_tpu_torch.engine.pir_device import DevicePIR2
+    from prefhetch_tpu_torch.ops import key_switch as ks
+    from prefhetch_tpu_torch.utils import stages
+
+    p = pir_params_for(4096, 257, 2)
+    base = np.random.default_rng(8).integers(0, 256, (5000, 128)) \
+        .astype(np.float32)
+    client = PIRClient(p, seed=7)
+    dev = DevicePIR2(base, p, device=cuda)
+    dev.register_galois_keys("k", client.galois_keys_wire_2d_multi(
+        5000, 128, 3))
+    groups = [[0, 4999, 17], [1234, 5, 6], [77, 78, 2500]]
+    wires, rs = zip(*(client.build_query_2d_multi(g, 5000, 128)
+                      for g in groups))
+    plains = (ks.ks_digits_plain, ks.ks_mac_plain, ks.ks_finish_plain)
+    calls = [f.calls for f in plains]
+    stages.clear_spans()
+    with stages.record_stages():
+        with stages.span("engine"):
+            got = dev.answer_2d_multi_batch(list(wires), "k", 3)
+    assert _ks_launches_by_stage(stages.recorded_spans()) == {
+        "expansion (K2 + elementwise)": 5 * dev._depth(3)}
+    assert [f.calls for f in plains] == calls
+    for i, g in enumerate(groups):
+        for j, row in enumerate(g):
+            np.testing.assert_array_equal(client.decode_response_2d(
+                got[3 * i + j], 128, rs[i][j]), base[row])
+
+
+def test_key_switch_five_launches_a_round_in_the_packed_program(cuda):
+    """The packed program on the card (d=128: 7 extraction rounds) counts
+    35 ``he.ks.launches`` on its ``device program`` stage, runs no plain
+    version and decrypts exactly."""
+    from prefhetch_tpu_torch.ops import key_switch as ks
+    from prefhetch_tpu_torch.utils import stages
+
+    client = HEClient(HEParams(resp_mod="packed"), seed=6)
+    rng = np.random.default_rng(9)
+    base = rng.integers(0, 256, (900, 128)).astype(np.float32)
+    q = rng.integers(0, 256, (5, 128)).astype(np.float32)
+    cand = np.stack([rng.permutation(900)[:256] for _ in range(5)])
+    gpu = HEComputeService(client.params, device=cuda)
+    gpu.set_base(base)
+    gpu.register_galois_keys("k", client.bfv_extraction_keys_wire(128))
+    cts = [gpu.ctx.ct_from_wire(w) for w in client.encrypt_query_batch(q)]
+    plains = (ks.ks_digits_plain, ks.ks_mac_plain, ks.ks_finish_plain)
+    calls = [f.calls for f in plains]
+    gpu.encrypted_scores_packed(cts, cand, "k")      # key tables built
+    stages.clear_spans()
+    with stages.record_stages():
+        with stages.span("engine"):
+            rg = gpu.encrypted_scores_packed(cts, cand, "k")
+    assert _ks_launches_by_stage(stages.recorded_spans()) == {
+        "device program": 35}
+    assert [f.calls for f in plains] == calls
+    got = client.decrypt_scores_packed([c.to_wire() for c in rg[0]], rg[1],
+                                       q, rg[2])
+    np.testing.assert_array_equal(
+        got, ((base[cand] - q[:, None]) ** 2).sum(-1))
 
 
 @pytest.mark.parametrize("mode", ["combined", "per-block"])

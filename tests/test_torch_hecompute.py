@@ -557,22 +557,23 @@ def _k2(kind, rows, dtype):
 # NTT replay keeps the first calls through them)
 _SEAM = {
     # seeded c1 a limb; MAC a limb (M = 9 rows); 5 extraction rounds of
-    # 3 primes (30-bit keys: 2 digit rows a row); the shift-pack a limb
+    # 3 primes (30-bit keys: 2 digit rows a row; the key switch's digits
+    # and sums int32, ops/key_switch.py); the shift-pack a limb
     "packed": ([_k2("ntt4", 3, torch.int64)] * 2
                + [_k2("ntt4", 9, torch.int32),
                   _k2("intt4", 18, torch.int64)] * 2
-               + [_k2("ntt4", 18, torch.int64),
-                  _k2("intt4", 18, torch.int64)] * 15
+               + [_k2("ntt4", 18, torch.int32),
+                  _k2("intt4", 18, torch.int32)] * 15
                + [_k2("ntt4", 18, torch.int64),
                   _k2("intt4", 2, torch.int64)] * 2),
     # 5 rotations at level 2 (3 blocks, 15-bit keys: 4 digit rows a
     # block), each 3 primes; the ct×pt transforms are ckks_device's own
-    "ckks": [_k2("ntt4", 12, torch.int64), _k2("intt4", 6, torch.int64)] * 15,
+    "ckks": [_k2("ntt4", 12, torch.int32), _k2("intt4", 6, torch.int32)] * 15,
     # 5 expansion rounds of 3 primes over 2^(j+1) int32 cts; the folds'
     # transforms are pir_device's own
     "pir": [c for j in range(5)
             for c in [_k2("ntt4", 8 << j, torch.int32),
-                      _k2("intt4", 4 << j, torch.int64)] * 3],
+                      _k2("intt4", 4 << j, torch.int32)] * 3],
 }
 
 

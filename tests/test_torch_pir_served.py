@@ -139,16 +139,16 @@ def test_a_recorded_fetch_is_one_span_tree_with_its_counters(served):
         "pir.expanded": B << logm, "pir.selector_sets": S}
     # the rows of every K2 launch the program makes, by input dtype:
     # expansion's key switch over 3 extension primes a round (digits int32
-    # forward, the two halves' int64 sums inverse), then the selectors
-    # (int32), the dim-1 sums (int32, ops/pir_fold.py), the digit planes
-    # (int64) and the dim-2 sums (int64), one launch a limb each
+    # forward, the two halves' int32 sums inverse, ops/key_switch.py), then
+    # the selectors (int32), the dim-1 sums (int32, ops/pir_fold.py), the
+    # digit planes (int64) and the dim-2 sums (int64), one launch a limb
+    # each
     ks_rows = sum(B << (j + 1) for j in range(logm))
     nd = svc._n_digits
     L = 2
-    assert by["k2.rows.i32"] == (3 * 4 * ks_rows + L * S * m * 2
-                                 + L * S * 2 * svc.g2)
-    assert by["k2.rows.i64"] == (3 * 2 * ks_rows
-                                 + L * S * 2 * nd * svc.g2
+    assert by["k2.rows.i32"] == (3 * 4 * ks_rows + 3 * 2 * ks_rows
+                                 + L * S * m * 2 + L * S * 2 * svc.g2)
+    assert by["k2.rows.i64"] == (L * S * 2 * nd * svc.g2
                                  + L * S * 2 * nd * 2)
     # the program's counters sit on the engine span, K2's on the stages
     on = {c.span for c in rec["counters"] if c.name.startswith("pir.")}
